@@ -8,7 +8,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 1. the card's name and power limit; build the CUDA kernels and the native
    host library from the checkout's sources;
 2. each kernel against its plain PyTorch version on the card, on segment
-   layouts and sizes up to the LiveJournal-scale graph's;
+   layouts and sizes up to the LiveJournal-scale graph's; the segmented
+   scan's only caller is this phase, as in the JAX package (its tests);
 3. the main path through the CLI entry point on the tracked fixture
    ``data/parity/parity10k.bin`` (pagerank, hop_dist, sssp), checked against
    its goldens;
@@ -16,11 +17,20 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    size (N=4.8M, E=69M, seed 42) written to a BIN file, then BFS from the
    four highest-degree nodes, checked against hop_dist and sssp;
 5. one PageRank superstep's pull-sum on that graph, kernel against plain,
-   and each kernel's time at that graph's shapes beside its plain version.
+   and each kernel's time at that graph's shapes beside its plain version;
+6. the batched engine on that graph: the ``multi_bfs`` CLI at bench.py's
+   headline B=4096, plane_bits=32; then, on one binned schedule, the bit
+   BFS (instances 0-3 against hop_dist), the binned BFS at B=8 (distances
+   equal hop_dist's) and the binned PageRank at B=128 (the d=0.85 instance
+   against pagerank), with aggregate GTEPS, Gedge/s and the memory peak;
+7. the gather probes (``python -m green_marl_tpu_torch.probes.gather``):
+   each probe kernel against its plain version, and their times.
 
-The launch counts printed are those of phases 3 and 4 alone.  The last two
-lines are a JSON record of the kernels and the JSON status line.  Exits
-non-zero, with no result, where CUDA is unavailable.
+Each path's kernel launches are counted from 0 just before it and read just
+after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
+kernel of the port: the engine's edge map is plain PyTorch) and phase 7.
+The last two lines are a JSON record of the kernels and the JSON status
+line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
 
 import contextlib
@@ -46,14 +56,26 @@ GOLD_SSSP_DIST = [0, 141, 114, 170]
 GOLD_RANK = [0.000078454, 0.000063880, 0.000108653, 0.000057279]
 RANK_RTOL = 1e-4        # device tolerance of scripts/parity.py:85
 
+MULTI_B, PLANE_BITS = 4096, 32     # bench.py:53-54, the headline
+PR_B, PR_ITERS = 128, 20           # bench.py:55-56
+
 REPLACES = {
     "segment_reduce_sorted": "green_marl_tpu/ops/pallas_kernels.py:54",
     "plain_cumsum": "green_marl_tpu/ops/pallas_kernels.py:224",
+    "segmented_scan": "green_marl_tpu/ops/pallas_kernels.py:134",
+    "take_along_blocks": "scripts/probe_gather2.py:118",
+    "row_gather_checksum": "scripts/probe_gather4.py:36",
 }
 SOURCES = {
     "segment_reduce_sorted": "green_marl_tpu_torch/csrc/segment_reduce.cu",
     "plain_cumsum": "green_marl_tpu_torch/csrc/cumsum.cu",
+    "segmented_scan": "green_marl_tpu_torch/csrc/segmented_scan.cu",
+    "take_along_blocks": "green_marl_tpu_torch/csrc/gather_probe.cu",
+    "row_gather_checksum": "green_marl_tpu_torch/csrc/gather_probe.cu",
 }
+# the probe lines whose times stand in the kernels record
+PROBE_TIMED = {"take_along_blocks": "axis0 [1024,128]",
+               "row_gather_checksum": "rowB=512 K=8"}
 
 
 def log(msg):
@@ -109,12 +131,14 @@ def main():
     from green_marl_tpu_torch.cli import apps
     from green_marl_tpu_torch.graph import binary_io, native
     from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.models import batched
     from green_marl_tpu_torch.models.bfs import bfs
     from green_marl_tpu_torch.models.hop_dist import hop_dist
     from green_marl_tpu_torch.models.pagerank import pagerank
     from green_marl_tpu_torch.models.relax import INT32_MAX
     from green_marl_tpu_torch.models.sssp import sssp
-    from green_marl_tpu_torch.ops import _build, kernels as K, segment
+    from green_marl_tpu_torch.ops import _build, binned, kernels as K, segment
+    from green_marl_tpu_torch.probes import gather as probes
     from green_marl_tpu_torch.utils.crc import array_checksum_hex
     from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
 
@@ -198,6 +222,37 @@ def main():
           f"(max abs err {cumsum_err:.3g})")
     del v, got, want, bound
 
+    # the segmented scan at the LJ edge count: sorted ids with the LJ-scale
+    # segment layout above (runs of 0..30 slots and one 1M-slot hub)
+    seg_ids = torch.repeat_interleave(
+        torch.arange(n_seg, dtype=torch.int32, device=dev),
+        torch.from_numpy(lens).to(dev), output_size=int(off_np[-1]))
+    seg_ids = torch.cat([seg_ids, torch.full((77,), n_seg, dtype=torch.int32,
+                                             device=dev)])
+    K.reset_launch_counts()
+    for dtype, host in ((torch.int32, vals_i), (torch.float32, vals_f)):
+        vals = torch.from_numpy(host).to(dev)
+        for op in K.OPS:
+            got = K.segmented_scan(vals, seg_ids, op)
+            torch.cuda.synchronize()
+            want = K.segmented_scan_ref(vals, seg_ids, op)
+            if dtype == torch.float32 and op == "add":
+                exact = K.segmented_scan_ref(vals.double(), seg_ids, op)
+                bound = 1e-5 * K.segmented_scan_ref(vals.double().abs(),
+                                                    seg_ids, op)
+                scan_err = float((got - want).abs().max())
+                check(bool(((got.double() - exact).abs() <= bound).all()),
+                      f"segmented_scan {op} float32 n={e_tot} |err| <= "
+                      f"1e-5*segment-cumsum(|v|) (max abs err vs plain "
+                      f"{scan_err:.3g})")
+                del exact, bound
+            else:
+                check(torch.equal(got, want), f"segmented_scan {op} "
+                      f"{str(dtype)[6:]} n={e_tot} exact")
+        del vals, got, want
+    scan_launches = K.launch_counts()["segmented_scan"]
+    del seg_ids
+
     # -- 3 + 4. the main path, counted ------------------------------------
     log("== 3. parity10k through the CLI (-GMDevice=cuda)")
     K.reset_launch_counts()
@@ -278,11 +333,13 @@ def main():
         bfs_res[r] = res
         log(f"  bfs root={r}: levels={res.levels_run} "
             f"reached={res.reached} {ev0.elapsed_time(ev1):.1f} ms")
+    hd_dist = {}
     for r in roots:
         ev0.record()
         hd = hop_dist(g, r)
         ev1.record()
         ev1.synchronize()
+        hd_dist[r] = hd.dist
         lv = bfs_res[r].level
         same = torch.equal(torch.where(lv >= 0, lv, INT32_MAX), hd.dist)
         check(same, f"root {r}: bfs levels == hop_dist distances "
@@ -304,9 +361,12 @@ def main():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  main path {time.time() - t_main:.1f} s; launches {counts}; "
         f"device memory peak {peak_gb:.2f} GB")
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched on the main path ({n} times)")
-    os.remove(path)
+    for name in ("segment_reduce_sorted", "plain_cumsum"):
+        check(counts[name] > 0, f"{name} launched on the main path "
+              f"({counts[name]} times)")
+    counts["segmented_scan"] = scan_launches
+    check(scan_launches > 0, f"segmented_scan launched in its phase "
+          f"({scan_launches} times)")
 
     # -- 5. LJ shapes: kernel against plain, and times ---------------------
     log("== 5. kernels at the LiveJournal-scale graph's shapes")
@@ -337,7 +397,31 @@ def main():
                  .abs().max())
     check(cs_err == 0, "BFS-sweep-style 0/1 int32 cumsum on e_pad: "
           "kernel == plain")
+    # the segmented scan at the LJ CSC shape: its segment tails are the
+    # pull-sum and the relax min above (the TPU's use of the scan)
+    tails = (g.r_begin[1:] - 1).clamp(min=0).long()
+    nonempty = (g.r_begin[1:] > g.r_begin[:-1])
+    n_lj = g.num_nodes
+    scan = K.segmented_scan(pulled, ids)
+    scan_err = max(scan_err,
+                   float((scan - K.segmented_scan_ref(pulled, ids)).abs()
+                         .max()))
+    check(torch.allclose(scan[tails][nonempty], s_kernel[:n_lj][nonempty],
+                         rtol=1e-5, atol=0.0),
+          f"segmented_scan float32 add on the LJ CSC (n={g.e_pad}): segment "
+          f"tails within rtol 1e-5 of the pull-sum (max abs err vs plain "
+          f"{scan_err:.3g})")
+    scan = K.segmented_scan(cand, ids, "min")
+    check(torch.equal(scan[tails][nonempty],
+                      K.segment_reduce_sorted(cand, ids, offs, n_pad,
+                                              "min")[:n_lj][nonempty]),
+          "segmented_scan int32 min on the LJ CSC: segment tails == the "
+          "segment-reduce kernel's min")
+    del scan, tails, nonempty
     times = {
+        "segmented_scan": (
+            cuda_ms(torch, lambda: K.segmented_scan(pulled, ids)),
+            cuda_ms(torch, lambda: K.segmented_scan_ref(pulled, ids))),
         "segment_reduce_sorted": (
             cuda_ms(torch, lambda: K.segment_reduce_sorted(
                 pulled, ids, offs, n_pad, "add")),
@@ -360,10 +444,136 @@ def main():
     log(f"  plain_cumsum int32 n={g.e_pad}: kernel "
         f"{times['plain_cumsum'][0]:.3f} ms, plain "
         f"{times['plain_cumsum'][1]:.3f} ms")
+    log(f"  segmented_scan float32 add, n={g.e_pad} CSC ids: kernel "
+        f"{times['segmented_scan'][0]:.3f} ms, plain "
+        f"{times['segmented_scan'][1]:.3f} ms")
     log(f"  LJ app running times (CLI, host clock, ms): {app_ms}")
+    del pulled, cand, bits, s_kernel, s_ref, s_ref64, contrib, out_deg
+
+    # -- 6. the batched engine --------------------------------------------
+    log(f"== 6. batched engine on the LJ-scale graph (card: {smi})")
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.time()
+    out = run_cli(apps, ["multi_bfs", "-GMDevice=cuda",
+                         f"-num_roots={MULTI_B}", f"-plane_bits={PLANE_BITS}",
+                         path])
+    m = re.search(r"^batched bfs: B=(\d+) levels=(\d+) traversed=(\d+) "
+                  r"aggregate=(\S+) GTEPS", out, re.M)
+    cli_levels, cli_trav, cli_gteps = int(m[2]), int(m[3]), float(m[4])
+    check(int(m[1]) == MULTI_B and cli_trav > 0,
+          f"multi_bfs CLI B={MULTI_B} plane_bits={PLANE_BITS}: "
+          f"{cli_levels} levels, traversed={cli_trav}, {cli_gteps} GTEPS "
+          f"(host clock), whole CLI call {time.time() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    os.remove(path)
+
+    t0 = time.time()
+    bp = binned.binned_in(g).to(dev, with_edges=False)
+    n = bp.n_nodes
+    out_deg_np = g.out_degree().cpu().numpy()[:n]
+    deg_rows_np = np.zeros(bp.n_rows, np.int32)
+    deg_rows_np[:n] = out_deg_np[bp.perm.cpu().numpy()]
+    deg_rows = torch.from_numpy(deg_rows_np).to(dev)
+    order = np.argsort(out_deg_np)[::-1]
+    log(f"  binned schedule built and moved in {time.time() - t0:.1f} s: "
+        f"{len(bp.bins)} bins, {bp.slot_src.numel()} slots "
+        f"({bp.slot_src.numel() / g.num_edges:.3f} x E), {bp.n_hub} hubs "
+        f"in {bp.n_hub_chunks} chunks")
+    check([int(r) for r in order[:4]] == roots,
+          "the engine's four highest-degree roots are phase 4's")
+    chunk = binned.slot_chunk_for(MULTI_B // 8)
+    ev0.record()
+    res = batched.multi_source_bfs_bits(bp, order[:MULTI_B], deg_rows,
+                                        plane_bits=PLANE_BITS,
+                                        slot_chunk=chunk)
+    ev1.record()
+    ev1.synchronize()
+    bits_ms = ev0.elapsed_time(ev1)
+    trav = res.traversed.cpu().numpy()
+    reached = res.reached.cpu().numpy()
+    gteps = float(trav.sum()) / bits_ms / 1e6
+    check(int(trav.sum()) == cli_trav and res.levels_run == cli_levels,
+          f"multi_source_bfs_bits B={MULTI_B}: traversed {int(trav.sum())} "
+          f"and {res.levels_run} levels equal the CLI's; {bits_ms:.1f} ms "
+          f"(CUDA events), {gteps:.2f} GTEPS aggregate")
+    for b, r in enumerate(roots):
+        seen = (hd_dist[r][:n] < INT32_MAX).cpu().numpy()
+        check(int(reached[b]) == int(seen.sum())
+              and int(trav[b]) == int(out_deg_np[seen].astype(np.int64)
+                                      .sum()),
+              f"bit BFS instance {b} (root {r}): reached {int(reached[b])} "
+              f"and traversed {int(trav[b])} equal hop_dist's reached set "
+              f"and its out-degree sum")
+    del res
+
+    roots8 = [int(r) for r in order[:8]]
+    for r in roots8[4:]:
+        hd_dist[r] = hop_dist(g, r).dist
+    ev0.record()
+    res = batched.multi_source_bfs_binned(bp, roots8, slot_chunk=chunk)
+    ev1.record()
+    ev1.synchronize()
+    dist = bp.from_binned(res.dist[:n])
+    check(all(torch.equal(dist[:, b], hd_dist[r][:n])
+              for b, r in enumerate(roots8)),
+          f"multi_source_bfs_binned B=8: distances equal hop_dist's "
+          f"exactly ({res.levels_run} levels, {ev0.elapsed_time(ev1):.1f} "
+          f"ms)")
+    del res, dist, hd_dist
+
+    damp = 0.85 + 0.0005 * np.arange(PR_B, dtype=np.float32)
+    ev0.record()
+    res = batched.multi_pagerank_binned(bp, deg_rows[:n], damp, e=0.0,
+                                        max_iter=PR_ITERS, slot_chunk=chunk)
+    ev1.record()
+    ev1.synchronize()
+    pr_ms = ev0.elapsed_time(ev1)
+    gedges = g.num_edges * PR_B * PR_ITERS / pr_ms / 1e6
+    rank0 = bp.from_binned(res.rank[:n])[:, 0]
+    single = pagerank(g, e=0.0, max_iter=PR_ITERS)
+    rank_err = float((rank0 - single.rank[:n]).abs().max())
+    check(res.iterations == PR_ITERS == single.iterations
+          and bool(torch.isfinite(res.rank).all())
+          and torch.allclose(rank0, single.rank[:n], rtol=1e-4, atol=0.0),
+          f"multi_pagerank_binned B={PR_B} e=0 {PR_ITERS} iterations: the "
+          f"d=0.85 instance within rtol 1e-4 of pagerank (max abs err "
+          f"{rank_err:.3g}); {pr_ms:.1f} ms (CUDA events), {gedges:.2f} "
+          f"Gedge/s")
+    del res, rank0, single
+    engine_peak = torch.cuda.max_memory_allocated() / 1e9
+    counts_engine = K.launch_counts()
+    log(f"  engine: bit BFS {gteps:.2f} GTEPS, PageRank {gedges:.2f} "
+        f"Gedge/s; device memory peak {engine_peak:.2f} GB "
+        f"(graph and phase-4 leftovers {base_gb:.2f} GB); launches "
+        f"{counts_engine} (all by the hop_dist and pagerank references: "
+        f"the edge map is plain PyTorch)")
+    del bp, deg_rows, g
+
+    # -- 7. the gather probes ----------------------------------------------
+    log("== 7. gather probes (kernel == plain checked before each time)")
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    recs = probes.run(dev, log=lambda line: log("  " + line))
+    torch.cuda.synchronize()
+    counts_probe = K.launch_counts()
+    log(f"  probe launches {counts_probe}")
+    probe_errs = {}
+    for name in ("take_along_blocks", "row_gather_checksum"):
+        check(counts_probe[name] > 0, f"{name} launched by the probe "
+              f"({counts_probe[name]} times)")
+        counts[name] = counts_probe[name]
+        rec = next(r for r in recs if r["probe"] == name
+                   and r["name"] == PROBE_TIMED[name])
+        times[name] = (rec["ms"], rec["plain_ms"])
+        probe_errs[name] = max(r["max_abs_err"] for r in recs
+                               if r["probe"] == name)
     log(f"total {time.time() - t_all:.1f} s")
 
-    errs = {"segment_reduce_sorted": seg_err, "plain_cumsum": float(cs_err)}
+    errs = {"segment_reduce_sorted": seg_err, "plain_cumsum": float(cs_err),
+            "segmented_scan": scan_err, **probe_errs}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": counts[name],

@@ -2,8 +2,9 @@
 
 Counterpart of the single-device paths of ``green_marl_tpu/cli/apps.py``
 for pagerank (``pagerank_main.cc``: ``rank[%d] = %0.9lf``, defaults
-e=0.001 d=0.85 max=100), hop_dist (``dist[%d] = %d``) and sssp (edge
-lengths from the reference's xorshift RNG when the file carries none).
+e=0.001 d=0.85 max=100), hop_dist (``dist[%d] = %d``), sssp (edge
+lengths from the reference's xorshift RNG when the file carries none) and
+multi_bfs (the batched bit-plane BFS; one ``batched bfs:`` line).
 """
 
 from __future__ import annotations
@@ -80,10 +81,61 @@ def make_sssp() -> UserMain:
     return m
 
 
+def make_multi_bfs() -> UserMain:
+    m = UserMain("multi_bfs", "Batched multi-source BFS on the "
+                 "bit-packed binned engine (the capability the "
+                 "reference lacks; SURVEY.md §2.10)")
+    m.declare_scalar("num_roots", bio.GMTYPE_INT, True, False, default=1024)
+    m.declare_scalar("plane_bits", bio.GMTYPE_INT, True, False, default=32)
+
+    def run(ctx: RunContext) -> Dict:
+        import time
+
+        from ..models import batched
+        from ..ops import binned
+        g = ctx.graph
+        B = int(ctx.scalars["num_roots"])
+        pb = int(ctx.scalars["plane_bits"])
+        if pb not in (8, 16, 32):
+            raise SystemExit("plane_bits must be 8, 16 or 32")
+        if B > 128 * pb:
+            raise SystemExit(f"num_roots <= {128 * pb} at "
+                             f"plane_bits={pb}")
+        bp = binned.binned_in(g).to(g.device, with_edges=False)
+        out_deg = g.out_degree().cpu().numpy()
+        deg_rows = np.zeros(bp.n_rows, np.int32)
+        deg_rows[: bp.n_nodes] = out_deg[: bp.n_nodes][bp.perm.cpu().numpy()]
+        deg_rows = torch.from_numpy(deg_rows).to(g.device)
+        # the JAX CLI's numpy call on the same int32 degrees: equal ties
+        order = np.argsort(out_deg[: g.num_nodes])
+        roots = order[::-1][:B].astype(np.int32)
+        # eager PyTorch writes each gathered bin before reducing it: cap
+        # that transient (the results do not change)
+        lanes = (B + pb - 1) // pb
+        chunk = binned.slot_chunk_for(lanes * pb // 8)
+        if g.device.type == "cuda":
+            torch.cuda.synchronize(g.device)
+        t0 = time.time()
+        res = batched.multi_source_bfs_bits(bp, roots, deg_rows,
+                                            plane_bits=pb, slot_chunk=chunk)
+        trav = res.traversed.cpu().numpy().astype(np.int64)
+        dt = time.time() - t0
+        total = int(trav.sum())
+        print(f"batched bfs: B={B} levels={int(res.levels_run)} "
+              f"traversed={total} "
+              f"aggregate={total / dt / 1e9:.3f} GTEPS "
+              "(incl. compile on first run)")
+        return {}
+
+    m.set_run(run)
+    return m
+
+
 APPS = {
     "pagerank": make_pagerank,
     "hop_dist": make_hop_dist,
     "sssp": make_sssp,
+    "multi_bfs": make_multi_bfs,
 }
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes.  The library's file name
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process per
+source started together, and linked into one shared library with a plain C
+interface, loaded with ctypes.  The library's file name
 carries a hash of the sources and flags, so an edited kernel is rebuilt and
 an unchanged one is loaded as it is.  Nothing here runs at import time:
 machines without ``nvcc`` (the CPU test runs) import the package freely and
@@ -21,9 +22,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "green_marl_tpu_torch")
-SOURCES = ("segment_reduce.cu", "cumsum.cu")
+SOURCES = ("segment_reduce.cu", "cumsum.cu", "segmented_scan.cu",
+           "gather_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -55,13 +57,29 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    try:
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                                   + out)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + " ".join(link) + "\n"
+                               + proc.stdout + proc.stderr)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)          # atomic: concurrent builders agree
     return so
 
@@ -79,5 +97,16 @@ def lib() -> ctypes.CDLL:
         cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, vp]
         cdll.gm_cumsum_tile_size.restype = cint
         cdll.gm_cumsum_tile_size.argtypes = []
+        cdll.gm_segmented_scan.restype = cint
+        cdll.gm_segmented_scan.argtypes = [vp, vp, vp, vp, vp, i64, cint,
+                                           cint, vp]
+        cdll.gm_segmented_scan_tile_size.restype = cint
+        cdll.gm_segmented_scan_tile_size.argtypes = []
+        cdll.gm_take_along.restype = cint
+        cdll.gm_take_along.argtypes = [vp, vp, vp, i64, cint, cint, i64,
+                                       cint, cint, cint, vp]
+        cdll.gm_row_gather.restype = cint
+        cdll.gm_row_gather.argtypes = [vp, i64, cint, vp, i64, cint, cint,
+                                       vp, vp]
         _LIB = cdll
     return _LIB

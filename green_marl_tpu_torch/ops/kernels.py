@@ -1,11 +1,18 @@
-"""The port's two hand-written CUDA kernels and their plain PyTorch versions.
+"""The port's hand-written CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``green_marl_tpu/ops/pallas_kernels.py``:
+Counterpart of ``green_marl_tpu/ops/pallas_kernels.py`` and of the Pallas
+kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
 
 * ``segment_reduce_sorted`` -- ``out[v] = op-reduce(vals[offsets[v]:offsets[v+1]])``
   for op add, min or max on int32 or float32 (``csrc/segment_reduce.cu``);
 * ``plain_cumsum`` -- inclusive prefix sum of a 1-D int32 or float32 tensor,
-  int32 exact mod 2^32 (``csrc/cumsum.cu``).
+  int32 exact mod 2^32 (``csrc/cumsum.cu``);
+* ``segmented_scan`` -- globally segmented inclusive scan, add/min/max on
+  int32 or float32, segments = runs of equal ids (``csrc/segmented_scan.cu``);
+* ``take_along_blocks`` -- the probes' blocked ``take_along_axis`` on
+  [*, 128] float32 blocks (``csrc/gather_probe.cu``);
+* ``row_gather_checksum`` -- the probes' K-in-flight row gather, returning
+  ``sweeps * sum(table[idx, 0])`` mod 2^32 (``csrc/gather_probe.cu``).
 
 Each wrapper checks its arguments, then dispatches on the tensor's device:
 a CPU tensor takes the plain version (``*_ref``), a CUDA tensor launches the
@@ -22,6 +29,7 @@ kernel: every empty segment and every row from ``len(offsets) - 1`` up to
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -158,12 +166,262 @@ def plain_cumsum(vals: torch.Tensor) -> torch.Tensor:
 plain_cumsum.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Segmented scan
+# ---------------------------------------------------------------------------
+
+_COMBINE = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def segmented_scan_ref(vals: torch.Tensor, ids: torch.Tensor,
+                       op: str = "add") -> torch.Tensor:
+    """Plain version of :func:`segmented_scan`: a Hillis-Steele doubling
+    scan, each step combining only within a segment (log2(n) passes)."""
+    n = vals.numel()
+    if n == 0:
+        return vals.clone()
+    pos = torch.arange(n, device=vals.device)
+    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
+    start = torch.where(ids != prev, pos, 0).cummax(0).values
+    out = vals.clone()
+    k = 1
+    while k < n:
+        take = pos[k:] - k >= start[k:]
+        out[k:] = torch.where(take, _COMBINE[op](out[:-k], out[k:]), out[k:])
+        k *= 2
+    return out
+
+
+def segmented_scan(vals: torch.Tensor, ids: torch.Tensor,
+                   op: str = "add") -> torch.Tensor:
+    """Globally segmented inclusive scan of ``vals`` with sorted ``ids``.
+
+    ``out[i]`` is the op-reduction of ``vals[s..i]``, where ``s`` starts the
+    run of equal ids that holds ``i``; as in the TPU kernel, the run at
+    position 0 starts there unless ``ids[0] == -1``.  Any length is
+    accepted: unlike the TPU kernel, no padding to a multiple of its
+    32,768-slot chunk is needed.  int32 add wraps mod 2^32; float32 add
+    sums in another order than a sequential scan (tree order within
+    4,096-slot tiles, then across tiles), so it agrees to rounding.
+    """
+    if op not in OPS:
+        raise ValueError(f"op must be one of {OPS}, got {op!r}")
+    _check_1d("vals", vals, _DTYPE_CODE)
+    _check_1d("ids", ids, (torch.int32,))
+    if ids.shape != vals.shape:
+        raise ValueError(f"ids shape {tuple(ids.shape)} != vals shape "
+                         f"{tuple(vals.shape)}")
+    if ids.device != vals.device:
+        raise ValueError(f"ids on {ids.device}, vals on {vals.device}")
+    if vals.device.type == "cpu":
+        return segmented_scan_ref(vals, ids, op)
+    stream = _cuda_stream(vals)
+    lib = _build.lib()
+    n = vals.numel()
+    out = torch.empty_like(vals)
+    n_tiles = max(1, -(-n // lib.gm_segmented_scan_tile_size()))
+    agg_f = torch.empty(n_tiles, dtype=torch.int32, device=vals.device)
+    agg_v = torch.empty(n_tiles, dtype=vals.dtype, device=vals.device)
+    with torch.cuda.device(vals.device):
+        err = lib.gm_segmented_scan(
+            vals.data_ptr(), ids.data_ptr(), out.data_ptr(),
+            agg_f.data_ptr(), agg_v.data_ptr(), n, _DTYPE_CODE[vals.dtype],
+            OPS.index(op), stream)
+    if err:
+        raise RuntimeError(f"gm_segmented_scan: CUDA error {err}")
+    segmented_scan.launches += 1
+    return out
+
+
+segmented_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Gather probes: blocked take-along-axis and the K-in-flight row gather
+# ---------------------------------------------------------------------------
+
+LANES = 128
+TAKE_MODES = ("axis0", "axis1", "row", "composed")
+SMEM_BYTES = 232_448      # shared memory one Hopper block may use
+ROW_GATHER_K = (1, 2, 4, 8, 16)
+
+
+def take_along_staged(table_rows: int) -> bool:
+    """Whether the kernel stages a table block of ``table_rows`` rows in
+    shared memory (it fits) or reads it through L1/L2."""
+    return table_rows * LANES * 4 <= SMEM_BYTES
+
+
+def _take_check(table, idx, mode, block_rows, table_rows, window):
+    if mode not in TAKE_MODES:
+        raise ValueError(f"mode must be one of {TAKE_MODES}, got {mode!r}")
+    if table.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"need a float32 table and int32 idx, got "
+                        f"{table.dtype} and {idx.dtype}")
+    for name, t in (("table", table), ("idx", idx)):
+        if t.dim() != 2 or t.shape[1] != LANES:
+            raise ValueError(f"{name}: expected [*, {LANES}], got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")
+    if table.device != idx.device:
+        raise ValueError(f"table on {table.device}, idx on {idx.device}")
+    R = idx.shape[0]
+    if block_rows <= 0 or R % block_rows:
+        raise ValueError(f"idx rows ({R}) must be a multiple of "
+                         f"block_rows ({block_rows})")
+    if mode == "axis1" and block_rows > table_rows:
+        raise ValueError("axis1 needs block_rows <= table_rows")
+    need = table_rows if window else R // block_rows * table_rows
+    if table.shape[0] < need:
+        raise ValueError(f"table has {table.shape[0]} rows, needs {need}")
+
+
+def take_along_blocks_ref(table: torch.Tensor, idx: torch.Tensor, mode: str,
+                          block_rows: int, table_rows: Optional[int] = None,
+                          window: bool = False,
+                          split: bool = False) -> torch.Tensor:
+    """Plain version of :func:`take_along_blocks`: ``torch.gather`` on the
+    reshaped blocks."""
+    th = table_rows or block_rows
+    R, bh = idx.shape[0], block_rows
+    nb = R // bh
+    tb = (table[:th].unsqueeze(0).expand(nb, th, LANES) if window
+          else table[:nb * th].view(nb, th, LANES))
+    ib = idx.view(nb, bh, LANES)
+
+    def rpart(v):
+        return (v >> 7 if split else v).clamp(0, th - 1).long()
+
+    def lpart(v):
+        return (v & 127 if split else v.clamp(0, LANES - 1)).long()
+
+    if mode == "axis0":
+        out = torch.gather(tb, 1, rpart(ib))
+    elif mode == "axis1":
+        out = torch.gather(tb, 2, lpart(ib))
+    elif mode == "row":
+        out = torch.gather(tb, 1, rpart(ib[:, :, :1]).expand(-1, -1, LANES))
+    else:                                    # composed
+        out = torch.gather(torch.gather(tb, 1, rpart(ib)), 2, lpart(ib))
+    return out.reshape(R, LANES)
+
+
+def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
+                      block_rows: int, table_rows: Optional[int] = None,
+                      window: bool = False,
+                      split: bool = False) -> torch.Tensor:
+    """The gather probes' blocked ``take_along_axis`` on [*, 128] blocks.
+
+    Grid step ``b`` covers idx rows ``[b*block_rows, (b+1)*block_rows)``
+    and reads the table block of ``table_rows`` rows (default
+    ``block_rows``) that starts at row ``b*table_rows``, or at row 0 for
+    a fixed ``window``.  With ``i`` the row within the step and ``r()``,
+    ``l()`` the row and lane parts of an index (the index itself, or with
+    ``split`` its ``>> 7`` and ``& 127``), clipped to the block:
+
+    * axis0: ``out[i,j] = tb[r(idx[i,j]), j]``
+    * axis1: ``out[i,j] = tb[i, l(idx[i,j])]``
+    * row: ``out[i,j] = tb[r(idx[i,0]), j]``
+    * composed: ``l = l(idx[i,j]); out[i,j] = tb[r(idx[i,l]), l]``
+
+    Returns [R, 128] float32.  On the card a block that fits in shared
+    memory (:func:`take_along_staged`) is staged there.
+    """
+    th = table_rows or block_rows
+    _take_check(table, idx, mode, block_rows, th, window)
+    if table.device.type == "cpu":
+        return take_along_blocks_ref(table, idx, mode, block_rows, th,
+                                     window, split)
+    stream = _cuda_stream(table)
+    staged = take_along_staged(th)
+    if staged and table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        err = _build.lib().gm_take_along(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            block_rows, th, 0 if window else th, TAKE_MODES.index(mode),
+            int(split), int(staged), stream)
+    if err:
+        raise RuntimeError(f"gm_take_along: CUDA error {err}")
+    take_along_blocks.launches += 1
+    return out
+
+
+take_along_blocks.launches = 0
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor's value mod 2^32, as int32 (two's complement)."""
+    x = torch.remainder(x, 1 << 32)
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def row_gather_checksum_ref(table: torch.Tensor, idx: torch.Tensor,
+                            sweeps: int = 1) -> torch.Tensor:
+    """Plain version of :func:`row_gather_checksum`: gathers whole rows, as
+    the kernel does (so the two times compare like work), and sums their
+    element 0."""
+    ids = idx.clamp(0, table.shape[0] - 1)
+    first = table.index_select(0, ids)[:, 0].to(torch.int64)
+    return _wrap_int32(first.sum() * sweeps)
+
+
+def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
+                        sweeps: int = 1, k: int = 4) -> torch.Tensor:
+    """The gather probe's K-in-flight row gather.
+
+    ``table``: int32 [n_rows, roww] with roww a multiple of 4 up to 128
+    (16 to 512-byte rows); ``idx``: int32 [R] row ids in ``[0, n_rows)``
+    (clipped to it).  Gathers whole rows ``idx[j % R]`` for
+    ``j < R * sweeps``, ``k`` copies in flight per warp, and returns the
+    0-d int32 ``sweeps * sum(table[idx, 0])`` mod 2^32.
+    """
+    if table.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError(f"need an int32 table and int32 idx, got "
+                        f"{table.dtype} and {idx.dtype}")
+    if table.dim() != 2 or table.shape[1] % 4 or not 0 < table.shape[1] <= 128:
+        raise ValueError(f"table must be [n_rows, 4*m <= 128], got "
+                         f"{tuple(table.shape)}")
+    if table.shape[0] < 1:
+        raise ValueError("table has no rows")
+    _check_1d("idx", idx, (torch.int32,))
+    if not table.is_contiguous():
+        raise ValueError("table: tensor is not contiguous")
+    if k not in ROW_GATHER_K:
+        raise ValueError(f"k must be one of {ROW_GATHER_K}, got {k}")
+    if sweeps < 1:
+        raise ValueError(f"sweeps must be >= 1, got {sweeps}")
+    if table.device != idx.device:
+        raise ValueError(f"table on {table.device}, idx on {idx.device}")
+    if table.device.type == "cpu":
+        return row_gather_checksum_ref(table, idx, sweeps)
+    stream = _cuda_stream(table)
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    out = torch.zeros(1, dtype=torch.int32, device=table.device)
+    with torch.cuda.device(table.device):
+        err = _build.lib().gm_row_gather(
+            table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(),
+            idx.numel(), sweeps, k, out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"gm_row_gather: CUDA error {err}")
+    row_gather_checksum.launches += 1
+    return out[0]
+
+
+row_gather_checksum.launches = 0
+
+_WRAPPERS = (segment_reduce_sorted, plain_cumsum, segmented_scan,
+             take_along_blocks, row_gather_checksum)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    segment_reduce_sorted.launches = 0
-    plain_cumsum.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"segment_reduce_sorted": segment_reduce_sorted.launches,
-            "plain_cumsum": plain_cumsum.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -96,9 +96,116 @@ def test_launch_counts_and_checks(dev):
                                                dtype=torch.int32,
                                                device=dev), 2, "add")
     assert K.launch_counts() == {"segment_reduce_sorted": 1,
-                                 "plain_cumsum": 1}
+                                 "plain_cumsum": 1, "segmented_scan": 0,
+                                 "take_along_blocks": 0,
+                                 "row_gather_checksum": 0}
     with pytest.raises(TypeError):
         K.plain_cumsum(x.long())
     with pytest.raises(ValueError):
         K.plain_cumsum(x[::2])
     assert K.launch_counts()["plain_cumsum"] == 1
+
+
+def _scan_case(rng, n, dtype):
+    lens = rng.choice([1, 1, 2, 3, 40, 900, 5000, 70_000], size=n)
+    lens = lens[:np.searchsorted(np.cumsum(lens), n) + 1]   # >= n slots
+    ids = np.repeat(np.arange(lens.size, dtype=np.int32), lens)[:n]
+    if dtype == torch.int32:
+        vals = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+    else:                       # integer-valued: sums exact in any order
+        vals = rng.integers(-8, 9, n).astype(np.float32)
+    return vals, ids
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_segmented_scan_matches_ref(dev, op, dtype):
+    rng = np.random.default_rng(11)
+    for n in (1, 4095, 4096, 4097, 3 * 4096 + 5, 1024 * 4096 + 77,
+              3_000_001):
+        vals, ids = _scan_case(rng, n, dtype)
+        v = torch.from_numpy(vals).to(dev)
+        i = torch.from_numpy(ids).to(dev)
+        got = K.segmented_scan(v, i, op)
+        want = K.segmented_scan_ref(v, i, op)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (n,)
+        assert torch.equal(got, want), (op, dtype, n)
+
+
+def test_segmented_scan_float_rounding(dev):
+    rng = np.random.default_rng(12)
+    vals, ids = _scan_case(rng, 2_000_003, torch.int32)
+    v = torch.from_numpy(rng.standard_normal(ids.size).astype(np.float32))
+    i = torch.from_numpy(ids)
+    exact = K.segmented_scan_ref(v.double(), i, "add")
+    bound = 1e-5 * K.segmented_scan_ref(v.double().abs(), i, "add") + 1e-6
+    got = K.segmented_scan(v.to(dev), i.to(dev), "add").cpu().double()
+    assert bool(((got - exact).abs() <= bound).all())
+
+
+TAKE = [("axis0", 8, 8, False, False), ("axis0", 256, 256, False, False),
+        ("axis0", 1024, 1024, False, False), ("axis1", 64, 64, False, False),
+        ("row", 1024, 1024, False, False),
+        ("axis0", 256, 4096, True, True), ("axis1", 256, 4096, True, True),
+        ("composed", 256, 4096, True, True),
+        ("composed", 16, 64, True, True)]
+
+
+@pytest.mark.parametrize("mode,bh,th,window,split", TAKE)
+def test_take_along_blocks_matches_ref(dev, mode, bh, th, window, split):
+    rng = np.random.default_rng(bh + th)
+    R = 8 * max(bh, 128)
+    table = torch.from_numpy(rng.random(
+        (th if window else R // bh * th, 128)).astype(np.float32)).to(dev)
+    hi = th * 128 + 999 if split else (128 if mode == "axis1" else th + 5)
+    idx = torch.from_numpy(rng.integers(-3, hi, (R, 128))
+                           .astype(np.int32)).to(dev)
+    got = K.take_along_blocks(table, idx, mode, bh, th, window, split)
+    want = K.take_along_blocks_ref(table, idx, mode, bh, th, window, split)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("roww", [8, 32, 128])
+def test_row_gather_matches_ref(dev, roww):
+    rng = np.random.default_rng(roww)
+    table = torch.from_numpy(rng.integers(0, 1 << 30, (100_003, roww))
+                             .astype(np.int32)).to(dev)
+    for n_ids, sweeps in ((1, 1), (1000, 3), (262_147, 2)):
+        idx = torch.from_numpy(rng.integers(0, 100_003, n_ids)
+                               .astype(np.int32)).to(dev)
+        want = K.row_gather_checksum_ref(table, idx, sweeps)
+        for k in K.ROW_GATHER_K:
+            got = K.row_gather_checksum(table, idx, sweeps, k)
+            assert int(got) == int(want), (roww, n_ids, sweeps, k)
+
+
+def test_new_kernels_count_and_check(dev):
+    K.reset_launch_counts()
+    x = torch.ones(5000, dtype=torch.int32, device=dev)
+    K.segmented_scan(x, x)
+    t = torch.zeros((64, 128), device=dev)
+    i = torch.zeros((64, 128), dtype=torch.int32, device=dev)
+    K.take_along_blocks(t, i, "axis0", 8)
+    K.row_gather_checksum(i, i[0], 2)
+    counts = K.launch_counts()
+    assert (counts["segmented_scan"], counts["take_along_blocks"],
+            counts["row_gather_checksum"]) == (1, 1, 1)
+    with pytest.raises(TypeError):
+        K.segmented_scan(x.float(), x.float())
+    with pytest.raises(ValueError):
+        K.segmented_scan(x[::2], x[::2])
+    with pytest.raises(ValueError):
+        K.take_along_blocks(t, i[:60], "axis0", 8)
+    with pytest.raises(TypeError):
+        K.take_along_blocks(t.half(), i, "axis0", 8)
+    with pytest.raises(ValueError):
+        K.row_gather_checksum(i[:, :2].contiguous(), i[0])
+    with pytest.raises(ValueError):
+        K.row_gather_checksum(i, i[0], k=5)
+    with pytest.raises(ValueError):
+        K.row_gather_checksum(i, i[:, 0])           # strided ids
+    assert (counts["segmented_scan"], counts["take_along_blocks"],
+            counts["row_gather_checksum"]) == (1, 1, 1)
+    assert K.launch_counts() == counts

@@ -138,7 +138,74 @@ def test_wrappers_check_arguments_and_count_only_launches():
         [3, 9, torch.iinfo(torch.int32).min]
     # the CPU runs the plain versions: no kernel launched, nothing counted
     assert K.launch_counts() == {"segment_reduce_sorted": 0,
-                                 "plain_cumsum": 0}
+                                 "plain_cumsum": 0, "segmented_scan": 0,
+                                 "take_along_blocks": 0,
+                                 "row_gather_checksum": 0}
+
+
+def scan_case(n, seed, dtype):
+    """Sorted ids with runs of many lengths (some across the TPU kernel's
+    chunk edge), int32 values that wrap when added, or floats."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([1, 1, 2, 3, 7, 40, 900, 5000], size=n)
+    lens = lens[:np.searchsorted(np.cumsum(lens), n) + 1]   # >= n slots
+    ids = np.repeat(np.arange(lens.size, dtype=np.int32), lens)[:n]
+    if dtype == np.float32:
+        vals = rng.standard_normal(n).astype(np.float32)
+    else:
+        vals = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+    return vals, ids
+
+
+OPS_SEED = {"add": 0, "min": 1, "max": 2}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("n", [2 * pk.CHUNK + 4321, 700])
+def test_segmented_scan_matches_pallas(op, dtype, n):
+    """The port accepts any length; the JAX side is padded to a multiple
+    of its chunk with identity values and a fresh id (-2)."""
+    vals, ids = scan_case(n, seed=n + OPS_SEED[op], dtype=dtype)
+    pad = -n % pk.CHUNK
+    ident = K.identity(op, torch.from_numpy(vals).dtype)
+    vals_p = np.concatenate([vals, np.full(pad, ident, dtype)])
+    ids_p = np.concatenate([ids, np.full(pad, -2, np.int32)])
+    want = np.asarray(pk.segmented_scan(jnp.asarray(vals_p),
+                                        jnp.asarray(ids_p), op=op,
+                                        interpret=True))[:n]
+    got = K.segmented_scan(T(vals), T(ids), op)
+    assert got.dtype == T(vals).dtype and got.shape == (n,)
+    if dtype == np.float32 and op == "add":
+        # float32 adds in another order: |err| <= 1e-5 * the running sum of
+        # |vals| over the segment so far (a few ulps of that sum)
+        seg_abs = K.segmented_scan_ref(T(np.abs(vals).astype(np.float64)),
+                                       T(ids), "add").numpy()
+        assert (np.abs(got.numpy() - want) <= 1e-5 * seg_abs + 1e-6).all()
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    if op == "add" and dtype == np.int32:
+        assert (np.abs(want.astype(np.int64)) > 1 << 30).any()
+
+
+def test_segmented_scan_edges():
+    x = torch.tensor([5, 1, 2, 7], dtype=torch.int32)
+    # ids[0] == -1 continues the TPU kernel's initial (identity) carry
+    assert K.segmented_scan(x, torch.tensor([-1, -1, 3, 3],
+                                            dtype=torch.int32)).tolist() \
+        == [5, 6, 2, 9]
+    assert K.segmented_scan(x, torch.zeros(4, dtype=torch.int32),
+                            "max").tolist() == [5, 5, 5, 7]
+    assert K.segmented_scan(x[:0], x[:0]).numel() == 0
+    assert K.segmented_scan(x[:1], x[:1], "min").tolist() == [5]
+    with pytest.raises(TypeError):
+        K.segmented_scan(x, x.long())
+    with pytest.raises(ValueError):
+        K.segmented_scan(x, x[:3])
+    with pytest.raises(ValueError):
+        K.segmented_scan(x, x, "mul")
+    with pytest.raises(ValueError):
+        K.segmented_scan(x[::2], x[::2])
 
 
 @pytest.fixture(scope="module")
