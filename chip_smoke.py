@@ -8,7 +8,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 1. the card's name and power limit; build the CUDA kernels and the native
    host library from the checkout's sources;
 2. each kernel against its plain PyTorch version on the card, on segment
-   layouts and sizes up to the LiveJournal-scale graph's; the segmented
+   layouts and sizes up to the LiveJournal-scale graph's (the prefix sum
+   also in its exclusive form and on an unaligned view); the segmented
    scan's only caller is this phase, as in the JAX package (its tests);
 3. the main path through the CLI entry point on the tracked fixture
    ``data/parity/parity10k.bin`` (pagerank, hop_dist, sssp), checked against
@@ -17,7 +18,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    size (N=4.8M, E=69M, seed 42) written to a BIN file, then BFS from the
    four highest-degree nodes, checked against hop_dist and sssp;
 5. one PageRank superstep's pull-sum on that graph, kernel against plain,
-   and each kernel's time at that graph's shapes beside its plain version;
+   and each kernel's time at that graph's shapes beside its plain version,
+   with ``segment_sum_by_offsets`` (BFS's pull sweep) timed beside its
+   earlier inclusive-scan-and-copy form;
 6. the batched engine on that graph: the ``multi_bfs`` CLI at bench.py's
    headline B=4096, plane_bits=32; then, on one binned schedule, the bit
    BFS (instances 0-3 against hop_dist), the binned BFS at B=8 (distances
@@ -137,7 +140,8 @@ def main():
     from green_marl_tpu_torch.models.pagerank import pagerank
     from green_marl_tpu_torch.models.relax import INT32_MAX
     from green_marl_tpu_torch.models.sssp import sssp
-    from green_marl_tpu_torch.ops import _build, binned, kernels as K, segment
+    from green_marl_tpu_torch.ops import (_build, binned, kernels as K,
+                                          scan_reduce, segment)
     from green_marl_tpu_torch.probes import gather as probes
     from green_marl_tpu_torch.utils.crc import array_checksum_hex
     from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
@@ -211,6 +215,16 @@ def main():
           "int32 test input wraps (its sum exceeds 2^31)")
     check(torch.equal(got, want), f"plain_cumsum int32 n={LJ_E} exact "
           "mod 2^32")
+    got = K.plain_cumsum(v, exclusive=True)
+    check(torch.equal(got, K.plain_cumsum_ref(v, exclusive=True)),
+          f"plain_cumsum exclusive int32 n={LJ_E}: {LJ_E + 1} values, exact "
+          "mod 2^32")
+    view = v[1:]                              # 4 bytes into the allocation
+    check(view.data_ptr() % 16 != 0
+          and torch.equal(K.plain_cumsum(view), K.plain_cumsum_ref(view)),
+          f"plain_cumsum int32 on an unaligned view (v[1:], n={LJ_E - 1}) "
+          "exact")
+    del view
     v = torch.from_numpy(
         rng.standard_normal(LJ_E).astype(np.float32)).to(dev)
     got = K.plain_cumsum(v)
@@ -385,6 +399,7 @@ def main():
           f"the plain version in float64 (max abs err vs plain float32 "
           f"{seg_err:.3g})")
     ids, offs, n_pad = g.r_node_idx_dst, g.r_begin, g.n_pad
+    n_lj = g.num_nodes
     cand = torch.where(g.node_mask(), torch.arange(
         n_pad, dtype=torch.int32, device=dev), INT32_MAX) \
         .index_select(0, g.r_node_idx)
@@ -397,11 +412,24 @@ def main():
                  .abs().max())
     check(cs_err == 0, "BFS-sweep-style 0/1 int32 cumsum on e_pad: "
           "kernel == plain")
+
+    def sum_by_offsets_cat():
+        """segment_sum_by_offsets as it was before the exclusive scan: the
+        inclusive scan, then a copy of the prefix behind a 0."""
+        ex = torch.cat([bits.new_zeros(1), K.plain_cumsum(bits)])
+        return ex.index_select(0, offs[1:]) - ex.index_select(0, offs[:-1])
+
+    sums = scan_reduce.segment_sum_by_offsets(bits, offs, n_pad)
+    check(torch.equal(sums[:n_lj], sum_by_offsets_cat()[:n_lj])
+          and torch.equal(sums[:n_lj], K.segment_reduce_sorted_ref(
+              bits, ids, offs, n_pad, "add")[:n_lj]),
+          "segment_sum_by_offsets on the LJ pull shape (exclusive scan) == "
+          "the inclusive scan + copy form == plain segment sum")
+    del sums
     # the segmented scan at the LJ CSC shape: its segment tails are the
     # pull-sum and the relax min above (the TPU's use of the scan)
     tails = (g.r_begin[1:] - 1).clamp(min=0).long()
     nonempty = (g.r_begin[1:] > g.r_begin[:-1])
-    n_lj = g.num_nodes
     scan = K.segmented_scan(pulled, ids)
     scan_err = max(scan_err,
                    float((scan - K.segmented_scan_ref(pulled, ids)).abs()
@@ -435,6 +463,12 @@ def main():
                   cand, ids, offs, n_pad, "min")),
               cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
                   cand, ids, offs, n_pad, "min")))
+    sbo_ms = (cuda_ms(torch, lambda: scan_reduce.segment_sum_by_offsets(
+                  bits, offs, n_pad)),
+              cuda_ms(torch, sum_by_offsets_cat))
+    excl_ms = (cuda_ms(torch, lambda: K.plain_cumsum(bits, exclusive=True)),
+               cuda_ms(torch, lambda: K.plain_cumsum_ref(bits,
+                                                         exclusive=True)))
     log(f"  card: {smi}")
     log(f"  segment_reduce_sorted float32 add, e_pad={g.e_pad} "
         f"n_out={n_pad}: kernel {times['segment_reduce_sorted'][0]:.3f} ms, "
@@ -444,6 +478,11 @@ def main():
     log(f"  plain_cumsum int32 n={g.e_pad}: kernel "
         f"{times['plain_cumsum'][0]:.3f} ms, plain "
         f"{times['plain_cumsum'][1]:.3f} ms")
+    log(f"  plain_cumsum exclusive int32, same n: kernel {excl_ms[0]:.3f} "
+        f"ms, plain (torch.cumsum + cat) {excl_ms[1]:.3f} ms")
+    log(f"  segment_sum_by_offsets int32 0/1, e_pad={g.e_pad} n_out={n_pad}"
+        f": {sbo_ms[0]:.3f} ms (exclusive scan); {sbo_ms[1]:.3f} ms "
+        "(inclusive scan + torch.cat copy, the form before)")
     log(f"  segmented_scan float32 add, n={g.e_pad} CSC ids: kernel "
         f"{times['segmented_scan'][0]:.3f} ms, plain "
         f"{times['segmented_scan'][1]:.3f} ms")
@@ -570,6 +609,10 @@ def main():
         times[name] = (rec["ms"], rec["plain_ms"])
         probe_errs[name] = max(r["max_abs_err"] for r in recs
                                if r["probe"] == name)
+    row = next(r for r in recs if r["name"] == "row-broadcast [1024,128]")
+    log(f"  take_along_blocks row-broadcast [1024,128] (warp per row): "
+        f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, max abs "
+        f"err {row['max_abs_err']}")
     log(f"total {time.time() - t_all:.1f} s")
 
     errs = {"segment_reduce_sorted": seg_err, "plain_cumsum": float(cs_err),

@@ -1,152 +1,271 @@
-// Inclusive prefix sum of a 1-D int32 or float32 array.
+// Inclusive or exclusive prefix sum of a 1-D int32 or float32 array.
 //
-// Replaces the TPU kernel `_cumsum_local_kernel` (green_marl_tpu/ops/pallas_kernels.py,
-// reached through `plain_cumsum`), which computed chunk bases in XLA and the
-// in-chunk prefix with 128x128 and 512x512 triangular float32 matmuls on the
-// MXU.  That made integer sums exact only while a 65,536-element chunk summed
-// below 2^24.  Here integers are added as uint32 throughout: the result is
+// Replaces the TPU kernel `_cumsum_local_kernel`
+// (green_marl_tpu/ops/pallas_kernels.py, reached through `plain_cumsum`),
+// which computed chunk bases in XLA and the in-chunk prefix with 128x128 and
+// 512x512 triangular float32 matmuls on the MXU.  That made integer sums
+// exact only while a 65,536-element chunk summed below 2^24.  Here integers are added as uint32 throughout: the result is
 // exact mod 2^32 for any input, with no 2^24 limit and no signed-overflow UB.
 //
-// Bound on an H100: device-memory bandwidth.  The scan reads the input twice
-// and writes it once (12 B per int32 element); the block totals are a
-// thousandth of that.  The design is three plain phases with no inter-block
-// waiting:
-//   1. each block sums one tile of kTile elements into tile_tot[b];
-//   2. one block turns tile_tot into exclusive tile bases, 1,024 at a time
-//      with a running carry (about 17k tiles at 69M elements);
-//   3. each block scans its tile again, kThreads elements per round with a
-//      warp-shuffle block scan, and adds its base.
-// Loads and stores are coalesced: round k of a block touches kThreads
-// consecutive words.  A single-pass scan with decoupled look-back would save
-// the first read and is later work.
+// Bound on an H100: device-memory bandwidth.  A scan must read each element
+// once and write it once: 8 B per element, 552 MB at 69M elements, 0.165 ms
+// at 3.35 TB/s.  The design is a single pass with decoupled look-back
+// (Merrill and Garland, 2016), one launch:
+//   - a block takes its tile number from an atomicAdd on a counter, so every
+//     tile before it belongs to a block that has already started: a block
+//     that waits on a predecessor never waits on one that was not scheduled;
+//   - per tile of kTile elements, each thread loads kRounds 16-byte vectors
+//     (round r of the block covers kThreads * 4 consecutive elements, so each
+//     load is coalesced; streaming hints, as each byte is touched once),
+//     scans its four elements of each round in registers,
+//     each warp scans its thread totals with shuffles, and warp 0 combines
+//     the kRounds * kWarps warp totals once per tile;
+//   - each tile publishes one 64-bit status word: the state in the high half
+//     (0 not ready, 1 aggregate, 2 inclusive prefix) and the value's 32 bits
+//     in the low half, written and read whole, so flag and value never tear.
+//     Warp 0 looks back over 32 predecessors at a time, adding aggregates
+//     until it meets an inclusive prefix, then publishes its own.
+// The status words and the counter are scratch the wrapper allocates and the
+// C entry clears with one cudaMemsetAsync.  The exclusive form writes n + 1
+// values, out[i] = sum(in[:i]), each at the index of its input element (and
+// out[n] from the last tile), so its stores stay aligned like the input's.
+// An input or output that is not 16-byte aligned (a view such as x[1:])
+// takes the same kernel with 4-byte loads and stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;  // 4,096 elements per tile
-constexpr int kScanThreads = 1024;
+// Tile shape measured on an NVIDIA H100 80GB HBM3 at 700 W, 69M int32
+// (PERF.md), threads x vectors per thread, with streaming hints: 128 x 16
+// took 0.220 ms, 256 x 8 0.227 ms, 512 x 8 0.223 ms; 256 x 4 without the
+// hints 0.260 ms.
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRounds = 16;                      // 16-byte vectors per thread
+constexpr int kTile = kThreads * 4 * kRounds;    // 8,192 elements per tile
+constexpr int kCombine = kRounds * kWarps;       // warp totals per tile
+static_assert(kCombine % 32 == 0, "warp 0 combines kCombine / 32 per lane");
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint64_t kAggregate = 1ull << 32;
+constexpr uint64_t kInclusive = 2ull << 32;
 
-// Inclusive and exclusive block-wide scan of one value per thread.
-// `warp_sums` is shared scratch of BLOCK / 32 entries.  Returns the
-// inclusive prefix; `excl` gets the exclusive one, `total` the block's sum.
-template <typename T, int BLOCK>
-__device__ T block_scan(T x, T* warp_sums, T& excl, T& total) {
-  constexpr int kWarps = BLOCK / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  T incl = x;
+__device__ __forceinline__ uint32_t to_bits(uint32_t v) { return v; }
+__device__ __forceinline__ uint32_t to_bits(float v) {
+  return __float_as_uint(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t b);
+template <>
+__device__ __forceinline__ uint32_t from_bits<uint32_t>(uint32_t b) {
+  return b;
+}
+template <>
+__device__ __forceinline__ float from_bits<float>(uint32_t b) {
+  return __uint_as_float(b);
+}
+
+__device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_inclusive(T x, int lane) {
 #pragma unroll
   for (int s = 1; s < 32; s <<= 1) {
-    T y = __shfl_up_sync(0xffffffffu, incl, s);
-    if (lane >= s) incl += y;
+    const T y = __shfl_up_sync(kFull, x, s);
+    if (lane >= s) x += y;
   }
-  T wexcl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) wexcl = T(0);
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < kWarps ? warp_sums[lane] : T(0);
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
 #pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      T y = __shfl_up_sync(0xffffffffu, w, s);
-      if (lane >= s) w += y;
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(kFull, x, s);
+  return x;
+}
+
+// Warp 0 of tile `tile` > 0: the sum of every element before the tile,
+// from the status words of its predecessors.
+template <typename T>
+__device__ T look_back(const uint64_t* status, int64_t tile, int lane) {
+  T prefix = T(0);
+  for (int64_t end = tile - 1;; end -= 32) {
+    const int64_t j = end - lane;            // lane 0: the nearest predecessor
+    uint64_t w = kInclusive;                 // before tile 0: an inclusive 0
+    if (j >= 0) {
+      do {
+        w = load_status(status + j);
+      } while ((w >> 32) == 0);
     }
-    if (lane < kWarps) warp_sums[lane] = w;
+    const unsigned incl = __ballot_sync(kFull, (w >> 32) == 2);
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    prefix += warp_sum(lane <= stop ? from_bits<T>((uint32_t)w) : T(0));
+    if (incl) return prefix;
+  }
+}
+
+template <typename T, bool kExclusive, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
+            uint64_t* __restrict__ status, unsigned* __restrict__ counter) {
+  __shared__ unsigned s_tile;
+  __shared__ T s_warp[kCombine];    // warp totals, then their exclusive sums
+  __shared__ T s_prefix;            // the sum of every element before the tile
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) s_tile = atomicAdd(counter, 1u);
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * kTile;
+  const bool full = base + kTile <= n;
+
+  // round r of this thread: elements [base + r*kThreads*4 + 4*tid, +4)
+  T x[kRounds][4];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int64_t i = base + (int64_t)r * kThreads * 4 + 4 * threadIdx.x;
+    if (kVec && full) {
+      const uint4 v = __ldcs(reinterpret_cast<const uint4*>(in + i));
+      x[r][0] = from_bits<T>(v.x);
+      x[r][1] = from_bits<T>(v.y);
+      x[r][2] = from_bits<T>(v.z);
+      x[r][3] = from_bits<T>(v.w);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) x[r][m] = i + m < n ? in[i + m] : T(0);
+    }
+  }
+
+  // thread totals of each round, and their exclusive scan within the warp
+  T t_excl[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const T s = (x[r][0] + x[r][1]) + (x[r][2] + x[r][3]);
+    const T incl = warp_inclusive(s, lane);
+    T ex = __shfl_up_sync(kFull, incl, 1);
+    t_excl[r] = lane == 0 ? T(0) : ex;
+    if (lane == 31) s_warp[r * kWarps + warp] = incl;
   }
   __syncthreads();
-  const T prefix = warp > 0 ? warp_sums[warp - 1] : T(0);
-  total = warp_sums[kWarps - 1];
-  __syncthreads();  // warp_sums is reused by the next call
-  excl = prefix + wexcl;
-  return prefix + incl;
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tile_totals_kernel(const T* __restrict__ in, int64_t n, T* __restrict__ tot) {
-  __shared__ T warp_sums[kThreads / 32];
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  T acc = T(0);
+  if (warp == 0) {
+    // exclusive prefixes of the warp totals in (round, warp) order
+    constexpr int kPer = kCombine / 32;
+    T w[kPer];
+    T lsum = T(0);
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k * kThreads + threadIdx.x;
-    if (i < n) acc += in[i];
+    for (int k = 0; k < kPer; ++k) {
+      w[k] = s_warp[lane * kPer + k];
+      lsum += w[k];
+    }
+    const T lincl = warp_inclusive(lsum, lane);
+    const T agg = __shfl_sync(kFull, lincl, 31);
+    T run = __shfl_up_sync(kFull, lincl, 1);
+    if (lane == 0) run = T(0);
+    // publish the aggregate before waiting on anyone (tile 0: its prefix)
+    if (lane == 0)
+      store_status(status + tile,
+                   (tile == 0 ? kInclusive : kAggregate) | to_bits(agg));
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      s_warp[lane * kPer + k] = run;
+      run += w[k];
+    }
+    T prefix = T(0);
+    if (tile > 0) {
+      prefix = look_back<T>(status, tile, lane);
+      if (lane == 0)
+        store_status(status + tile, kInclusive | to_bits(prefix + agg));
+    }
+    if (lane == 0) {
+      s_prefix = prefix;
+      if (kExclusive && base + kTile >= n) out[n] = prefix + agg;
+    }
   }
-  T excl, total;
-  block_scan<T, kThreads>(acc, warp_sums, excl, total);
-  if (threadIdx.x == 0) tot[blockIdx.x] = total;
+  __syncthreads();
+
+  const T tile_prefix = s_prefix;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int64_t i = base + (int64_t)r * kThreads * 4 + 4 * threadIdx.x;
+    T acc = (tile_prefix + s_warp[r * kWarps + warp]) + t_excl[r];
+    T y[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (kExclusive) {
+        y[m] = acc;
+        acc += x[r][m];
+      } else {
+        acc += x[r][m];
+        y[m] = acc;
+      }
+    }
+    if (kVec && full) {
+      __stcs(reinterpret_cast<uint4*>(out + i),
+             make_uint4(to_bits(y[0]), to_bits(y[1]), to_bits(y[2]),
+                        to_bits(y[3])));
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (i + m < n) out[i + m] = y[m];
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kScanThreads)
-tile_bases_kernel(T* __restrict__ tot, int64_t n_tiles) {
-  __shared__ T warp_sums[kScanThreads / 32];
-  T carry = T(0);
-  for (int64_t base = 0; base < n_tiles; base += kScanThreads) {
-    const int64_t i = base + threadIdx.x;
-    const T x = i < n_tiles ? tot[i] : T(0);
-    T excl, total;
-    block_scan<T, kScanThreads>(x, warp_sums, excl, total);
-    if (i < n_tiles) tot[i] = carry + excl;
-    carry += total;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(const T* __restrict__ in, int64_t n,
-                 const T* __restrict__ bases, T* __restrict__ out) {
-  __shared__ T warp_sums[kThreads / 32];
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  T carry = bases[blockIdx.x];
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k * kThreads + threadIdx.x;
-    if (base + k * kThreads >= n) break;  // uniform across the block
-    const T x = i < n ? in[i] : T(0);
-    T excl, total;
-    const T incl = block_scan<T, kThreads>(x, warp_sums, excl, total);
-    if (i < n) out[i] = carry + incl;
-    carry += total;
-  }
-}
-
-template <typename T>
-int run(const void* in, void* out, void* tile_scratch, int64_t n,
-        cudaStream_t s) {
+template <typename T, bool kExclusive>
+int run(const void* in, void* out, void* scratch, int64_t n, cudaStream_t s) {
   const int64_t n_tiles = (n + kTile - 1) / kTile;
-  T* tot = (T*)tile_scratch;
-  tile_totals_kernel<T><<<(unsigned)n_tiles, kThreads, 0, s>>>(
-      (const T*)in, n, tot);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  tile_bases_kernel<T><<<1, kScanThreads, 0, s>>>(tot, n_tiles);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  tile_scan_kernel<T><<<(unsigned)n_tiles, kThreads, 0, s>>>(
-      (const T*)in, n, tot, (T*)out);
+  uint64_t* status = (uint64_t*)scratch;
+  unsigned* counter = (unsigned*)(status + n_tiles);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(n_tiles + 1) * 8, s);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = ((uintptr_t)in % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  if (vec)
+    scan_kernel<T, kExclusive, true><<<(unsigned)n_tiles, kThreads, 0, s>>>(
+        (const T*)in, (T*)out, n, status, counter);
+  else
+    scan_kernel<T, kExclusive, false><<<(unsigned)n_tiles, kThreads, 0, s>>>(
+        (const T*)in, (T*)out, n, status, counter);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* in, void* out, void* scratch, int64_t n,
+             int exclusive, cudaStream_t s) {
+  return exclusive ? run<T, true>(in, out, scratch, n, s)
+                   : run<T, false>(in, out, scratch, n, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Elements per tile: the wrapper allocates ceil(n / tile) scratch entries.
+// Elements per tile: the wrapper allocates ceil(n / tile) + 1 uint64 words
+// of scratch (one status word per tile and the tile counter).
 int gm_cumsum_tile_size(void) { return kTile; }
 
 // dtype: 0 = int32 (added as uint32, wraps mod 2^32), 1 = float32.
-// Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for
-// an unknown dtype).
-int gm_cumsum(const void* in, void* out, void* tile_scratch, int64_t n,
-              int dtype, void* stream) {
+// exclusive: 0 writes n values out[i] = sum(in[:i+1]); 1 writes n + 1 values
+// out[i] = sum(in[:i]).  n == 0 writes nothing.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unknown dtype).
+int gm_cumsum(const void* in, void* out, void* scratch, int64_t n, int dtype,
+              int exclusive, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  if (dtype == 0) return run<uint32_t>(in, out, tile_scratch, n, s);
-  if (dtype == 1) return run<float>(in, out, tile_scratch, n, s);
+  if (dtype == 0) return dispatch<uint32_t>(in, out, scratch, n, exclusive, s);
+  if (dtype == 1) return dispatch<float>(in, out, scratch, n, exclusive, s);
   return (int)cudaErrorInvalidValue;
 }
 

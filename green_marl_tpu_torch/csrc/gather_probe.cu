@@ -23,6 +23,16 @@
 //    one CUDA block per grid step (coalesced 16-byte loads, then gathers
 //    from shared memory); larger blocks and windows are read through
 //    L1/L2 with one thread per output element.
+//    The row mode (`kern_row`, probe_gather2.py:126) copies whole 512-byte
+//    rows: one index and one row per output row, 128 MB moved for 2^17
+//    rows, bound by bandwidth and by the two dependent reads of each row
+//    (its index, then its table row).  It takes its own kernel whatever
+//    the block height: one warp per idx row, one lane reads the row's
+//    index and a shuffle broadcasts it, each lane copies one 16-byte
+//    chunk of the row (32 x 16 B, coalesced), and each warp keeps
+//    kRowBatch rows in flight.  No element-wise div/mod and no unused
+//    index reads; staging a block to copy whole rows out of it would only
+//    add a pass.
 //
 // 2. K-in-flight row gather.  Replaces `gather_kernel`
 //    (scripts/probe_gather4.py:36, via `run` :66), which kept K async DMA
@@ -42,6 +52,8 @@ namespace {
 
 constexpr int kLanes = 128;      // table and idx rows are 128 wide
 constexpr int kTakeThreads = 256;
+constexpr int kRowBatch = 4;     // rows in flight per warp, row mode
+constexpr int kRowBlocks = 4096; // grid cap of the row mode (grid-stride)
 constexpr int kGatherWarps = 4;  // warps per block of the row gather
 constexpr int kRowsPerWarp = 256;  // row ids each warp of the row gather walks
 
@@ -68,9 +80,7 @@ __device__ __forceinline__ float take_one(const float* tb,
       return tb[row_part(v, split, th) * kLanes + j];
     case kAxis1:
       return tb[li * kLanes + lane_part(v, split)];
-    case kRow:
-      return tb[row_part(irow[0], split, th) * kLanes + j];
-    default: {  // kComposed
+    default: {  // kComposed (kRow has its own kernel)
       const int l = lane_part(v, split);
       return tb[row_part(irow[l], split, th) * kLanes + l];
     }
@@ -90,6 +100,38 @@ take_global_kernel(const float* __restrict__ table,
   const int li = (int)(row % bh);
   out[e] = take_one(table + b * t_stride * kLanes, idx + row * kLanes, li, j,
                     th, mode, split);
+}
+
+// Row mode: out[row, :] = tb[r(idx[row, 0]), :], one warp per idx row.
+// kRowBatch rows per warp at a time: lanes 0..kRowBatch-1 read their rows'
+// indices, then every lane copies one float4 of each row.
+__global__ void __launch_bounds__(kTakeThreads)
+take_row_kernel(const float4* __restrict__ table,
+                const int32_t* __restrict__ idx, float4* __restrict__ out,
+                int64_t R, int bh, int th, int64_t t_stride, int split) {
+  constexpr int kVecs = kLanes / 4;  // float4 per row: one per lane
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (kTakeThreads / 32);
+  const int64_t first =
+      (int64_t)blockIdx.x * (kTakeThreads / 32) + (threadIdx.x >> 5);
+  for (int64_t row0 = first * kRowBatch; row0 < R;
+       row0 += warps * kRowBatch) {
+    int v = 0;
+    if (lane < kRowBatch && row0 + lane < R) v = idx[(row0 + lane) * kLanes];
+    float4 chunk[kRowBatch];
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) {
+      const int vk = __shfl_sync(0xffffffffu, v, k);
+      const int64_t row = row0 + k;
+      if (row < R) {
+        const int64_t trow = row / bh * t_stride + row_part(vk, split, th);
+        chunk[k] = table[trow * kVecs + lane];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k)
+      if (row0 + k < R) out[(row0 + k) * kVecs + lane] = chunk[k];
+  }
 }
 
 // One CUDA block per grid step: stage the table block, then gather.
@@ -186,7 +228,9 @@ extern "C" {
 // Blocked take-along-axis of a float32 [*, 128] table at int32 [R, 128]
 // indices into a float32 [R, 128] output; R a multiple of bh.  `staged`:
 // stage each table block in shared memory (th * 512 bytes, at most the
-// 227 KB a block may use).  Returns cudaGetLastError() after the launch.
+// 227 KB a block may use); not read in row mode, which has its own kernel
+// (table and out 16-byte aligned).  Returns cudaGetLastError() after the
+// launch.
 int gm_take_along(const void* table, const void* idx, void* out, int64_t R,
                   int bh, int th, int64_t t_stride, int mode, int split,
                   int staged, void* stream) {
@@ -194,7 +238,14 @@ int gm_take_along(const void* table, const void* idx, void* out, int64_t R,
   if (R <= 0) return (int)cudaGetLastError();
   if (bh <= 0 || th <= 0 || R % bh != 0 || mode < 0 || mode > 3)
     return (int)cudaErrorInvalidValue;
-  if (staged) {
+  if (mode == kRow) {
+    const int64_t per_block = (kTakeThreads / 32) * kRowBatch;
+    const int64_t blocks = (R + per_block - 1) / per_block;
+    take_row_kernel<<<(unsigned)(blocks < kRowBlocks ? blocks : kRowBlocks),
+                      kTakeThreads, 0, s>>>(
+        (const float4*)table, (const int32_t*)idx, (float4*)out, R, bh, th,
+        t_stride, split);
+  } else if (staged) {
     const int smem = th * kLanes * 4;
     cudaError_t e = cudaFuncSetAttribute(
         take_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

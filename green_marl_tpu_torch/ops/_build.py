@@ -94,7 +94,7 @@ def lib() -> ctypes.CDLL:
         cdll.gm_segment_reduce.argtypes = [vp, vp, i64, i64, vp, cint,
                                            cint, vp]
         cdll.gm_cumsum.restype = cint
-        cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, vp]
+        cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, cint, vp]
         cdll.gm_cumsum_tile_size.restype = cint
         cdll.gm_cumsum_tile_size.argtypes = []
         cdll.gm_segmented_scan.restype = cint

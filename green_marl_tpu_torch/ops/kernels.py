@@ -5,8 +5,8 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
 
 * ``segment_reduce_sorted`` -- ``out[v] = op-reduce(vals[offsets[v]:offsets[v+1]])``
   for op add, min or max on int32 or float32 (``csrc/segment_reduce.cu``);
-* ``plain_cumsum`` -- inclusive prefix sum of a 1-D int32 or float32 tensor,
-  int32 exact mod 2^32 (``csrc/cumsum.cu``);
+* ``plain_cumsum`` -- inclusive or exclusive prefix sum of a 1-D int32 or
+  float32 tensor, int32 exact mod 2^32 (``csrc/cumsum.cu``);
 * ``segmented_scan`` -- globally segmented inclusive scan, add/min/max on
   int32 or float32, segments = runs of equal ids (``csrc/segmented_scan.cu``);
 * ``take_along_blocks`` -- the probes' blocked ``take_along_axis`` on
@@ -131,32 +131,45 @@ segment_reduce_sorted.launches = 0
 # Prefix sum
 # ---------------------------------------------------------------------------
 
-def plain_cumsum_ref(vals: torch.Tensor) -> torch.Tensor:
+def plain_cumsum_ref(vals: torch.Tensor,
+                     exclusive: bool = False) -> torch.Tensor:
     """Plain version of :func:`plain_cumsum`.  ``dtype=`` keeps int32 in
     int32 (``torch.cumsum`` would promote it to int64), so it wraps too."""
-    return torch.cumsum(vals, 0, dtype=vals.dtype)
+    c = torch.cumsum(vals, 0, dtype=vals.dtype)
+    return torch.cat([c.new_zeros(1), c]) if exclusive else c
 
 
-def plain_cumsum(vals: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of a 1-D int32 or float32 tensor.
+def plain_cumsum(vals: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
+    """Prefix sum of a 1-D int32 or float32 tensor of any length.
 
-    int32 sums are exact mod 2^32 (the global prefix may wrap; differences
-    of prefixes stay exact), with no bound on chunk sums.
+    Inclusive: ``out[i] = sum(vals[:i+1])``, ``n`` values.  ``exclusive``:
+    ``out[i] = sum(vals[:i])``, ``n + 1`` values (``out[0] = 0``,
+    ``out[n]`` the total), written by the kernel directly.  int32 sums are
+    exact mod 2^32 (the global prefix may wrap; differences of prefixes
+    stay exact), with no bound on chunk sums.  On the card the kernel is a
+    single pass with decoupled look-back: tile aggregates are added in an
+    order that depends on timing, so float32 results may differ in the
+    last bits from run to run (int32 never does).  An input that is not
+    16-byte aligned (a view such as ``x[1:]``) is read with 4-byte loads:
+    the same result, more slowly.
     """
     _check_1d("vals", vals, _DTYPE_CODE)
     if vals.device.type == "cpu":
-        return plain_cumsum_ref(vals)
+        return plain_cumsum_ref(vals, exclusive)
     stream = _cuda_stream(vals)
     lib = _build.lib()
     n = vals.numel()
-    out = torch.empty_like(vals)
-    tile = lib.gm_cumsum_tile_size()
-    scratch = torch.empty(max(1, -(-n // tile)), dtype=vals.dtype,
-                          device=vals.device)
+    out = torch.empty(n + 1 if exclusive else n, dtype=vals.dtype,
+                      device=vals.device)
+    if n == 0:
+        return out.zero_()          # the exclusive form's single 0
+    # one status word per tile and the tile counter, cleared by the C entry
+    scratch = torch.empty(-(-n // lib.gm_cumsum_tile_size()) + 1,
+                          dtype=torch.int64, device=vals.device)
     with torch.cuda.device(vals.device):
         err = lib.gm_cumsum(vals.data_ptr(), out.data_ptr(),
                             scratch.data_ptr(), n, _DTYPE_CODE[vals.dtype],
-                            stream)
+                            int(exclusive), stream)
     if err:
         raise RuntimeError(f"gm_cumsum: CUDA error {err}")
     plain_cumsum.launches += 1
@@ -246,10 +259,11 @@ SMEM_BYTES = 232_448      # shared memory one Hopper block may use
 ROW_GATHER_K = (1, 2, 4, 8, 16)
 
 
-def take_along_staged(table_rows: int) -> bool:
+def take_along_staged(table_rows: int, mode: Optional[str] = None) -> bool:
     """Whether the kernel stages a table block of ``table_rows`` rows in
-    shared memory (it fits) or reads it through L1/L2."""
-    return table_rows * LANES * 4 <= SMEM_BYTES
+    shared memory (it fits) or reads it through L1/L2.  The row mode
+    (``mode="row"``) never stages: it copies whole rows, one warp each."""
+    return mode != "row" and table_rows * LANES * 4 <= SMEM_BYTES
 
 
 def _take_check(table, idx, mode, block_rows, table_rows, window):
@@ -326,7 +340,8 @@ def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
     * composed: ``l = l(idx[i,j]); out[i,j] = tb[r(idx[i,l]), l]``
 
     Returns [R, 128] float32.  On the card a block that fits in shared
-    memory (:func:`take_along_staged`) is staged there.
+    memory (:func:`take_along_staged`) is staged there, except in row
+    mode, where one warp copies each output row from its table row.
     """
     th = table_rows or block_rows
     _take_check(table, idx, mode, block_rows, th, window)
@@ -334,8 +349,8 @@ def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
         return take_along_blocks_ref(table, idx, mode, block_rows, th,
                                      window, split)
     stream = _cuda_stream(table)
-    staged = take_along_staged(th)
-    if staged and table.data_ptr() % 16:
+    staged = take_along_staged(th, mode)
+    if (staged or mode == "row") and table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):

@@ -7,7 +7,8 @@ are sorted by segment, so a segment sum is two gathers of one prefix sum::
     out[v] = c[begin[v+1]] - c[begin[v]]     # two gathers over N
 
 Exact for int32 (the prefix wraps mod 2^32, its differences do not); the
-prefix is ``kernels.plain_cumsum``, the CUDA scan on the card.
+prefix is ``kernels.plain_cumsum(..., exclusive=True)``, the CUDA scan on
+the card, which writes the leading 0 itself (no copy of the prefix).
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ def segment_sum_by_offsets(vals: torch.Tensor, offsets: torch.Tensor,
     """``out[v] = sum(vals[offsets[v]:offsets[v+1]])``, padded with 0 to
     ``n_out``.  ``vals``: [E_pad]; slots past ``offsets[-1]`` are never
     read back."""
-    c = kernels.plain_cumsum(vals)
-    ex = torch.cat([c.new_zeros(1), c])       # exclusive prefix
+    ex = kernels.plain_cumsum(vals, exclusive=True)
     out = ex.index_select(0, offsets[1:]) - ex.index_select(0, offsets[:-1])
     return torch.nn.functional.pad(out, (0, n_out - out.shape[0]))
 

@@ -18,8 +18,8 @@ probe's Pallas kernel has a hand-written CUDA counterpart in
 Before it is timed, each kernel's output on every input it is timed on
 is held against its plain version's, which must be equal (gathers are
 exact); each record keeps the largest difference seen.  Times are CUDA
-events, the median of 3 launches on varied inputs.  Run on a machine with
-an NVIDIA GPU::
+events, per call: the median over 3 varied inputs of 10 back-to-back
+calls each.  Run on a machine with an NVIDIA GPU::
 
     python -m green_marl_tpu_torch.probes.gather [--quick]
 
@@ -48,6 +48,7 @@ GATHER_IDS = 1 << 21
 GATHER_SWEEPS = 1
 ENGINE_ROWS = 4_800_008   # binned rows of the LJ-scale RMAT (N=4.8M)
 ENGINE_IDS = 1 << 22      # one large bin's slots
+TIMED_CALLS = 10          # back-to-back calls per timed input
 
 
 class TakeCase(NamedTuple):
@@ -100,18 +101,22 @@ def gather_grid(quick: bool = False):
 
 
 def median_ms(fn: Callable[[int], object], reps: int = 3) -> float:
-    """Median device time in ms of ``fn(rep)`` over ``reps`` launches,
-    after one warm-up launch (CUDA events around each launch)."""
+    """Median over ``reps`` inputs of the device time in ms of one call
+    ``fn(rep)``: CUDA events around ``TIMED_CALLS`` back-to-back calls,
+    over their count, after one warm-up call.  Back to back, the host
+    enqueues the next call while the card runs this one, so a kernel of a
+    few tens of microseconds is not timed with the host's launch gap."""
     fn(reps)
     times = []
     for rep in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(rep)
+        for _ in range(TIMED_CALLS):
+            fn(rep)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / TIMED_CALLS)
     return statistics.median(times)
 
 
@@ -145,7 +150,7 @@ def probe_take(case: TakeCase, dev: torch.device,
     return dict(probe="take_along_blocks", name=case.name, ms=ms,
                 plain_ms=plain, gbs=nbytes / ms / 1e6,
                 plain_gbs=nbytes / plain / 1e6, max_abs_err=err,
-                staged=K.take_along_staged(case.table_rows))
+                staged=K.take_along_staged(case.table_rows, case.mode))
 
 
 def probe_row_gather(roww: int, k: int, dev: torch.device,

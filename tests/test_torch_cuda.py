@@ -79,6 +79,87 @@ def test_cumsum_int32_wraps(dev):
         np.testing.assert_array_equal(got, want)
 
 
+TILE = 8192                # csrc/cumsum.cu's kTile
+LOOKBACK_SIZES = [0, 1] + [k * TILE + d for k in (1, 2, 3) for d in (-1, 0, 1)]
+
+
+def _wrapped_cumsum(v, exclusive):
+    """numpy's int32 prefix sum, mod 2^32."""
+    want = np.cumsum(v.astype(np.int64))
+    if exclusive:
+        want = np.concatenate([[0], want])
+    return want.astype(np.int32)
+
+
+@pytest.mark.parametrize("exclusive", [False, True])
+@pytest.mark.parametrize("n", LOOKBACK_SIZES)
+def test_cumsum_lookback_tile_edges(dev, n, exclusive):
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 1 << 30, n).astype(np.int32)
+    got = K.plain_cumsum(torch.from_numpy(v).to(dev), exclusive)
+    assert got.shape == (n + exclusive,)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _wrapped_cumsum(v, exclusive))
+
+
+def test_cumsum_more_tiles_than_resident(dev):
+    """2^25 + 3 elements: 4,097 tiles, far more than the card holds at
+    once, so tiles wait on predecessors that started long before."""
+    n = (1 << 25) + 3
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    want = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    assert torch.equal(K.plain_cumsum(ones), want)
+    ex = K.plain_cumsum(ones, exclusive=True)
+    assert int(ex[0]) == 0 and torch.equal(ex[1:], want)
+    rng = np.random.default_rng(13)
+    v = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n)
+                         .astype(np.int32)).to(dev)
+    assert torch.equal(K.plain_cumsum(v), K.plain_cumsum_ref(v))
+
+
+def test_cumsum_repeated_launches_agree(dev):
+    """20 launches on one input: a race on the status words would show as
+    a launch that differs from the plain version."""
+    rng = np.random.default_rng(14)
+    v = torch.from_numpy(rng.integers(0, 1 << 30, 3_000_017)
+                         .astype(np.int32)).to(dev)
+    want = K.plain_cumsum_ref(v)
+    want_ex = K.plain_cumsum_ref(v, exclusive=True)
+    for rep in range(20):
+        assert torch.equal(K.plain_cumsum(v, rep % 2 == 1),
+                           want_ex if rep % 2 else want), rep
+
+
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_cumsum_unaligned_view(dev, exclusive):
+    """A view that starts 4 bytes into an allocation takes the 4-byte path
+    and gives the same result."""
+    rng = np.random.default_rng(15)
+    base = torch.from_numpy(rng.integers(0, 1 << 30, 1_000_003)
+                            .astype(np.int32)).to(dev)
+    view = base[1:]
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(K.plain_cumsum(view, exclusive),
+                       K.plain_cumsum_ref(view, exclusive))
+    f = torch.from_numpy(rng.standard_normal(base.numel())
+                         .astype(np.float32)).to(dev)[1:]
+    got = K.plain_cumsum(f, exclusive).double()
+    want = K.plain_cumsum_ref(f.double(), exclusive)
+    bound = 1e-6 * K.plain_cumsum_ref(f.double().abs(), exclusive)
+    assert bool(((got - want).abs() <= bound).all())
+
+
+def test_cumsum_exclusive_float32(dev):
+    rng = np.random.default_rng(16)
+    v = torch.from_numpy(rng.standard_normal(5_000_003)
+                         .astype(np.float32)).to(dev)
+    got = K.plain_cumsum(v, exclusive=True).double()
+    want = K.plain_cumsum_ref(v.double(), exclusive=True)
+    bound = 1e-6 * K.plain_cumsum_ref(v.double().abs(), exclusive=True)
+    assert got.shape == (v.numel() + 1,) and float(got[0]) == 0.0
+    assert bool(((got - want).abs() <= bound + 1e-6).all())
+
+
 def test_cumsum_float32(dev):
     rng = np.random.default_rng(10)
     v = rng.standard_normal(5_000_003).astype(np.float32)
@@ -146,7 +227,8 @@ def test_segmented_scan_float_rounding(dev):
 
 TAKE = [("axis0", 8, 8, False, False), ("axis0", 256, 256, False, False),
         ("axis0", 1024, 1024, False, False), ("axis1", 64, 64, False, False),
-        ("row", 1024, 1024, False, False),
+        ("row", 1024, 1024, False, False), ("row", 256, 1024, False, True),
+        ("row", 64, 4096, True, False), ("row", 64, 64, False, False),
         ("axis0", 256, 4096, True, True), ("axis1", 256, 4096, True, True),
         ("composed", 256, 4096, True, True),
         ("composed", 16, 64, True, True)]
@@ -179,6 +261,17 @@ def test_row_gather_matches_ref(dev, roww):
         for k in K.ROW_GATHER_K:
             got = K.row_gather_checksum(table, idx, sweeps, k)
             assert int(got) == int(want), (roww, n_ids, sweeps, k)
+
+
+def test_cumsum_empty_launches_nothing(dev):
+    K.reset_launch_counts()
+    x = torch.ones(0, dtype=torch.int32, device=dev)
+    assert K.plain_cumsum(x).numel() == 0
+    assert K.plain_cumsum(x, exclusive=True).tolist() == [0]
+    assert K.launch_counts()["plain_cumsum"] == 0
+    K.plain_cumsum(torch.ones(5, dtype=torch.int32, device=dev),
+                   exclusive=True)
+    assert K.launch_counts()["plain_cumsum"] == 1
 
 
 def test_new_kernels_count_and_check(dev):

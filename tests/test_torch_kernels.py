@@ -114,6 +114,35 @@ def test_cumsum_wraps_like_int32():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("n", [0, 1, 4095, 4097, 300_001])
+def test_exclusive_cumsum_plain_matches_numpy(n):
+    """The exclusive form: n + 1 values, out[0] = 0, out[i] = sum(v[:i])
+    mod 2^32 for int32 (the inputs wrap once n is large)."""
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 1 << 30, n).astype(np.int32)
+    want = np.zeros(n + 1, np.int64)
+    np.cumsum(v.astype(np.int64), out=want[1:])
+    want = want.astype(np.int32)                              # mod 2^32
+    for fn in (K.plain_cumsum, K.plain_cumsum_ref):
+        got = fn(T(v), exclusive=True)
+        assert got.dtype == torch.int32 and got.shape == (n + 1,)
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(K.plain_cumsum(T(v)).numpy(), want[1:])
+    f = rng.standard_normal(n).astype(np.float32)
+    got = K.plain_cumsum(T(f), exclusive=True).numpy()
+    assert got[0] == 0.0
+    np.testing.assert_allclose(got[1:], np.cumsum(f.astype(np.float64)),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_exclusive_cumsum_matches_pallas_on_01_input():
+    rng = np.random.default_rng(6)
+    v = (rng.random(pk.CS_CHUNK + 999) < 0.5).astype(np.int32)
+    want = np.asarray(pk.plain_cumsum(jnp.asarray(v), interpret=True))
+    np.testing.assert_array_equal(K.plain_cumsum(T(v), exclusive=True)
+                                  .numpy(), np.concatenate([[0], want]))
+
+
 def test_wrappers_check_arguments_and_count_only_launches():
     K.reset_launch_counts()
     x = torch.arange(10, dtype=torch.int32)

@@ -116,6 +116,31 @@ def test_blocked_modes_match_probe_gather2_3(mode, body, sub):
     assert got.dtype == torch.float32 and got.shape == (R, L)
 
 
+def kern_row_split(t, i):
+    r = jnp.clip(i[:, :1] >> 7, 0, t.shape[0] - 1)
+    return jnp.take_along_axis(t, jnp.broadcast_to(r, t.shape), axis=0)
+
+
+ROW = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("window,split", ROW,
+                         ids=[f"window{w:d}-split{s:d}" for w, s in ROW])
+def test_row_mode_matches_probe_gather2(window, split):
+    """The row-broadcast body with a fixed window and split indices, as the
+    card's row kernel takes them; the row mode never stages its block."""
+    rng = np.random.default_rng(20 + 2 * window + split)
+    bh, th, R = 32, 32, 128          # bh = th: the body's output shape
+    table = rng.random((th if window else R, L)).astype(np.float32)
+    hi = th * L + 3000 if split else th
+    idx = rng.integers(0, hi, (R, L)).astype(np.int32)
+    body = kern_row_split if split else kern_row
+    want = jax_blocks(body, table, idx, bh, th, window)
+    got = K.take_along_blocks(T(table), T(idx), "row", bh, th, window, split)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not K.take_along_staged(th, "row") and K.take_along_staged(th)
+
+
 def test_take_along_blocks_checks_arguments():
     t = torch.zeros((64, L))
     i = torch.zeros((32, L), dtype=torch.int32)
