@@ -9,8 +9,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    host library from the checkout's sources;
 2. each kernel against its plain PyTorch version on the card, on segment
    layouts and sizes up to the LiveJournal-scale graph's (the prefix sum
-   also in its exclusive form and on an unaligned view); the segmented
-   scan's only caller is this phase, as in the JAX package (its tests);
+   also in its exclusive form and on an unaligned view), then the segment
+   reduce and the segmented scan on the layouts that stress kernels whose
+   blocks own tiles of edge slots: one segment over all 69M slots,
+   segments that end on tile edges, runs of empty segments at slot 0, at a
+   tile edge and at the end, ``offsets[0] > 0``, ``n_out > n_seg``, far
+   more tiles than the card holds at once, and 20 repeated launches that
+   must agree; the segmented scan's only caller is this phase, as in the
+   JAX package (its tests);
 3. the main path through the CLI entry point on the tracked fixture
    ``data/parity/parity10k.bin`` (pagerank, hop_dist, sssp), checked against
    its goldens;
@@ -18,9 +24,13 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    size (N=4.8M, E=69M, seed 42) written to a BIN file, then BFS from the
    four highest-degree nodes, checked against hop_dist and sssp;
 5. one PageRank superstep's pull-sum on that graph, kernel against plain,
-   and each kernel's time at that graph's shapes beside its plain version,
-   with ``segment_sum_by_offsets`` (BFS's pull sweep) timed beside its
-   earlier inclusive-scan-and-copy form;
+   the graph's in-degree picture, and each kernel's time at that graph's
+   shapes beside its plain version, its bound (the bytes it must move over
+   the card's 3.35 TB/s) and, where one PyTorch call computes the same
+   function, that call's time (``torch.segment_reduce``, ``torch.cumsum``:
+   yardsticks that the port never calls), with ``segment_sum_by_offsets``
+   (BFS's pull sweep) timed beside its earlier inclusive-scan-and-copy
+   form;
 6. the batched engine on that graph: the ``multi_bfs`` CLI at bench.py's
    headline B=4096, plane_bits=32; then, on one binned schedule, the bit
    BFS (instances 0-3 against hop_dist), the binned BFS at B=8 (distances
@@ -59,6 +69,7 @@ GOLD_SSSP_DIST = [0, 141, 114, 170]
 GOLD_RANK = [0.000078454, 0.000063880, 0.000108653, 0.000057279]
 RANK_RTOL = 1e-4        # device tolerance of scripts/parity.py:85
 
+HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
 MULTI_B, PLANE_BITS = 4096, 32     # bench.py:53-54, the headline
 PR_B, PR_ITERS = 128, 20           # bench.py:55-56
 
@@ -118,8 +129,97 @@ def run_cli(apps, argv):
     return out
 
 
+def launched_since(K, before):
+    """The kernels launched since ``before = K.launch_counts()``, by name."""
+    return {name: n - before[name] for name, n in K.launch_counts().items()
+            if n != before[name]}
+
+
 def field(out, pattern):
     return re.search(pattern, out, re.M).group(1)
+
+
+def edge_layouts(tile, n_slots, rng):
+    """name -> (offsets [n_seg + 1] int64, n_slots): the layouts that stress
+    a kernel whose blocks own tiles of ``tile`` consecutive slots."""
+    lead, trail = 3 * tile, 77
+    short = rng.choice([0, 0, 1, 1, 1, 2, 3, 8, 30], size=400_000)
+    fixed = [np.zeros(3000, np.int64),                  # empties at slot 0
+             np.full(8, tile), [2 * tile, tile - 1, 1],  # ends on tile edges
+             np.zeros(2000, np.int64),                  # empties at an edge
+             short]
+    used = lead + trail + int(sum(int(np.sum(f)) for f in fixed))
+    lens = np.concatenate(fixed + [[n_slots - used],     # a hub of the rest
+                                   np.zeros(1500, np.int64)])  # at the end
+    off = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return {"tile edges, empty runs, offsets[0] > 0, a hub":
+            (off + lead, n_slots),
+            "one segment over every slot":
+            (np.array([0, n_slots], np.int64), n_slots)}
+
+
+def check_edge_layouts(torch, K, tile, dev):
+    """Phase 2's second part: the segment reduce and the segmented scan
+    against their plain versions on ``edge_layouts`` at the LJ edge count,
+    in all six op/dtype pairs, and 20 repeated launches."""
+    rng = np.random.default_rng(1)
+    for name, (off_np, n) in edge_layouts(tile, LJ_E, rng).items():
+        offsets = torch.from_numpy(off_np.astype(np.int32)).to(dev)
+        n_seg = off_np.size - 1
+        n_out = n_seg + 300                           # rows past N: identity
+        lens = torch.from_numpy(np.diff(off_np)).to(dev)
+        ids = torch.cat([
+            torch.full((int(off_np[0]),), -1, dtype=torch.int32, device=dev),
+            torch.repeat_interleave(
+                torch.arange(n_seg, dtype=torch.int32, device=dev), lens,
+                output_size=int(off_np[-1] - off_np[0])),
+            torch.full((n - int(off_np[-1]),), n_seg, dtype=torch.int32,
+                       device=dev)])
+        log(f"  layout: {name}: {n_seg} segments, {n} slots, "
+            f"offsets[0]={int(off_np[0])}, longest {int(lens.max())}")
+        for dtype in (torch.int32, torch.float32):
+            if dtype == torch.int32:
+                vals = torch.from_numpy(rng.integers(
+                    -(1 << 30), 1 << 30, n).astype(np.int32)).to(dev)
+            else:
+                vals = torch.from_numpy(rng.random(n, np.float32)).to(dev)
+            for op in K.OPS:
+                got = K.segment_reduce_sorted(vals, ids, offsets, n_out, op)
+                scan = K.segmented_scan(vals, ids, op)
+                torch.cuda.synchronize()
+                if dtype == torch.float32 and op == "add":
+                    want = K.segment_reduce_sorted_ref(
+                        vals.double(), ids, offsets, n_out, op)
+                    ok = torch.allclose(got.double(), want, rtol=1e-5,
+                                        atol=0.0)
+                    exact = K.segmented_scan_ref(vals.double(), ids, op)
+                    # values >= 0: the exact scan is the scan of |v|
+                    ok_scan = bool(((scan.double() - exact).abs()
+                                    <= 1e-5 * exact).all())
+                    how = "within rtol 1e-5 of float64"
+                    del exact
+                else:
+                    ok = torch.equal(got, K.segment_reduce_sorted_ref(
+                        vals, ids, offsets, n_out, op))
+                    ok_scan = torch.equal(scan, K.segmented_scan_ref(
+                        vals, ids, op))
+                    how = "exact"
+                check(ok and ok_scan, f"{name}: segment_reduce_sorted and "
+                      f"segmented_scan {op} {str(dtype)[6:]} {how}")
+                if op != "add":
+                    continue
+                same = all(torch.equal(K.segment_reduce_sorted(
+                    vals, ids, offsets, n_out, op), got) for _ in range(20))
+                same_scan = dtype == torch.float32 or all(
+                    torch.equal(K.segmented_scan(vals, ids, op), scan)
+                    for _ in range(20))
+                check(same and same_scan, f"{name}: 20 more launches, "
+                      f"add {str(dtype)[6:]}: segment_reduce_sorted gives "
+                      f"the same bits" + ("" if dtype == torch.float32 else
+                                          ", segmented_scan too"))
+            del vals, got, scan
+        del ids, offsets, lens
 
 
 def main():
@@ -266,6 +366,9 @@ def main():
         del vals, got, want
     scan_launches = K.launch_counts()["segmented_scan"]
     del seg_ids
+    lib = _build.lib()
+    check_edge_layouts(torch, K, max(lib.gm_segment_reduce_tile_size(),
+                                     lib.gm_segmented_scan_tile_size()), dev)
 
     # -- 3 + 4. the main path, counted ------------------------------------
     log("== 3. parity10k through the CLI (-GMDevice=cuda)")
@@ -323,6 +426,7 @@ def main():
     for app, fn in (("pagerank", lambda: pagerank(g)),
                     ("hop_dist", lambda: hop_dist(g, 0)),
                     ("sssp", lambda: sssp(g, 0, w))):
+        before = K.launch_counts()
         ev0.record()
         res = fn()
         ev1.record()
@@ -331,7 +435,8 @@ def main():
         check(array_checksum_hex(arr.numpy()) == app_crc[app],
               f"{app} in-process output == CLI output (CRC "
               f"{app_crc[app]}; {res.iterations} supersteps, "
-              f"{ev0.elapsed_time(ev1):.1f} ms)")
+              f"{ev0.elapsed_time(ev1):.1f} ms; kernel launches in this "
+              f"run {launched_since(K, before)})")
         if app == "pagerank":
             check(bool(torch.isfinite(arr).all()) and bool((arr >= 0).all())
                   and float(arr.double().sum()) <= 1.0 + 1e-4,
@@ -340,13 +445,15 @@ def main():
     roots = [int(r) for r in np.argsort(np.diff(begin))[::-1][:4]]
     bfs_res = {}
     for r in roots:
+        before = K.launch_counts()
         ev0.record()
         res = bfs(g, r)
         ev1.record()
         ev1.synchronize()
         bfs_res[r] = res
         log(f"  bfs root={r}: levels={res.levels_run} "
-            f"reached={res.reached} {ev0.elapsed_time(ev1):.1f} ms")
+            f"reached={res.reached} {ev0.elapsed_time(ev1):.1f} ms; kernel "
+            f"launches in this run {launched_since(K, before)}")
     hd_dist = {}
     for r in roots:
         ev0.record()
@@ -469,6 +576,39 @@ def main():
     excl_ms = (cuda_ms(torch, lambda: K.plain_cumsum(bits, exclusive=True)),
                cuda_ms(torch, lambda: K.plain_cumsum_ref(bits,
                                                          exclusive=True)))
+    # one PyTorch call that computes the same function, where there is one:
+    # timed here as a yardstick, called nowhere in the port
+    offs64 = offs.long()
+    library_ms = {
+        "segment_reduce_sorted": cuda_ms(torch, lambda: torch.segment_reduce(
+            pulled, "sum", offsets=offs64)),
+        "plain_cumsum": cuda_ms(torch, lambda: torch.cumsum(
+            bits, 0, dtype=torch.int32)),
+        "segmented_scan": None,
+    }
+    # the least the card could take: every input read once and every output
+    # written once at the memory's rate (these kernels do no arithmetic to
+    # speak of, so bytes bound them all)
+    in_range = int(offs[-1]) - int(offs[0])     # slots that belong to a row
+    bound_bytes = {
+        "segment_reduce_sorted": 4 * in_range + 4 * offs.numel() + 4 * n_pad,
+        "plain_cumsum": 8 * g.e_pad,
+        "segmented_scan": 12 * g.e_pad,
+    }
+    in_deg = g.r_begin.diff()
+    log(f"  LJ CSC in-degrees: max {int(in_deg.max())}, mean "
+        f"{float(in_deg.float().mean()):.2f}, empty "
+        f"{float((in_deg == 0).float().mean()):.3f}, under 8 slots "
+        f"{float((in_deg < 8).float().mean()):.3f}, under 32 slots "
+        f"{float((in_deg < 32).float().mean()):.3f} of {in_deg.numel()} "
+        "segments")
+    for name in bound_bytes:
+        lib_ms = library_ms[name]
+        log(f"  {name}: bound {bound_bytes[name] / 1e6:.1f} MB = "
+            f"{bound_bytes[name] / HBM_BYTES_PER_MS:.3f} ms at 3.35 TB/s; "
+            f"kernel {times[name][0]:.3f} ms; one PyTorch call "
+            + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
+    del offs64, in_deg
     log(f"  card: {smi}")
     log(f"  segment_reduce_sorted float32 add, e_pad={g.e_pad} "
         f"n_out={n_pad}: kernel {times['segment_reduce_sorted'][0]:.3f} ms, "
@@ -607,6 +747,8 @@ def main():
         rec = next(r for r in recs if r["probe"] == name
                    and r["name"] == PROBE_TIMED[name])
         times[name] = (rec["ms"], rec["plain_ms"])
+        bound_bytes[name] = rec["bound_bytes"]
+        library_ms[name] = rec["library_ms"]
         probe_errs[name] = max(r["max_abs_err"] for r in recs
                                if r["probe"] == name)
     row = next(r for r in recs if r["name"] == "row-broadcast [1024,128]")
@@ -621,7 +763,10 @@ def main():
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": counts[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in SOURCES]}))
+         "plain_ms": times[name][1],
+         "bound_ms": bound_bytes[name] / HBM_BYTES_PER_MS,
+         "bound_by": "bytes", "library_ms": library_ms[name]}
+        for name in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 // Tile shape measured on an NVIDIA H100 80GB HBM3 at 700 W, 69M int32
@@ -47,36 +49,13 @@ constexpr int kRounds = 16;                      // 16-byte vectors per thread
 constexpr int kTile = kThreads * 4 * kRounds;    // 8,192 elements per tile
 constexpr int kCombine = kRounds * kWarps;       // warp totals per tile
 static_assert(kCombine % 32 == 0, "warp 0 combines kCombine / 32 per lane");
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint64_t kAggregate = 1ull << 32;
-constexpr uint64_t kInclusive = 2ull << 32;
-
-__device__ __forceinline__ uint32_t to_bits(uint32_t v) { return v; }
-__device__ __forceinline__ uint32_t to_bits(float v) {
-  return __float_as_uint(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_bits(uint32_t b);
-template <>
-__device__ __forceinline__ uint32_t from_bits<uint32_t>(uint32_t b) {
-  return b;
-}
-template <>
-__device__ __forceinline__ float from_bits<float>(uint32_t b) {
-  return __uint_as_float(b);
-}
-
-__device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(uint64_t* p, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
+constexpr uint64_t kAggregate = gm::kState1;
+constexpr uint64_t kInclusive = gm::kState2;
+using gm::from_bits;
+using gm::kFull;
+using gm::load_status;
+using gm::store_status;
+using gm::to_bits;
 
 template <typename T>
 __device__ __forceinline__ T warp_inclusive(T x, int lane) {
@@ -125,9 +104,7 @@ scan_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  if (threadIdx.x == 0) s_tile = atomicAdd(counter, 1u);
-  __syncthreads();
-  const int64_t tile = s_tile;
+  const int64_t tile = gm::take_tile(counter, &s_tile);
   const int64_t base = tile * kTile;
   const bool full = base + kTile <= n;
 

@@ -5,114 +5,512 @@
 // kernel scans every edge slot with a cross-chunk carry and its caller then
 // gathers each segment's tail; every caller only ever reads those tails, so
 // this kernel reduces each run [offsets[v], offsets[v+1]) directly.  No chunk
-// padding, no -2 pad ids, no full scan written back to memory.
+// padding, no -2 pad ids, no full scan written back to memory, and the ids
+// are never read.
 //
 // Bound on an H100: device-memory bandwidth.  Each edge value is read once
-// (4 B) and each segment reads two offsets and writes one result; there is
-// no arithmetic to speak of.  The design: one warp per segment, the 32 lanes
-// striding over the run so that neighbouring lanes read neighbouring words
-// (coalesced), then a __shfl_xor_sync butterfly combines the lanes.  A
-// segment shorter than 32 leaves lanes idle (the mean in-degree of the
-// LiveJournal-scale RMAT graph is about 14), and a hub row is walked by one
-// warp alone; splitting hubs across warps is later work.
+// (4 B) and each segment reads an offset and writes a result; there is no
+// arithmetic to speak of.  What decides the time is how many bytes a block
+// keeps in flight.  One warp per segment (the first design) had a warp wait
+// for two dependent loads of 56 bytes at the LiveJournal-scale graph's mean
+// in-degree of 14: latency, not bandwidth, bound it at 7.5x the bytes' time.
 //
-// Rows v >= n_seg (up to n_out) and empty segments get the op's identity:
-// 0, INT32_MAX, INT32_MIN for int32 and 0, +inf, -inf for float32.  Integer
-// add is done in uint32 so that it wraps mod 2^32 without signed overflow.
-// Float add differs from a sequential sum only by rounding.
+// The design, two launches (a small one for the row bounds, then the tiles):
+//   - a block owns a tile of kTile consecutive edge slots, not a set of
+//     rows, and copies it into shared memory with 16-byte `cp.async`
+//     requests: every lane carries bytes whatever the degrees are, and no
+//     registers hold them meanwhile;
+//   - blocks are persistent: a grid of G blocks, as many as the card holds
+//     at once, of which block b takes tiles b, b + G, b + 2G, ..., so that
+//     the tiles in work at any moment are neighbours.  While a block works
+//     on one tile, the next one's values and offsets are already on their
+//     way into a second buffer, and the row bounds of the one after are
+//     being read: no tile starts with a chain of dependent loads;
+//   - row v belongs to the tile that holds its last slot, so each row has
+//     one owner; an empty row belongs to the tile that holds the slot before
+//     its position (tile 0 for position 0).  `tile_rows_kernel` finds each
+//     tile's first row by a 32-way search of `offsets`, one warp per tile
+//     (five rounds of one probe per lane at 4.8M rows);
+//   - a tile first goes over its rows, 512 offsets at a time through
+//     shared memory: an empty row gets the identity, any other sets a bit at
+//     the slot where it ends and leaves its number there.  Every block also
+//     writes the identity to its share of rows n_seg..n_out-1;
+//   - then the tile goes over its slots: each thread takes kPer consecutive
+//     slots out of shared memory into registers (16-byte loads from a
+//     rotated layout, free of bank conflicts) and walks them in order.  A
+//     row that starts and ends among them is complete at once.  The part
+//     before the thread's first row end and the part after its last go
+//     through one block-wide scan of (ended, value) pairs, which completes
+//     the rows that span threads.  Every thread does the same work whatever
+//     the degrees are: a hub costs what as many short rows cost;
+//   - the rows' results meet in shared memory and leave together, one
+//     coalesced store per 256 rows (a tile of more than 512 rows, all short
+//     or empty, writes each result on its own);
+//   - a row cut by a tile edge (every hub, and one short row at nearly every
+//     edge) is combined across tiles by look-back: the scan's total is the
+//     part of the row still open at the tile's end, published in the tile's
+//     status word (lookback.cuh), state 2 if the row starts in this tile,
+//     state 1 if the tile lies wholly inside it.  Only the tile that holds
+//     the row's end needs the carry, and it does not wait for it: the block
+//     reads the status words at the start of its next tile and finishes the
+//     cut row at that tile's end, when the words have long arrived.  Tiles
+//     inside a hub never wait, so the set of words that is combined, and
+//     their order, depend on the data alone: float32 add gives the same
+//     bits from run to run.  The price is that the end tile of a row that
+//     spans T tiles reads T status words, 32 at a time.
+// The grid is launched cooperatively, so the runtime guarantees that all G
+// blocks run together (or refuses the launch): the block that a look-back
+// waits for is always running, works through its tiles in rising order, and
+// the lowest unfinished tile never waits.  (Tile numbers drawn from a
+// counter, as cumsum.cu draws them, would give the same guarantee, but a
+// block that holds three drawn tiles at once, one in work and two on their
+// way, makes the block with the tile after them wait for all three: 7 ms.)
+//
+// What was measured on the way, on an NVIDIA H100 80GB HBM3 at 700 W at the
+// LiveJournal-scale pull shape (PERF.md has the runs).  One tile per block,
+// a group of 1..32 lanes per row sized from the tile's mean row length:
+// 0.201-0.231 ms, the lanes of a warp waiting for its longest row (two
+// thirds of the rows have under 8 slots, one in nine over 32).  One tile per
+// block with the slot walk above: 0.221.  Persistent blocks with the next
+// tile on its way: 0.225, of which waiting for the cut row's carry at each
+// tile's end took 0.077, the pass over the rows 0.047, and storing each
+// result on its own 0.05 (each timed by leaving it out).  With the carry put
+// off by a tile and the results leaving together: 0.186-0.190.
+//
+// Empty segments and rows v >= n_seg get the op's identity: 0, INT32_MAX,
+// INT32_MIN for int32 and 0, +inf, -inf for float32.  Slots outside
+// [offsets[0], offsets[n_seg]) count as the identity.  Integer add wraps mod
+// 2^32.  Float add differs from a sequential sum only by rounding; its order
+// is fixed: a thread's slots in order, the threads' parts by the scan's
+// tree, for a cut row the farther tiles' parts first.  A `vals` pointer that
+// is not 16-byte aligned takes the same kernel with 4-byte loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
-enum Op { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2 };
+using gm::kFull;
+using gm::Red;
 
-template <typename T, int OP> struct Red;
-
-template <> struct Red<int32_t, OP_ADD> {
-  __device__ static int32_t ident() { return 0; }
-  __device__ static int32_t apply(int32_t a, int32_t b) {
-    return (int32_t)((uint32_t)a + (uint32_t)b);
-  }
-};
-template <> struct Red<int32_t, OP_MIN> {
-  __device__ static int32_t ident() { return INT32_MAX; }
-  __device__ static int32_t apply(int32_t a, int32_t b) { return min(a, b); }
-};
-template <> struct Red<int32_t, OP_MAX> {
-  __device__ static int32_t ident() { return INT32_MIN; }
-  __device__ static int32_t apply(int32_t a, int32_t b) { return max(a, b); }
-};
-template <> struct Red<float, OP_ADD> {
-  __device__ static float ident() { return 0.0f; }
-  __device__ static float apply(float a, float b) { return a + b; }
-};
-template <> struct Red<float, OP_MIN> {
-  __device__ static float ident() { return __int_as_float(0x7f800000); }
-  __device__ static float apply(float a, float b) { return fminf(a, b); }
-};
-template <> struct Red<float, OP_MAX> {
-  __device__ static float ident() { return __int_as_float(0xff800000); }
-  __device__ static float apply(float a, float b) { return fmaxf(a, b); }
-};
-
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, LiveJournal-scale pull
+// shape (PERF.md): 4 vectors with the registers capped for 4 blocks per SM
+// 0.186-0.190 ms; capped for 3 blocks 0.195; capped for 1 (79 registers or
+// more) 0.236; 8 vectors (2 blocks) 0.206; 2 vectors 0.33-0.35.
 constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVecs = 4;            // 16-byte vectors (4 slots each) per thread
+constexpr int kBlocksPerSM = 4;     // blocks per SM that the registers must allow
+constexpr int kPer = 4 * kVecs;                    // consecutive slots a thread
+constexpr int kTile = kThreads * kPer;             // edge slots per tile
+constexpr int kRowChunk = 512;                     // rows per offsets load
+static_assert(kVecs == 2 || kVecs == 4 || kVecs == 8, "see phys_vec");
 
-template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-segment_reduce_kernel(const T* __restrict__ vals,
-                      const int32_t* __restrict__ offsets, int64_t n_seg,
-                      int64_t n_out, T* __restrict__ out) {
-  typedef Red<T, OP> R;
-  const int64_t v = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (v >= n_out) return;  // whole warps leave together
-  T acc = R::ident();
-  if (v < n_seg) {
-    const int64_t lo = offsets[v];
-    const int64_t hi = offsets[v + 1];
-    for (int64_t i = lo + lane; i < hi; i += 32) acc = R::apply(acc, vals[i]);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of the thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Where vector m of thread t (slots [kPer*t + 4*m, +4) of the tile) lies in
+// shared memory.  A thread reads its kVecs vectors with 16-byte loads; eight
+// neighbouring threads are served together, and the rotation by t spreads
+// their vectors over all eight 16-byte bank groups.
+__device__ __forceinline__ int phys_vec(int t, int m) {
+  return kVecs * t + ((m + t / (8 / kVecs)) & (kVecs - 1));
+}
+
+// One warp: the first v in [0, n_seg] with offsets[v + 1] > x (n_seg if
+// there is none).  Each round probes 32 points that split the range into 33.
+__device__ int64_t warp_upper_bound(const int32_t* __restrict__ offsets,
+                                    int64_t n_seg, int64_t x, int lane) {
+  int64_t lo = 0, hi = n_seg;
+  while (lo < hi) {
+    const int64_t p = lo + (hi - lo) * (lane + 1) / 33;       // in [lo, hi)
+    const unsigned gt = __ballot_sync(kFull, (int64_t)offsets[p + 1] > x);
+    const int f = gt ? __ffs(gt) - 1 : 32;   // first lane whose probe is > x
+    const int64_t p_f = __shfl_sync(kFull, p, f & 31);
+    const int64_t p_b = __shfl_sync(kFull, p, (f + 31) & 31);
+    if (f > 0) lo = p_b + 1;
+    if (f < 32) hi = p_f;
   }
+  return lo;
+}
+
+// Row bounds of the tiles, one warp each: rows[t] is the first row that
+// ends after slot t * kTile, so tile t owns rows [rows[t], rows[t + 1]).
+__global__ void __launch_bounds__(kThreads)
+tile_rows_kernel(const int32_t* __restrict__ offsets, int64_t n_seg,
+                 int64_t n_tiles, int64_t* __restrict__ rows) {
+  const int lane = threadIdx.x & 31;
+  const int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t > n_tiles) return;                       // whole warps leave together
+  int64_t r = 0;
+  if (t == n_tiles) r = n_seg;
+  else if (t > 0) r = warp_upper_bound(offsets, n_seg, t * kTile, lane);
+  if (lane == 0) rows[t] = r;
+}
+
+// (pf, pv) . (f, v), the pair on the left coming first: a set flag says
+// that a row ended inside, and the value is what came after its end.
+template <typename R>
+__device__ __forceinline__ void combine(int pf, typename R::type pv, int& f,
+                                        typename R::type& v) {
+  if (!f) v = R::apply(pv, v);
+  f |= pf;
+}
+
+// Shared memory of one block, in bytes: two tiles of values, the row
+// numbers, two loads of offsets, the rows' results, the row-end bits.
+constexpr int kOffBuf = kRowChunk + 1;
+constexpr size_t kSmemBytes =
+    (size_t)(2 * kTile + kTile + 2 * kOffBuf + kRowChunk + kTile / 32) * 4;
+
+template <typename T, int OP, bool kVec>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
+                      const int32_t* __restrict__ offsets, int64_t n_seg,
+                      int64_t n_out, T* __restrict__ out,
+                      uint64_t* __restrict__ status,
+                      const int64_t* __restrict__ tile_rows,
+                      int64_t n_tiles) {
+  typedef Red<T, OP> R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const s_vals = reinterpret_cast<T*>(smem);  // [2][kTile], phys_vec order
+  // s_row[k]: the row that ends at slot k, counted from the tile's first row
+  int32_t* const s_row = reinterpret_cast<int32_t*>(smem) + 2 * kTile;
+  int32_t* const s_off = s_row + kTile;          // [2][kOffBuf], as in memory
+  T* const s_out = reinterpret_cast<T*>(s_off + 2 * kOffBuf);  // [kRowChunk]
+  unsigned* const s_ends = reinterpret_cast<unsigned*>(s_out + kRowChunk);
+  __shared__ int s_wf[kWarps];
+  __shared__ T s_wv[kWarps];
+  __shared__ T s_head;                           // the cut first row's part
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+
+  // rows n_seg..n_out-1: the identity, shared out over the blocks
+  for (int64_t v = n_seg + (int64_t)blockIdx.x * kThreads + t; v < n_out;
+       v += (int64_t)gridDim.x * kThreads)
+    out[v] = R::ident();
+
+  if (t < kTile / 32) s_ends[t] = 0;
+  // the slots that belong to any row at all: [lo, hi)
+  const int64_t lo = offsets[0];
+  const int64_t hi = offsets[n_seg];
+
+  // Requests tile `tile`'s values and the offsets of its first kRowChunk
+  // rows [r0, r1) into buffer b; returns where the row that is still open at
+  // the tile's end starts (the tile's end if there is none).
+  auto request = [&](int64_t tile, int64_t r0, int64_t r1, int b) -> int64_t {
+    const int64_t ts = tile * kTile;
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1)
-    acc = R::apply(acc, __shfl_xor_sync(0xffffffffu, acc, s));
-  if (lane == 0) out[v] = acc;
+    for (int r = 0; r < kVecs; ++r) {
+      const int vec = r * kThreads + t;          // coalesced over the threads
+      const int64_t i = ts + 4 * vec;
+      T* dst = s_vals + b * kTile + 4 * phys_vec(vec / kVecs, vec % kVecs);
+      if (kVec && i + 4 <= n_vals) {
+        cp_async16(dst, vals + i);
+      } else {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (i + m < n_vals) dst[m] = vals[i + m];
+      }
+    }
+    const int rows0 = (int)(r1 - r0 < kRowChunk ? r1 - r0 : kRowChunk);
+    for (int i = t; i <= rows0; i += kThreads)
+      cp_async4(s_off + b * kOffBuf + i, offsets + r0 + i);
+    return r1 < n_seg ? (int64_t)offsets[r1] : ts + kTile;
+  };
+
+  // Block b takes tiles b, b + G, b + 2G, ... of a grid of G blocks.  While
+  // it works on one, the next one's values and offsets are on their way into
+  // the other buffer and the row bounds of the one after are being read, so
+  // that no tile starts with a chain of dependent loads.
+  const int64_t stride = gridDim.x;
+  int64_t tile = blockIdx.x, next = tile + stride;
+  int64_t r0 = 0, r1 = 0, r0n = 0, r1n = 0, open_at = 0;
+  if (tile < n_tiles) {
+    r0 = tile_rows[tile];
+    r1 = tile_rows[tile + 1];
+    open_at = request(tile, r0, r1, 0);
+  }
+  cp_async_commit();
+  if (next < n_tiles) {
+    r0n = tile_rows[next];
+    r1n = tile_rows[next + 1];
+  }
+  // The cut first row of a tile waits for its carry until the block has done
+  // its next tile: by then the tiles before it have published, and their
+  // status words, read at that tile's start, have long arrived.
+  int64_t cut_tile = -1, cut_row = 0;
+  for (unsigned k = 0; tile < n_tiles; ++k) {
+    const int b = k & 1;
+    const int64_t after = next + stride;
+    int64_t r0a = 0, r1a = 0, open_n = 0;
+    if (after < n_tiles) {
+      r0a = tile_rows[after];
+      r1a = tile_rows[after + 1];
+    }
+    if (next < n_tiles) open_n = request(next, r0n, r1n, b ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                          // this tile's requests
+    __syncthreads();
+
+    const int64_t ts = tile * kTile;             // the tile's slots: [ts, te)
+    const T* const v_tile = s_vals + b * kTile;
+    int32_t* const off = s_off + b * kOffBuf;
+    // the row cut by the tile's start (it ends here, so r0 < r1)
+    const bool head = r0 < r1 && (int64_t)off[0] < ts;
+    // few rows (the rule): their results meet in shared memory and leave
+    // together, coalesced; else each goes to memory on its own
+    const bool few = r1 - r0 <= kRowChunk;
+    T* const dst = few ? s_out : out + r0;
+    T cut_part = R::ident();
+    uint64_t cut_word = 0;
+    if (warp == 1 && cut_tile >= 0) {
+      cut_part = s_head;
+      if (cut_tile - 1 - lane >= 0)
+        cut_word = gm::load_status(status + cut_tile - 1 - lane);
+    }
+
+    // 1. by rows: an empty row gets the identity; any other marks the slot
+    //    where it ends
+    for (int64_t c = r0; c < r1; c += kRowChunk) {
+      const int rows = (int)(r1 - c < kRowChunk ? r1 - c : kRowChunk);
+      if (c != r0) {                             // the first load was requested
+        __syncthreads();                         // off is read by the last
+        for (int i = t; i <= rows; i += kThreads) off[i] = offsets[c + i];
+        __syncthreads();
+      }
+      for (int i = t; i < rows; i += kThreads) {
+        const int a = (int)((int64_t)off[i] - ts);
+        const int end = (int)((int64_t)off[i + 1] - ts) - 1;
+        if (end < a) {
+          dst[c - r0 + i] = R::ident();
+        } else {
+          atomicOr(&s_ends[end >> 5], 1u << (end & 31));
+          s_row[end] = (int32_t)(c - r0 + i);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. by slots: each thread walks its kPer consecutive slots in
+    //    registers, writes the rows that start and end inside them, and
+    //    keeps the part before the first end and the part after the last
+    T x[kPer];
+#pragma unroll
+    for (int m = 0; m < kVecs; ++m) {
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(v_tile + 4 * phys_vec(t, m));
+      x[4 * m + 0] = gm::from_bits<T>(v.x);
+      x[4 * m + 1] = gm::from_bits<T>(v.y);
+      x[4 * m + 2] = gm::from_bits<T>(v.z);
+      x[4 * m + 3] = gm::from_bits<T>(v.w);
+    }
+    const int base = kPer * t;
+    if (ts + base < lo || ts + base + kPer > hi) {   // slots of no row
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (ts + base + j < lo || ts + base + j >= hi) x[j] = R::ident();
+    }
+    const unsigned ends = (s_ends[base >> 5] >> (base & 31)) &
+                          (kPer == 32 ? ~0u : (1u << kPer) - 1u);
+    int f = 0;                     // a row ended among my slots
+    T first = R::ident();          // my slots up to the first end
+    int first_row = 0;
+    T acc = R::ident();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      acc = R::apply(acc, x[j]);
+      if ((ends >> j) & 1) {
+        const int32_t row = s_row[base + j];
+        if (f) {
+          dst[row] = acc;
+        } else {
+          first = acc;
+          first_row = row;
+          f = 1;
+        }
+        acc = R::ident();
+      }
+    }
+
+    // exclusive scan of the threads' (f, acc) pairs over the block
+    int wf = f;
+    T wv = acc;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int yf = __shfl_up_sync(kFull, wf, s);
+      const T yv = __shfl_up_sync(kFull, wv, s);
+      if (lane >= s) combine<R>(yf, yv, wf, wv);
+    }
+    if (lane == 31) {
+      s_wf[warp] = wf;
+      s_wv[warp] = wv;
+    }
+    int ef = __shfl_up_sync(kFull, wf, 1);
+    T ev = __shfl_up_sync(kFull, wv, 1);
+    if (lane == 0) {
+      ef = 0;
+      ev = R::ident();
+    }
+    __syncthreads();
+    if (t < kTile / 32) s_ends[t] = 0;           // for the next tile
+    int pf = 0;
+    T pv = R::ident();
+    for (int w = 0; w < (t == 0 ? kWarps : warp); ++w) {
+      int nf = s_wf[w];
+      T nv = s_wv[w];
+      combine<R>(pf, pv, nf, nv);
+      pf = nf;
+      pv = nv;
+    }
+    if (t == 0) {
+      // the whole tile's pair: what follows the last end is the open row's
+      // part.  State 2 if that row starts in this tile (or none is open),
+      // state 1 if the tile lies wholly inside it.
+      gm::store_status(status + tile,
+                       (open_at < ts ? gm::kState1 : gm::kState2) |
+                           gm::to_bits(pv));
+      pf = 0;
+      pv = R::ident();
+    }
+    combine<R>(pf, pv, ef, ev);    // (ef, ev): everything before my slots
+    if (f) {
+      const T whole = R::apply(ev, first);
+      if (ef || !head) dst[first_row] = whole;
+      else s_head = whole;         // the tile's first end, of the cut row
+    }
+    if (few) {
+      __syncthreads();
+      const int rows = (int)(r1 - r0);
+      for (int i = t + (head ? 1 : 0); i < rows; i += kThreads)
+        out[r0 + i] = s_out[i];
+    }
+    if (warp == 1 && cut_tile >= 0) {
+      const T carry = gm::look_back<R>(status, cut_tile, lane, cut_word);
+      if (lane == 0) out[cut_row] = R::apply(carry, cut_part);
+    }
+    cut_tile = head ? tile : -1;
+    cut_row = r0;
+    tile = next;
+    r0 = r0n;
+    r1 = r1n;
+    open_at = open_n;
+    next = after;
+    r0n = r0a;
+    r1n = r1a;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (warp == 1 && cut_tile >= 0) {
+    const T carry = gm::look_back<R>(status, cut_tile, lane);
+    if (lane == 0) out[cut_row] = R::apply(carry, s_head);
+  }
+}
+
+template <typename T, int OP, bool kVec>
+cudaError_t launch_tiles(const T* vals, int64_t n_vals,
+                         const int32_t* offsets, int64_t n_seg, int64_t n_out,
+                         T* out, uint64_t* status, const int64_t* rows,
+                         int64_t n_tiles, cudaStream_t stream) {
+  auto kernel = segment_reduce_kernel<T, OP, kVec>;
+  static int resident = 0;         // blocks the card holds at once
+  if (resident == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (e != cudaSuccess) return e;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, kSmemBytes);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1 || sms < 1) return cudaErrorLaunchOutOfResources;
+    resident = per_sm * sms;
+  }
+  // A cooperative launch: the runtime starts the grid only when all of its
+  // blocks fit on the card together, or refuses it.  A block that waits for
+  // a tile's status word thus never waits for a block that is not running.
+  const int64_t blocks = n_tiles < resident ? n_tiles : resident;
+  void* args[] = {&vals, &n_vals, &offsets, &n_seg, &n_out,
+                  &out,  &status, &rows,    &n_tiles};
+  return cudaLaunchCooperativeKernel((const void*)kernel,
+                                     dim3((unsigned)blocks), dim3(kThreads),
+                                     args, kSmemBytes, stream);
 }
 
 template <typename T, int OP>
-void launch(const void* vals, const int32_t* offsets, int64_t n_seg,
-            int64_t n_out, void* out, cudaStream_t stream) {
-  const int64_t blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  segment_reduce_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)vals, offsets, n_seg, n_out, (T*)out);
+int launch(const void* vals, int64_t n_vals, const int32_t* offsets,
+           int64_t n_seg, int64_t n_out, void* out, void* scratch,
+           int64_t n_tiles, cudaStream_t stream) {
+  uint64_t* status = (uint64_t*)scratch;
+  int64_t* rows = (int64_t*)(status + n_tiles);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)n_tiles * 8, stream);
+  if (e != cudaSuccess) return (int)e;
+  tile_rows_kernel<<<(unsigned)((n_tiles + kWarps) / kWarps), kThreads, 0,
+                     stream>>>(offsets, n_seg, n_tiles, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if ((uintptr_t)vals % 16 == 0)
+    e = launch_tiles<T, OP, true>((const T*)vals, n_vals, offsets, n_seg,
+                                  n_out, (T*)out, status, rows, n_tiles,
+                                  stream);
+  else
+    e = launch_tiles<T, OP, false>((const T*)vals, n_vals, offsets, n_seg,
+                                   n_out, (T*)out, status, rows, n_tiles,
+                                   stream);
+  return (int)e;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Edge slots per tile: with T = max(1, ceil(n_vals / tile)) tiles the wrapper
+// allocates 2 * T + 1 uint64 words of scratch (a status word per tile and
+// T + 1 row bounds).
+int gm_segment_reduce_tile_size(void) { return kTile; }
+
 // dtype: 0 = int32, 1 = float32.  op: 0 = add, 1 = min, 2 = max.
-// offsets holds n_seg + 1 sorted entries; out holds n_out >= n_seg entries.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unknown dtype or op).
-int gm_segment_reduce(const void* vals, const int32_t* offsets, int64_t n_seg,
-                      int64_t n_out, void* out, int dtype, int op,
-                      void* stream) {
+// vals holds n_vals slots; offsets holds n_seg + 1 sorted entries within
+// [0, n_vals]; out holds n_out >= n_seg entries.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unknown dtype or op).
+int gm_segment_reduce(const void* vals, int64_t n_vals, const int32_t* offsets,
+                      int64_t n_seg, int64_t n_out, void* out, void* scratch,
+                      int dtype, int op, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_out <= 0) return (int)cudaGetLastError();
-  const int key = dtype * 3 + op;
-  switch (key) {
-    case 0: launch<int32_t, OP_ADD>(vals, offsets, n_seg, n_out, out, s); break;
-    case 1: launch<int32_t, OP_MIN>(vals, offsets, n_seg, n_out, out, s); break;
-    case 2: launch<int32_t, OP_MAX>(vals, offsets, n_seg, n_out, out, s); break;
-    case 3: launch<float, OP_ADD>(vals, offsets, n_seg, n_out, out, s); break;
-    case 4: launch<float, OP_MIN>(vals, offsets, n_seg, n_out, out, s); break;
-    case 5: launch<float, OP_MAX>(vals, offsets, n_seg, n_out, out, s); break;
+  const int64_t t = n_vals > 0 ? (n_vals + kTile - 1) / kTile : 1;
+  switch (dtype * 3 + op) {
+    case 0: return launch<int32_t, gm::OP_ADD>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 1: return launch<int32_t, gm::OP_MIN>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 2: return launch<int32_t, gm::OP_MAX>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 3: return launch<float, gm::OP_ADD>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 4: return launch<float, gm::OP_MIN>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 5: return launch<float, gm::OP_MAX>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -3,8 +3,8 @@
 The sources are compiled by ``nvcc`` for ``sm_90a``, one process per
 source started together, and linked into one shared library with a plain C
 interface, loaded with ctypes.  The library's file name
-carries a hash of the sources and flags, so an edited kernel is rebuilt and
-an unchanged one is loaded as it is.  Nothing here runs at import time:
+carries a hash of the sources, the headers they share and the flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import time:
 machines without ``nvcc`` (the CPU test runs) import the package freely and
 only a CUDA launch asks for the library.
 """
@@ -24,6 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "green_marl_tpu_torch")
 SOURCES = ("segment_reduce.cu", "cumsum.cu", "segmented_scan.cu",
            "gather_probe.cu")
+HEADERS = ("lookback.cuh",)     # included by the sources: rebuild on change
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,7 +44,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libgm_kernels-{h.hexdigest()[:16]}.so")
@@ -91,15 +92,17 @@ def lib() -> ctypes.CDLL:
         cdll = ctypes.CDLL(build())
         vp, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         cdll.gm_segment_reduce.restype = cint
-        cdll.gm_segment_reduce.argtypes = [vp, vp, i64, i64, vp, cint,
-                                           cint, vp]
+        cdll.gm_segment_reduce.argtypes = [vp, i64, vp, i64, i64, vp, vp,
+                                           cint, cint, vp]
+        cdll.gm_segment_reduce_tile_size.restype = cint
+        cdll.gm_segment_reduce_tile_size.argtypes = []
         cdll.gm_cumsum.restype = cint
         cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, cint, vp]
         cdll.gm_cumsum_tile_size.restype = cint
         cdll.gm_cumsum_tile_size.argtypes = []
         cdll.gm_segmented_scan.restype = cint
-        cdll.gm_segmented_scan.argtypes = [vp, vp, vp, vp, vp, i64, cint,
-                                           cint, vp]
+        cdll.gm_segmented_scan.argtypes = [vp, vp, vp, vp, i64, cint, cint,
+                                           vp]
         cdll.gm_segmented_scan_tile_size.restype = cint
         cdll.gm_segmented_scan_tile_size.argtypes = []
         cdll.gm_take_along.restype = cint

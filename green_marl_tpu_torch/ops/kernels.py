@@ -96,7 +96,19 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
 
     ``offsets`` must ascend within ``[0, len(vals)]``, as a ``Graph``'s
     ``begin``/``r_begin`` do; the kernel does not check it (that would
-    cost a device-to-host sync per call).
+    cost a device-to-host sync per call).  Slots outside
+    ``[offsets[0], offsets[-1])`` do not count.
+
+    On the card, persistent blocks walk tiles of consecutive edge slots
+    (``csrc/segment_reduce.cu``); a segment cut by a tile edge is put
+    together from the tiles' parts in an order that depends on the data
+    alone.  So int32 and min/max equal the plain version bit for bit, and
+    float32 add, which sums in another order than a sequential loop (within
+    rounding: rtol 1e-5 against float64 for values of one sign), gives the
+    same bits on every launch.  ``vals`` that is not 16-byte aligned (a
+    view such as ``x[1:]``) is read with 4-byte loads: the same result,
+    more slowly.  The launch is cooperative: it needs a device that
+    supports ``cudaLaunchCooperativeKernel``.
     """
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
@@ -113,11 +125,18 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     if vals.device.type == "cpu":
         return segment_reduce_sorted_ref(vals, ids, offsets, n_out, op)
     stream = _cuda_stream(vals)
+    lib = _build.lib()
     out = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
+    # per tile of edge slots a status word and a row bound (and one more
+    # bound); the C entry clears what must start at 0
+    n_tiles = max(1, -(-vals.numel() // lib.gm_segment_reduce_tile_size()))
+    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64,
+                          device=vals.device)
     with torch.cuda.device(vals.device):
-        err = _build.lib().gm_segment_reduce(
-            vals.data_ptr(), offsets.data_ptr(), offsets.numel() - 1, n_out,
-            out.data_ptr(), _DTYPE_CODE[vals.dtype], OPS.index(op), stream)
+        err = lib.gm_segment_reduce(
+            vals.data_ptr(), vals.numel(), offsets.data_ptr(),
+            offsets.numel() - 1, n_out, out.data_ptr(), scratch.data_ptr(),
+            _DTYPE_CODE[vals.dtype], OPS.index(op), stream)
     if err:
         raise RuntimeError(f"gm_segment_reduce: CUDA error {err}")
     segment_reduce_sorted.launches += 1
@@ -214,8 +233,16 @@ def segmented_scan(vals: torch.Tensor, ids: torch.Tensor,
     position 0 starts there unless ``ids[0] == -1``.  Any length is
     accepted: unlike the TPU kernel, no padding to a multiple of its
     32,768-slot chunk is needed.  int32 add wraps mod 2^32; float32 add
-    sums in another order than a sequential scan (tree order within
-    4,096-slot tiles, then across tiles), so it agrees to rounding.
+    sums in another order than a sequential scan (a thread's four slots,
+    then trees over the threads of an 8,192-slot tile, then across
+    tiles), so it agrees to rounding: within 1e-5 of the segmented scan
+    of ``|vals|``.  On the card the kernel is a single pass with decoupled
+    look-back (``csrc/segmented_scan.cu``): a segment that spans three
+    tiles or more is summed across tiles in an order that depends on
+    timing, so float32 add may differ in the last bits from run to run on
+    such segments; int32 and min/max never do.  Tensors that are not
+    16-byte aligned take 4-byte loads and stores: the same result, more
+    slowly.
     """
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
@@ -232,14 +259,16 @@ def segmented_scan(vals: torch.Tensor, ids: torch.Tensor,
     lib = _build.lib()
     n = vals.numel()
     out = torch.empty_like(vals)
-    n_tiles = max(1, -(-n // lib.gm_segmented_scan_tile_size()))
-    agg_f = torch.empty(n_tiles, dtype=torch.int32, device=vals.device)
-    agg_v = torch.empty(n_tiles, dtype=vals.dtype, device=vals.device)
+    if n == 0:
+        return out
+    # one status word per tile and the tile counter, cleared by the C entry
+    scratch = torch.empty(-(-n // lib.gm_segmented_scan_tile_size()) + 1,
+                          dtype=torch.int64, device=vals.device)
     with torch.cuda.device(vals.device):
         err = lib.gm_segmented_scan(
             vals.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            agg_f.data_ptr(), agg_v.data_ptr(), n, _DTYPE_CODE[vals.dtype],
-            OPS.index(op), stream)
+            scratch.data_ptr(), n, _DTYPE_CODE[vals.dtype], OPS.index(op),
+            stream)
     if err:
         raise RuntimeError(f"gm_segmented_scan: CUDA error {err}")
     segmented_scan.launches += 1

@@ -131,6 +131,31 @@ def _max_err(what: str, pairs) -> float:
     return err
 
 
+def _gather_ms(case: TakeCase, table: torch.Tensor,
+               idxs) -> Optional[float]:
+    """Time of one ``torch.gather`` call that computes the case's function
+    from int64 indices prepared beforehand (a yardstick: the port never
+    calls it); None for the composed mode, which takes two."""
+    if case.mode == "composed":
+        return None
+    th, nb = case.table_rows, E_ROWS // case.block_rows
+    tb = (table[:th].unsqueeze(0).expand(nb, th, K.LANES) if case.window
+          else table.view(nb, th, K.LANES))
+
+    def prepared(idx):
+        ib = idx.view(nb, case.block_rows, K.LANES)
+        if case.mode == "axis1":
+            return (ib & 127 if case.split
+                    else ib.clamp(0, K.LANES - 1)).long()
+        rows = (ib >> 7 if case.split else ib).clamp(0, th - 1).long()
+        return (rows[:, :, :1].expand(-1, -1, K.LANES).contiguous()
+                if case.mode == "row" else rows)
+
+    ix = [prepared(i) for i in idxs]
+    dim = 2 if case.mode == "axis1" else 1
+    return median_ms(lambda r: torch.gather(tb, dim, ix[r]))
+
+
 def probe_take(case: TakeCase, dev: torch.device,
                gen: torch.Generator) -> Dict:
     R = E_ROWS
@@ -147,10 +172,15 @@ def probe_take(case: TakeCase, dev: torch.device,
     plain = median_ms(lambda r: K.take_along_blocks_ref(table, idxs[r],
                                                         *args))
     nbytes = R * K.LANES * 8           # 4-byte index in, 4-byte value out
+    # what the call must move: the table once, each value out, and each
+    # index in (the row mode needs one index per row only)
+    idx_bytes = R * 4 if case.mode == "row" else R * K.LANES * 4
     return dict(probe="take_along_blocks", name=case.name, ms=ms,
                 plain_ms=plain, gbs=nbytes / ms / 1e6,
                 plain_gbs=nbytes / plain / 1e6, max_abs_err=err,
-                staged=K.take_along_staged(case.table_rows, case.mode))
+                staged=K.take_along_staged(case.table_rows, case.mode),
+                bound_bytes=table.numel() * 4 + R * K.LANES * 4 + idx_bytes,
+                library_ms=_gather_ms(case, table, idxs))
 
 
 def probe_row_gather(roww: int, k: int, dev: torch.device,
@@ -170,10 +200,14 @@ def probe_row_gather(roww: int, k: int, dev: torch.device,
     plain = median_ms(lambda r: K.row_gather_checksum_ref(table, idxs[r],
                                                           GATHER_SWEEPS))
     rows = GATHER_IDS * GATHER_SWEEPS
+    # what a call must move: each row that its ids name, once, and the ids
+    distinct = max(int(torch.unique(i).numel()) for i in idxs[:3])
     return dict(probe="row_gather_checksum", name=f"rowB={roww * 4} K={k}",
                 ms=ms, plain_ms=plain, ns_row=ms * 1e6 / rows,
                 plain_ns_row=plain * 1e6 / rows,
-                gbs=rows * roww * 4 / ms / 1e6, max_abs_err=err, table=table)
+                gbs=rows * roww * 4 / ms / 1e6, max_abs_err=err, table=table,
+                bound_bytes=distinct * roww * 4 + GATHER_IDS * 4,
+                library_ms=None)
 
 
 def probe_index_select(dev: torch.device, gen: torch.Generator) -> Dict:
@@ -191,17 +225,31 @@ def probe_index_select(dev: torch.device, gen: torch.Generator) -> Dict:
                 gbs=ENGINE_IDS * (2 * row_b + 4) / ms / 1e6)
 
 
+HBM_BYTES_PER_MS = 3.35e9     # H100 SXM data sheet: 3.35 TB/s
+
+
+def _bound(rec: Dict) -> str:
+    """The least the card could take for the record's bytes, and the time
+    of the one PyTorch call that does the same, where there is one."""
+    lib = rec["library_ms"]
+    return (f" | bound {rec['bound_bytes'] / 1e6:6.1f} MB "
+            f"{rec['bound_bytes'] / HBM_BYTES_PER_MS:6.3f} ms"
+            + ("" if lib is None else f" | torch.gather {lib:6.3f} ms"))
+
+
 def fmt(rec: Dict) -> str:
     """One printed line of a probe record."""
     if rec["probe"] == "take_along_blocks":
         where = "shared memory" if rec["staged"] else "L1/L2"
         return (f"take_along {rec['name']:30s} kernel {rec['ms']:8.3f} ms "
                 f"{rec['gbs']:7.1f} GB/s ({where}) | plain "
-                f"{rec['plain_ms']:8.3f} ms {rec['plain_gbs']:7.1f} GB/s")
+                f"{rec['plain_ms']:8.3f} ms {rec['plain_gbs']:7.1f} GB/s"
+                + _bound(rec))
     if rec["probe"] == "row_gather_checksum":
         return (f"row_gather {rec['name']:14s} kernel {rec['ms']:8.3f} ms "
                 f"{rec['ns_row']:6.3f} ns/row {rec['gbs']:7.1f} GB/s | plain "
-                f"{rec['plain_ms']:8.3f} ms {rec['plain_ns_row']:6.3f} ns/row")
+                f"{rec['plain_ms']:8.3f} ms {rec['plain_ns_row']:6.3f} ns/row"
+                + _bound(rec))
     return (f"index_select {rec['name']} {rec['ms']:8.3f} ms "
             f"{rec['ns_row']:6.3f} ns/row {rec['gbs']:7.1f} GB/s "
             "(row out + row in + id)")

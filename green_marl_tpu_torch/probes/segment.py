@@ -1,0 +1,157 @@
+"""Segment kernels on the card, at the LiveJournal-scale graph's pull shape.
+
+Times ``kernels.segment_reduce_sorted`` (float32 add and int32 min) and
+``kernels.segmented_scan`` (float32 add) over the CSC of the RMAT graph of
+bench.py's LiveJournal-scale sizes (N=4.8M, E=69M, seed 42, edges from
+``native/gm_io.cc``), beside a ``clone()`` of the values and, for the
+float32 sum, ``torch.segment_reduce`` (a yardstick only: the port never
+calls it).  Each kernel is first held against its plain version.  Times
+are CUDA events, per call: back-to-back launches in groups, the median
+group and the range over the groups.
+
+Run on a machine with an NVIDIA GPU, from the root of a checkout::
+
+    python green_marl_tpu_torch/probes/segment.py [--root DIR]
+
+``--root DIR`` takes the package from another checkout (``DIR`` holds
+``green_marl_tpu_torch/``), so two commits can be timed in turns within one
+run on one card: both keep the wrappers' Python signatures.  The graph's
+CSC offsets are kept in ``--cache`` between runs.  Prints one JSON object
+per line.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+LJ_N, LJ_E, LJ_SEED = 4_800_000, 69_000_000, 42   # bench.py:50-52
+HBM_BYTES_PER_MS = 3.35e9                         # H100 SXM data sheet
+
+
+def timed(fn, calls, groups):
+    """(median, min, max) over ``groups`` of the mean ms of ``calls``
+    back-to-back launches."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / calls)
+    return statistics.median(ms), min(ms), max(ms)
+
+
+def csc_offsets(native, cache):
+    """[N + 1] int32 CSC offsets of the LJ-scale RMAT graph."""
+    if cache and os.path.exists(cache):
+        return np.load(cache)
+    _, dst = native.rmat_edges(LJ_N, LJ_E, seed=LJ_SEED)
+    off = np.zeros(LJ_N + 1, np.int32)
+    np.cumsum(np.bincount(dst, minlength=LJ_N), out=off[1:])
+    if cache:
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        np.save(cache, off)
+    return off
+
+
+def time_all(args, K, record, vals_f, vals_i, ids, offs, n_pad, e_pad):
+    """Times each kernel and its yardsticks; one record each."""
+    offs64 = offs.long()
+    reduce_bytes = 4 * e_pad + 4 * offs.numel() + 4 * n_pad
+    for what, fn, nbytes in (
+            ("segment_reduce_sorted float32 add",
+             lambda: K.segment_reduce_sorted(vals_f, ids, offs, n_pad, "add"),
+             reduce_bytes),
+            ("segment_reduce_sorted int32 min",
+             lambda: K.segment_reduce_sorted(vals_i, ids, offs, n_pad, "min"),
+             reduce_bytes),
+            ("segmented_scan float32 add",
+             lambda: K.segmented_scan(vals_f, ids, "add"), 12 * e_pad),
+            ("torch.segment_reduce float32 sum (offsets)",
+             lambda: torch.segment_reduce(vals_f, "sum", offsets=offs64),
+             reduce_bytes),
+            ("clone of the values", vals_f.clone, 8 * e_pad)):
+        med, lo, hi = timed(fn, args.calls, args.groups)
+        record(what=what, ms=med, ms_min=lo, ms_max=hi,
+               bound_ms=nbytes / HBM_BYTES_PER_MS)
+
+
+def main(argv=None):
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--cache", default=os.path.join(
+        "build", "green_marl_tpu_torch", f"rmat_lj_seed{LJ_SEED}_csc.npy"))
+    ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--groups", type=int, default=7)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("probes/segment.py: needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from green_marl_tpu_torch.graph import native
+    from green_marl_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    off_np = csc_offsets(native, args.cache)
+    e_pad = -(-LJ_E // 128) * 128
+    n_pad = -(-(LJ_N + 1) // 128) * 128
+    deg = np.diff(off_np)
+    offs = torch.from_numpy(off_np).to(dev)
+    ids = torch.repeat_interleave(
+        torch.arange(LJ_N, dtype=torch.int32, device=dev),
+        torch.from_numpy(deg).to(dev), output_size=LJ_E)
+    ids = torch.cat([ids, ids.new_full((e_pad - LJ_E,), LJ_N)])
+    gen = torch.Generator(device=dev).manual_seed(LJ_SEED)
+    vals_f = torch.rand(e_pad, device=dev, generator=gen)
+    vals_i = torch.randint(0, LJ_N, (e_pad,), device=dev, generator=gen,
+                           dtype=torch.int32)
+
+    def record(**kw):
+        print(json.dumps({"root": args.root, "card": card, **kw}),
+              flush=True)
+
+    record(what="shape", e_pad=e_pad, n_seg=LJ_N, n_out=n_pad,
+           max_len=int(deg.max()), share_under_8=float((deg < 8).mean()),
+           share_under_32=float((deg < 32).mean()),
+           share_empty=float((deg == 0).mean()))
+
+    # each kernel against its plain version
+    got = K.segment_reduce_sorted(vals_f, ids, offs, n_pad, "add")
+    want = K.segment_reduce_sorted_ref(vals_f.double(), ids, offs, n_pad,
+                                       "add")
+    assert torch.allclose(got.double(), want, rtol=1e-5, atol=0.0)
+    again = K.segment_reduce_sorted(vals_f, ids, offs, n_pad, "add")
+    got_i = K.segment_reduce_sorted(vals_i, ids, offs, n_pad, "min")
+    assert torch.equal(got_i, K.segment_reduce_sorted_ref(vals_i, ids, offs,
+                                                          n_pad, "min"))
+    scan = K.segmented_scan(vals_i, ids, "add")
+    assert torch.equal(scan, K.segmented_scan_ref(vals_i, ids, "add"))
+    tails = (offs[1:] - 1).clamp(min=0).long()
+    nonempty = offs[1:] > offs[:-1]
+    scan = K.segmented_scan(vals_f, ids, "add")
+    assert torch.allclose(scan[tails][nonempty], got[:LJ_N][nonempty],
+                          rtol=1e-5, atol=0.0)
+    record(what="checks", ok=True,
+           float_add_same_bits_twice=bool(torch.equal(got, again)))
+    del want, scan, tails, nonempty, got, again, got_i
+
+    time_all(args, K, record, vals_f, vals_i, ids, offs, n_pad, e_pad)
+
+
+if __name__ == "__main__":
+    main()

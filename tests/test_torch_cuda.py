@@ -225,6 +225,239 @@ def test_segmented_scan_float_rounding(dev):
     assert bool(((got - exact).abs() <= bound).all())
 
 
+OP_DTYPE = [(op, dt) for dt in (torch.int32, torch.float32)
+            for op in ("add", "min", "max")]
+
+
+def _edge_layouts(tile):
+    """name -> (lens, lead, trail): segment lengths that stress a kernel
+    whose blocks own tiles of ``tile`` consecutive slots; ``lead`` slots
+    before ``offsets[0]`` and ``trail`` slots after the last segment."""
+    rng = np.random.default_rng(21)
+    short = lambda k: rng.choice([0, 1, 1, 2, 5, 40], size=k)
+    return {
+        "one segment over every slot": ([5 * tile + 3], 0, 0),
+        "segments that end on tile edges": (
+            [tile, tile, 2 * tile, 1, tile - 1, 3, tile - 3, 3 * tile], 0, 0),
+        "runs of empty segments at slot 0, at a tile edge and at the end": (
+            np.concatenate([np.zeros(3000, int), [tile], np.zeros(2500, int),
+                            short(400), [2 * tile + 7],
+                            np.zeros(1700, int)]), 0, 0),
+        "offsets[0] > 0 and slots after the last segment": (
+            np.concatenate([[tile + 9], short(900), [3 * tile]]),
+            tile + 37, 2 * tile + 5),
+        "more rows in a tile than one load of offsets holds": (
+            np.concatenate([rng.choice([0, 1, 2], size=9000), [7],
+                            np.zeros(4000, int), short(50)]), 3, 0),
+        "long rows among short ones": (
+            np.concatenate([np.concatenate([short(30), [int(k)]])
+                            for k in rng.integers(257, 3 * tile, 40)]), 0, 11),
+        "every segment empty": (np.zeros(700, int), 5, 2 * tile),
+        "a hub over many tiles between short rows": (
+            np.concatenate([short(2000), [70 * tile + 13], short(2000)]),
+            0, 0),
+    }
+
+
+LAYOUTS = list(_edge_layouts(4096))          # the names only
+
+
+def _layout_case(name, tile, dtype, seed):
+    rng = np.random.default_rng(seed)
+    lens, lead, trail = _edge_layouts(tile)[name]
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    off += lead
+    n = int(off[-1]) + trail
+    if dtype == torch.int32:
+        vals = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+    else:
+        vals = rng.random(n).astype(np.float32)
+    return vals, off.astype(np.int32)
+
+
+def _assert_same(got, want64, op, dtype):
+    """int32 and min/max bit for bit; float32 add within rtol 1e-5 of the
+    plain version in float64 (the values are >= 0: no cancellation)."""
+    if dtype == torch.float32 and op == "add":
+        torch.testing.assert_close(got.double(), want64, rtol=1e-5, atol=0.0)
+    else:
+        assert torch.equal(got, want64.to(got.dtype))
+
+
+def _want(fn, vals, *args):
+    """The plain version, float32 sums in float64."""
+    if vals.dtype == torch.float32 and args[-1] == "add":
+        return fn(vals.double(), *args)
+    return fn(vals, *args).double() if vals.dtype == torch.float32 \
+        else fn(vals, *args)
+
+
+@pytest.mark.parametrize("op,dtype", OP_DTYPE)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_segment_reduce_tile_edge_layouts(dev, layout, op, dtype):
+    from green_marl_tpu_torch.ops import _build
+    tile = _build.lib().gm_segment_reduce_tile_size()
+    vals_np, off_np = _layout_case(layout, tile, dtype, seed=31)
+    vals = torch.from_numpy(vals_np).to(dev)
+    offsets = torch.from_numpy(off_np).to(dev)
+    n_out = offsets.numel() - 1 + 130            # rows past N: the identity
+    got = K.segment_reduce_sorted(vals, vals, offsets, n_out, op)
+    torch.cuda.synchronize()
+    assert got.shape == (n_out,) and got.dtype == dtype
+    _assert_same(got, _want(K.segment_reduce_sorted_ref, vals, vals, offsets,
+                            n_out, op), op, dtype)
+    for _ in range(3):                           # the same bits every launch
+        assert torch.equal(K.segment_reduce_sorted(vals, vals, offsets,
+                                                   n_out, op), got)
+
+
+def _ids_of(off_np, n):
+    """Sorted ids of the slots of a layout: -1 before ``offsets[0]`` (the
+    scan's initial carry id), the row inside, one more id after."""
+    lens = np.diff(off_np.astype(np.int64))
+    ids = np.concatenate([
+        np.full(off_np[0], -1, np.int32),
+        np.repeat(np.arange(lens.size, dtype=np.int32), lens),
+        np.full(n - int(off_np[-1]), lens.size, np.int32)])
+    return ids
+
+
+@pytest.mark.parametrize("op,dtype", OP_DTYPE)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_segmented_scan_tile_edge_layouts(dev, layout, op, dtype):
+    from green_marl_tpu_torch.ops import _build
+    tile = _build.lib().gm_segmented_scan_tile_size()
+    vals_np, off_np = _layout_case(layout, tile, dtype, seed=32)
+    vals = torch.from_numpy(vals_np).to(dev)
+    ids = torch.from_numpy(_ids_of(off_np, vals_np.size)).to(dev)
+    got = K.segmented_scan(vals, ids, op)
+    torch.cuda.synchronize()
+    assert got.shape == vals.shape and got.dtype == dtype
+    _assert_same(got, _want(K.segmented_scan_ref, vals, ids, op), op, dtype)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 4095, 4096, 4097, 8191, 8192, 8193,
+                               3 * 8192 + 5])
+def test_segment_kernels_sizes_around_a_tile(dev, n):
+    """Both kernels at lengths around their tiles, in all six op/dtype
+    pairs: short random segments and one segment over all n slots."""
+    rng = np.random.default_rng(n)
+    cuts = np.unique(np.concatenate([[0, n], rng.integers(0, n + 1, n // 9)]))
+    for off_np in (cuts.astype(np.int32), np.array([0, n], np.int32)):
+        offsets = torch.from_numpy(off_np).to(dev)
+        ids = torch.from_numpy(_ids_of(off_np, n)).to(dev)
+        for op, dtype in OP_DTYPE:
+            vals = torch.from_numpy(_vals(rng, n, dtype)).to(dev)
+            n_out = offsets.numel() + 2
+            assert torch.equal(
+                K.segment_reduce_sorted(vals, ids, offsets, n_out, op),
+                K.segment_reduce_sorted_ref(vals, ids, offsets, n_out, op))
+            assert torch.equal(K.segmented_scan(vals, ids, op),
+                               K.segmented_scan_ref(vals, ids, op))
+
+
+def test_segment_kernels_more_tiles_than_resident(dev):
+    """2^25 + 3 slots: thousands of tiles, far more than the card holds at
+    once, with hubs whose carries cross hundreds of them."""
+    n = (1 << 25) + 3
+    rng = np.random.default_rng(41)
+    lens = rng.choice([0, 1, 2, 7, 30, 200], size=400_000).astype(np.int64)
+    lens[100_000] = 3_000_001
+    lens[250_000] = 9_000_000
+    off = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    off = off[:np.searchsorted(off, n, side="right")]
+    off[-1] = n
+    off_np = off.astype(np.int32)
+    offsets = torch.from_numpy(off_np).to(dev)
+    ids = torch.from_numpy(_ids_of(off_np, n)).to(dev)
+    n_out = offsets.numel() - 1
+    for op, dtype in OP_DTYPE:
+        vals = torch.from_numpy(_vals(rng, n, dtype)).to(dev)
+        if dtype == torch.float32 and op == "add":
+            vals = (vals > 14).float()   # 0/1: every sum exact in any order
+        got = K.segment_reduce_sorted(vals, ids, offsets, n_out, op)
+        assert torch.equal(got, K.segment_reduce_sorted_ref(
+            vals, ids, offsets, n_out, op)), (op, dtype)
+        scan = K.segmented_scan(vals, ids, op)
+        assert torch.equal(scan, K.segmented_scan_ref(vals, ids, op))
+        tails = (offsets[1:] - 1).long()
+        nonempty = offsets[1:] > offsets[:-1]
+        assert torch.equal(scan[tails[nonempty]], got[nonempty])
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    whole = torch.tensor([0, n], dtype=torch.int32, device=dev)
+    assert K.segment_reduce_sorted(ones, ones, whole, 1, "add").tolist() == [n]
+    assert torch.equal(K.segmented_scan(ones, torch.zeros_like(ones)),
+                       torch.arange(1, n + 1, dtype=torch.int32, device=dev))
+
+
+def test_segment_kernels_repeated_launches_agree(dev):
+    """20 launches on one input: a race on the status words would show as
+    a launch that differs.  The segment reduce gives the same bits for
+    float32 too; the scan's float32 add is compared within rounding."""
+    rng = np.random.default_rng(42)
+    lens = rng.choice([0, 1, 3, 14, 60, 20_000, 150_000], size=3000)
+    off_np = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    n = int(off_np[-1])
+    offsets = torch.from_numpy(off_np).to(dev)
+    ids = torch.from_numpy(_ids_of(off_np, n)).to(dev)
+    vi = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n)
+                          .astype(np.int32)).to(dev)
+    vf = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    want_i = K.segment_reduce_sorted_ref(vi, ids, offsets, 3000, "add")
+    first_f = K.segment_reduce_sorted(vf, ids, offsets, 3000, "add")
+    torch.testing.assert_close(
+        first_f.double(), K.segment_reduce_sorted_ref(
+            vf.double(), ids, offsets, 3000, "add"), rtol=1e-5, atol=0.0)
+    scan_i = K.segmented_scan_ref(vi, ids, "add")
+    scan_f = K.segmented_scan_ref(vf.double(), ids, "add")
+    for rep in range(20):
+        assert torch.equal(K.segment_reduce_sorted(vi, ids, offsets, 3000,
+                                                   "add"), want_i), rep
+        assert torch.equal(K.segment_reduce_sorted(vf, ids, offsets, 3000,
+                                                   "add"), first_f), rep
+        assert torch.equal(K.segmented_scan(vi, ids, "add"), scan_i), rep
+        torch.testing.assert_close(K.segmented_scan(vf, ids, "add").double(),
+                                   scan_f, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("op,dtype", OP_DTYPE)
+def test_segment_kernels_unaligned_views(dev, op, dtype):
+    """Views that start 4 bytes into an allocation, of a length that is no
+    multiple of 4, take the kernels' 4-byte paths: the same results."""
+    rng = np.random.default_rng(43)
+    n = 300_003
+    lens = rng.choice([0, 1, 2, 9, 40, 9000], size=20_000)
+    off = np.concatenate([[0], np.cumsum(lens)])
+    off_np = np.append(off[off < n], n).astype(np.int32)
+    offsets = torch.from_numpy(off_np).to(dev)
+    vals = torch.from_numpy(_vals(rng, n + 1, dtype)).to(dev)[1:]
+    ids = torch.from_numpy(np.concatenate([[0], _ids_of(off_np, n)])
+                           .astype(np.int32)).to(dev)[1:]
+    assert vals.data_ptr() % 16 != 0 and ids.data_ptr() % 16 != 0
+    n_out = offsets.numel() - 1
+    assert torch.equal(K.segment_reduce_sorted(vals, ids, offsets, n_out, op),
+                       K.segment_reduce_sorted_ref(vals, ids, offsets, n_out,
+                                                   op))
+    assert torch.equal(K.segmented_scan(vals, ids, op),
+                       K.segmented_scan_ref(vals, ids, op))
+    # one operand aligned, the other not
+    assert torch.equal(K.segmented_scan(vals.clone(), ids, op),
+                       K.segmented_scan_ref(vals, ids, op))
+
+
+def test_segment_reduce_no_slots(dev):
+    """No edge slots at all, and offsets that are all one position."""
+    empty = torch.zeros(0, dtype=torch.float32, device=dev)
+    off = torch.zeros(6, dtype=torch.int32, device=dev)
+    assert K.segment_reduce_sorted(empty, empty, off, 8, "min").tolist() \
+        == [float("inf")] * 8
+    x = torch.arange(10, dtype=torch.int32, device=dev)
+    assert K.segment_reduce_sorted(x, x, off + 10, 5, "add").tolist() == [0] * 5
+    assert K.segmented_scan(empty, empty.int()).numel() == 0
+
+
 TAKE = [("axis0", 8, 8, False, False), ("axis0", 256, 256, False, False),
         ("axis0", 1024, 1024, False, False), ("axis1", 64, 64, False, False),
         ("row", 1024, 1024, False, False), ("row", 256, 1024, False, True),

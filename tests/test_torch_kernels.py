@@ -237,6 +237,73 @@ def test_segmented_scan_edges():
         K.segmented_scan(x[::2], x[::2])
 
 
+def edge_layout(name, dtype):
+    """(vals, ids, offsets) for a layout that stresses a tiled kernel: slots
+    before ``offsets[0]`` carry id -1 (the TPU kernel's initial carry id),
+    slots after the last segment carry id N, as a Graph pads.  Floats are
+    multiples of 1/8, so that every sum is exact in any order."""
+    rng = np.random.default_rng(len(name))
+    short = rng.choice([0, 1, 1, 2, 5, 40], size=600)
+    lens, lead, trail = {
+        "hub over every slot": ([pk.CHUNK + 777], 0, 0),
+        "empty segments at both ends": (
+            np.concatenate([np.zeros(300, int), short, [pk.CHUNK],
+                            np.zeros(200, int)]), 0, 0),
+        "offsets[0] > 0": (np.concatenate([[900], short, [3000]]), 333, 210),
+    }[name]
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    off += lead
+    e = int(off[-1]) + trail
+    e_pad = ((e + 127) // 128) * 128
+    ids = np.full(e_pad, len(lens), np.int32)
+    ids[:lead] = -1
+    ids[lead:int(off[-1])] = np.repeat(np.arange(len(lens), dtype=np.int32),
+                                       lens)
+    if dtype == np.float32:
+        vals = (rng.integers(0, 16, e_pad) / 8).astype(np.float32)
+    else:
+        vals = rng.integers(-(1 << 30), 1 << 30, e_pad).astype(np.int32)
+    return vals, ids, off.astype(np.int32)
+
+
+EDGE_LAYOUTS = ["hub over every slot", "empty segments at both ends",
+                "offsets[0] > 0"]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+def test_segment_reduce_sorted_edge_layouts_match_pallas(layout, op, dtype):
+    vals, ids, off = edge_layout(layout, dtype)
+    n = off.size - 1
+    n_out = n + 130
+    got = K.segment_reduce_sorted(T(vals), T(ids), T(off), n_out, op)
+    want = np.asarray(pk.segment_reduce_sorted(
+        jnp.asarray(vals), jnp.asarray(ids), jnp.asarray(off), n_out,
+        op=op, interpret=True))
+    assert_match(got.numpy()[:n], want[:n], dtype)
+    assert (got[n:] == K.identity(op, got.dtype)).all()
+    empty = np.diff(off) == 0
+    assert (got.numpy()[:n][empty] == K.identity(op, got.dtype)).all()
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+def test_segmented_scan_edge_layouts_match_pallas(layout, op, dtype):
+    vals, ids, _ = edge_layout(layout, dtype)
+    n = vals.size
+    pad = -n % pk.CHUNK
+    ident = K.identity(op, T(vals).dtype)
+    want = np.asarray(pk.segmented_scan(
+        jnp.asarray(np.concatenate([vals, np.full(pad, ident, dtype)])),
+        jnp.asarray(np.concatenate([ids, np.full(pad, -2, np.int32)])),
+        op=op, interpret=True))[:n]
+    got = K.segmented_scan(T(vals), T(ids), op)
+    assert_match(got.numpy(), want, dtype)
+
+
 @pytest.fixture(scope="module")
 def graphs():
     src, dst = jgen.rmat_edges(1500, 12000, seed=11)

@@ -241,3 +241,51 @@ def test_probe_needs_a_card():
     assert "GPU" in str(e.value.code)
     with pytest.raises(ValueError):
         probe.run(torch.device("cpu"))
+
+
+def test_segment_and_profile_probes_need_a_card():
+    """Both measure the card: without one they exit, and never time the
+    plain versions on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from green_marl_tpu_torch.probes import profile_apps, segment
+    for mod in (segment, profile_apps):
+        with pytest.raises(SystemExit) as e:
+            mod.main([])
+        assert "GPU" in str(e.value.code)
+
+
+def test_profile_groups_name_the_ports_kernels():
+    from green_marl_tpu_torch.probes import profile_apps as pa
+    assert pa.group_of("void (anonymous namespace)::segment_reduce_kernel"
+                       "<float, 0, true>(...)") == "segment reduce"
+    assert pa.group_of("(anonymous namespace)::tile_rows_kernel(int const*"
+                       ")") == "segment reduce"
+    assert pa.group_of("void (anonymous namespace)::scan_kernel<unsigned "
+                       "int, true, true>") == "prefix sum"
+    assert pa.group_of("void at::native::(anonymous namespace)::"
+                       "indexSelectLargeIndex<int, long>") == \
+        "gathers (index_select)"
+    # torch runs gathers and scatters through one kernel: the launching
+    # operator decides, and without one the time stays unsplit
+    shared = ("void at::native::_scatter_gather_elementwise_kernel<128, 8, "
+              "at::native::_cuda_scatter_gather_internal_kernel<...>>")
+    assert pa.group_of(shared, "aten::index_select") == pa.GATHERS
+    assert pa.group_of(shared, "aten::gather") == pa.GATHERS
+    assert pa.group_of(shared, "aten::scatter_reduce_") == pa.SCATTERS
+    assert pa.group_of(shared, "aten::index_add_") == pa.SCATTERS
+    assert pa.group_of(shared) == pa.UNSPLIT
+    assert pa.by_group({shared: 3.0, "x_elementwise_y": 1.0},
+                       {"aten::index_select": 2.0,
+                        "aten::scatter_add_": 1.0}) == \
+        {pa.GATHERS: 2.0, "elementwise": 1.0, pa.SCATTERS: 1.0}
+    assert pa.by_group({shared: 3.0}) == {pa.UNSPLIT: 3.0}
+    assert pa.group_of("Memset (Device)") == "copies and memsets"
+    assert pa.group_of("void at::native::vectorized_elementwise_kernel<4, "
+                       "at::native::FillFunctor<int>>") == "elementwise"
+    assert pa.group_of("void at::native::reduce_kernel<512, 1, ...>") == \
+        "reductions"
+    assert pa.group_of("something else") == "other"
+    assert pa.by_group({"Memset (Device)": 1.0, "x_elementwise_y": 2.0,
+                        "Memcpy DtoH": 0.5}) == \
+        {"elementwise": 2.0, "copies and memsets": 1.5}
