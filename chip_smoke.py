@@ -36,8 +36,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    BFS (instances 0-3 against hop_dist), the binned BFS at B=8 (distances
    equal hop_dist's) and the binned PageRank at B=128 (the d=0.85 instance
    against pagerank), with aggregate GTEPS, Gedge/s and the memory peak;
-7. the gather probes (``python -m green_marl_tpu_torch.probes.gather``):
-   each probe kernel against its plain version, and their times.
+7. the gather probes: first both probe kernels against their plain versions
+   on the inputs that stress their designs (the row gather at 2^21 ids that
+   are duplicate-heavy, clipped on both sides, all equal or sorted; the
+   take-along gather's axis0 and composed modes on a 2 MB window and on
+   blocks of 1024, 4096 and 16384 rows, plain and split indices, with the
+   route each shape takes), then ``python -m
+   green_marl_tpu_torch.probes.gather``: each probe kernel against its
+   plain version, and their times.
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
@@ -92,7 +98,12 @@ PROBE_TIMED = {"take_along_blocks": "axis0 [1024,128]",
                "row_gather_checksum": "rowB=512 K=8"}
 
 
+T_START = time.time()
+
+
 def log(msg):
+    if msg.startswith("== "):     # a phase's heading: when it began
+        msg += f"  [at {time.time() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -220,6 +231,61 @@ def check_edge_layouts(torch, K, tile, dev):
                                           ", segmented_scan too"))
             del vals, got, scan
         del ids, offsets, lens
+
+
+def check_gather_designs(torch, K, dev):
+    """Phase 7's first part: the row gather and the take-along gather against
+    their plain versions (exact) on the inputs that stress a binned row
+    order and column slabs; logs the route each take-along shape takes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    n_rows, n_ids = 1 << 20, 1 << 21
+
+    def ids(lo, hi):
+        return torch.randint(lo, hi, (n_ids,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    table = torch.randint(-(1 << 30), 1 << 30, (n_rows, K.LANES),
+                          generator=gen, device=dev, dtype=torch.int32)
+    cases = {
+        "duplicate-heavy (4096 rows, 512 requests each)": ids(0, 4096) * 251,
+        "out of range on both sides (clipped)": ids(-n_rows, 2 * n_rows),
+        "all ids equal": ids(77, 78),
+        "ids already sorted": ids(0, n_rows).sort().values,
+    }
+    for name, idx in cases.items():
+        for sweeps, k in ((1, 2), (1, 8), (3, 4)):
+            got = K.row_gather_checksum(table, idx, sweeps, k)
+            want = K.row_gather_checksum_ref(table, idx, sweeps)
+            torch.cuda.synchronize()
+            check(int(got) == int(want), f"row_gather_checksum 512 B rows, "
+                  f"2^21 ids, {name}, sweeps={sweeps} k={k}: == plain "
+                  f"({int(got)})")
+    del table, cases
+    R = 1 << 17
+    for th, window in ((4096, True), (1024, False), (4096, False),
+                       (16384, False)):
+        bh = 256 if window else th
+        table = torch.rand((th if window else R, K.LANES), generator=gen,
+                           device=dev)
+        for split in (False, True):
+            lo, hi = (-999, th * K.LANES + 999) if split else (-3, th + 5)
+            idx = torch.randint(lo, hi, (R, K.LANES), generator=gen,
+                                device=dev, dtype=torch.int32)
+            for mode in ("axis0", "composed"):
+                got = K.take_along_blocks(table, idx, mode, bh, th, window,
+                                          split)
+                want = K.take_along_blocks_ref(table, idx, mode, bh, th,
+                                               window, split)
+                torch.cuda.synchronize()
+                route = K.take_along_route(th, mode)
+                if route == "slab":
+                    route += f" of {K.take_along_slab_cols(th)} columns"
+                check(torch.equal(got, want), f"take_along_blocks {mode} "
+                      f"{'2 MB window' if window else f'[{th},128] blocks'}"
+                      f"{', split indices' if split else ''}, indices past "
+                      f"both ends: == plain (route: {route})")
+        del table, idx, got, want
 
 
 def main():
@@ -734,6 +800,9 @@ def main():
     # -- 7. the gather probes ----------------------------------------------
     log("== 7. gather probes (kernel == plain checked before each time)")
     torch.cuda.empty_cache()
+    t0 = time.time()
+    check_gather_designs(torch, K, dev)
+    log(f"  design checks {time.time() - t0:.1f} s")
     K.reset_launch_counts()
     recs = probes.run(dev, log=lambda line: log("  " + line))
     torch.cuda.synchronize()

@@ -107,9 +107,9 @@ def lib() -> ctypes.CDLL:
         cdll.gm_segmented_scan_tile_size.argtypes = []
         cdll.gm_take_along.restype = cint
         cdll.gm_take_along.argtypes = [vp, vp, vp, i64, cint, cint, i64,
-                                       cint, cint, cint, vp]
+                                       cint, cint, cint, cint, vp]
         cdll.gm_row_gather.restype = cint
         cdll.gm_row_gather.argtypes = [vp, i64, cint, vp, i64, cint, cint,
-                                       vp, vp]
+                                       vp, vp, vp]
         _LIB = cdll
     return _LIB

@@ -29,7 +29,7 @@ kernel: every empty segment and every row from ``len(offsets) - 1`` up to
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -284,15 +284,41 @@ segmented_scan.launches = 0
 
 LANES = 128
 TAKE_MODES = ("axis0", "axis1", "row", "composed")
+TAKE_ROUTES = ("L2", "block", "slab", "row")   # the C entry's route codes
 SMEM_BYTES = 232_448      # shared memory one Hopper block may use
+SLAB_BYTES = 131_072      # shared memory of one axis0 column slab
+SLAB_MIN_COLS = 8         # narrower slabs lose to the L2 route
 ROW_GATHER_K = (1, 2, 4, 8, 16)
+ROW_GATHER_BINS = 256     # kBins of csrc/gather_probe.cu: sizes the scratch
 
 
-def take_along_staged(table_rows: int, mode: Optional[str] = None) -> bool:
-    """Whether the kernel stages a table block of ``table_rows`` rows in
-    shared memory (it fits) or reads it through L1/L2.  The row mode
-    (``mode="row"``) never stages: it copies whole rows, one warp each."""
-    return mode != "row" and table_rows * LANES * 4 <= SMEM_BYTES
+def take_along_slab_cols(table_rows: int) -> int:
+    """Columns of the widest slab of a ``table_rows``-row table block that
+    fits ``SLAB_BYTES`` of shared memory: a power of two from
+    ``SLAB_MIN_COLS`` (a 32-byte sector of each row) to 128 (the whole
+    block), or 0 where ``SLAB_MIN_COLS`` columns do not fit."""
+    cols = LANES
+    while cols >= SLAB_MIN_COLS and table_rows * cols * 4 > SLAB_BYTES:
+        cols //= 2
+    return cols if cols >= SLAB_MIN_COLS else 0
+
+
+def take_along_route(table_rows: int, mode: str = "axis0") -> str:
+    """The route :func:`take_along_blocks` takes on the card, by shape alone:
+
+    * ``"row"``: the row mode copies whole rows, one warp each;
+    * ``"slab"``: axis0 stages :func:`take_along_slab_cols` columns of the
+      table block in shared memory per CUDA block (all 128 where the whole
+      block fits);
+    * ``"block"``: axis1 and composed stage the whole table block in shared
+      memory where it fits;
+    * ``"L2"``: everything else reads the table through L1/L2.
+    """
+    if mode == "row":
+        return "row"
+    if mode == "axis0":
+        return "slab" if take_along_slab_cols(table_rows) else "L2"
+    return "block" if table_rows * LANES * 4 <= SMEM_BYTES else "L2"
 
 
 def _take_check(table, idx, mode, block_rows, table_rows, window):
@@ -368,9 +394,8 @@ def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
     * row: ``out[i,j] = tb[r(idx[i,0]), j]``
     * composed: ``l = l(idx[i,j]); out[i,j] = tb[r(idx[i,l]), l]``
 
-    Returns [R, 128] float32.  On the card a block that fits in shared
-    memory (:func:`take_along_staged`) is staged there, except in row
-    mode, where one warp copies each output row from its table row.
+    Returns [R, 128] float32.  On the card the shape picks the kernel
+    (:func:`take_along_route`).
     """
     th = table_rows or block_rows
     _take_check(table, idx, mode, block_rows, th, window)
@@ -378,15 +403,16 @@ def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
         return take_along_blocks_ref(table, idx, mode, block_rows, th,
                                      window, split)
     stream = _cuda_stream(table)
-    staged = take_along_staged(th, mode)
-    if (staged or mode == "row") and table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
+    if table.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError("table and idx must be 16-byte aligned")
+    route = take_along_route(th, mode)
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):
         err = _build.lib().gm_take_along(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
             block_rows, th, 0 if window else th, TAKE_MODES.index(mode),
-            int(split), int(staged), stream)
+            int(split), TAKE_ROUTES.index(route), take_along_slab_cols(th),
+            stream)
     if err:
         raise RuntimeError(f"gm_take_along: CUDA error {err}")
     take_along_blocks.launches += 1
@@ -412,15 +438,28 @@ def row_gather_checksum_ref(table: torch.Tensor, idx: torch.Tensor,
     return _wrap_int32(first.sum() * sweeps)
 
 
+def row_gather_scratch(n_ids: int) -> Tuple[int, int]:
+    """Scratch of one :func:`row_gather_checksum` launch, in 4-byte words:
+    ``(zeroed, binned)``.  ``zeroed`` holds the sum, the histogram of the
+    ``ROW_GATHER_BINS`` table regions and a cursor per region, and must
+    start at 0; ``binned`` takes the ``n_ids`` ids in binned order."""
+    return 1 + 2 * ROW_GATHER_BINS, n_ids
+
+
 def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
                         sweeps: int = 1, k: int = 4) -> torch.Tensor:
     """The gather probe's K-in-flight row gather.
 
     ``table``: int32 [n_rows, roww] with roww a multiple of 4 up to 128
     (16 to 512-byte rows); ``idx``: int32 [R] row ids in ``[0, n_rows)``
-    (clipped to it).  Gathers whole rows ``idx[j % R]`` for
-    ``j < R * sweeps``, ``k`` copies in flight per warp, and returns the
-    0-d int32 ``sweeps * sum(table[idx, 0])`` mod 2^32.
+    (clipped to it).  Gathers whole rows ``idx[j]``, each ``sweeps`` times,
+    ``k`` copy steps in flight per warp (a step is one row, or as many rows
+    of 256 bytes or less as a warp's 32 lanes cover, up to 8), and returns
+    the 0-d int32 ``sweeps * sum(table[idx, 0])`` mod 2^32.  The sum does
+    not depend on the order of the requests, so the kernel first bins the
+    ids by table region (at most ``ROW_GATHER_BINS`` regions of a
+    power-of-two number of rows) and walks them in that order: requests for
+    one row meet in L2.
     """
     if table.dtype != torch.int32 or idx.dtype != torch.int32:
         raise TypeError(f"need an int32 table and int32 idx, got "
@@ -428,9 +467,11 @@ def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
     if table.dim() != 2 or table.shape[1] % 4 or not 0 < table.shape[1] <= 128:
         raise ValueError(f"table must be [n_rows, 4*m <= 128], got "
                          f"{tuple(table.shape)}")
-    if table.shape[0] < 1:
-        raise ValueError("table has no rows")
+    if not 1 <= table.shape[0] < 1 << 31:
+        raise ValueError(f"table has {table.shape[0]} rows, need 1 to 2^31-1")
     _check_1d("idx", idx, (torch.int32,))
+    if idx.numel() >= 1 << 31:
+        raise ValueError(f"idx has {idx.numel()} ids, at most 2^31-1")
     if not table.is_contiguous():
         raise ValueError("table: tensor is not contiguous")
     if k not in ROW_GATHER_K:
@@ -444,15 +485,18 @@ def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
     stream = _cuda_stream(table)
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
-    out = torch.zeros(1, dtype=torch.int32, device=table.device)
+    n_zeroed, n_binned = row_gather_scratch(idx.numel())
+    zeroed = torch.zeros(n_zeroed, dtype=torch.int32, device=table.device)
+    binned = torch.empty(n_binned, dtype=torch.int32, device=table.device)
     with torch.cuda.device(table.device):
         err = _build.lib().gm_row_gather(
             table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(),
-            idx.numel(), sweeps, k, out.data_ptr(), stream)
+            idx.numel(), sweeps, k, zeroed.data_ptr(),
+            binned.data_ptr(), stream)
     if err:
         raise RuntimeError(f"gm_row_gather: CUDA error {err}")
     row_gather_checksum.launches += 1
-    return out[0]
+    return zeroed[0]
 
 
 row_gather_checksum.launches = 0

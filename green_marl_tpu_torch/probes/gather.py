@@ -21,22 +21,34 @@ exact); each record keeps the largest difference seen.  Times are CUDA
 events, per call: the median over 3 varied inputs of 10 back-to-back
 calls each.  Run on a machine with an NVIDIA GPU::
 
-    python -m green_marl_tpu_torch.probes.gather [--quick]
+    python -m green_marl_tpu_torch.probes.gather [--quick] [--only TEXT]
+        [--parts] [--root DIR]
 
-``--quick`` runs each family at one shape.  Without a GPU the probe exits
-with an error: it measures the card and has nothing to say about a CPU.
+``--quick`` runs each family at one shape; ``--only TEXT`` (repeatable)
+keeps the lines whose name holds ``TEXT`` (``axis0``, ``rowB=512``,
+``index_select``); ``--parts`` adds the row gather's device time launch
+by launch (``torch.profiler``).  ``--root DIR`` takes the kernels from
+another checkout (``DIR`` holds ``green_marl_tpu_torch/``), so two commits
+can be timed in turns within one run on one card: both keep the wrappers'
+Python signatures.  Without a GPU the probe exits with an error: it
+measures the card and has nothing to say about a CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import os
+import re
 import statistics
+import subprocess
 import sys
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from ..ops import kernels as K
+from .profile_apps import device_times
 
 E_ROWS = 1 << 17          # idx rows of 128: E = 2^24 (the TPU probes' 16M)
 WINDOW_ROWS = 4096        # probe_gather.py's 2 MB float32 window
@@ -156,6 +168,17 @@ def _gather_ms(case: TakeCase, table: torch.Tensor,
     return median_ms(lambda r: torch.gather(tb, dim, ix[r]))
 
 
+def route_name(case: TakeCase) -> str:
+    """The route the wrapper takes for the case's shape on the card (for a
+    ``--root`` checkout that does not name its routes: ``"?"``)."""
+    if not hasattr(K, "take_along_route"):
+        return "?"
+    name = K.take_along_route(case.table_rows, case.mode)
+    if name == "slab":
+        name += f" of {K.take_along_slab_cols(case.table_rows)} columns"
+    return name
+
+
 def probe_take(case: TakeCase, dev: torch.device,
                gen: torch.Generator) -> Dict:
     R = E_ROWS
@@ -178,7 +201,7 @@ def probe_take(case: TakeCase, dev: torch.device,
     return dict(probe="take_along_blocks", name=case.name, ms=ms,
                 plain_ms=plain, gbs=nbytes / ms / 1e6,
                 plain_gbs=nbytes / plain / 1e6, max_abs_err=err,
-                staged=K.take_along_staged(case.table_rows, case.mode),
+                route=route_name(case),
                 bound_bytes=table.numel() * 4 + R * K.LANES * 4 + idx_bytes,
                 library_ms=_gather_ms(case, table, idxs))
 
@@ -208,6 +231,39 @@ def probe_row_gather(roww: int, k: int, dev: torch.device,
                 gbs=rows * roww * 4 / ms / 1e6, max_abs_err=err, table=table,
                 bound_bytes=distinct * roww * 4 + GATHER_IDS * 4,
                 library_ms=None)
+
+
+def kernel_name(full: str) -> str:
+    """``row_gather_kernel`` of ``void (anonymous namespace)::
+    row_gather_kernel<8>(int const*, ...)``."""
+    head = re.split(r"[<(]", full.replace("(anonymous namespace)::", ""),
+                    maxsplit=1)[0].split()
+    return head[-1].split("::")[-1] if head else full
+
+
+def row_gather_parts(roww: int, k: int, dev: torch.device,
+                     gen: torch.Generator, calls: int = 20) -> Dict:
+    """Device time of each launch inside one ``row_gather_checksum`` call
+    (``torch.profiler``, mean over ``calls`` calls on varied ids): the
+    zero fill of its scratch, the two pre-pass kernels and the copy loop."""
+    table = torch.randint(0, 100, (TABLE_ROWS, roww), generator=gen,
+                          device=dev, dtype=torch.int32)
+    idxs = [torch.randint(0, TABLE_ROWS, (GATHER_IDS,), generator=gen,
+                          device=dev, dtype=torch.int32) for _ in range(4)]
+    K.row_gather_checksum(table, idxs[0], GATHER_SWEEPS, k)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for c in range(calls):
+            K.row_gather_checksum(table, idxs[c % 4], GATHER_SWEEPS, k)
+        torch.cuda.synchronize()
+    parts: Dict[str, float] = {}
+    for name, ms in device_times(prof).items():
+        parts[kernel_name(name)] = parts.get(kernel_name(name), 0.0) \
+            + ms / calls
+    return dict(probe="row_gather_parts", name=f"rowB={roww * 4} K={k}",
+                parts=parts, ms=sum(parts.values()))
 
 
 def probe_index_select(dev: torch.device, gen: torch.Generator) -> Dict:
@@ -240,9 +296,8 @@ def _bound(rec: Dict) -> str:
 def fmt(rec: Dict) -> str:
     """One printed line of a probe record."""
     if rec["probe"] == "take_along_blocks":
-        where = "shared memory" if rec["staged"] else "L1/L2"
         return (f"take_along {rec['name']:30s} kernel {rec['ms']:8.3f} ms "
-                f"{rec['gbs']:7.1f} GB/s ({where}) | plain "
+                f"{rec['gbs']:7.1f} GB/s ({rec['route']}) | plain "
                 f"{rec['plain_ms']:8.3f} ms {rec['plain_gbs']:7.1f} GB/s"
                 + _bound(rec))
     if rec["probe"] == "row_gather_checksum":
@@ -250,46 +305,88 @@ def fmt(rec: Dict) -> str:
                 f"{rec['ns_row']:6.3f} ns/row {rec['gbs']:7.1f} GB/s | plain "
                 f"{rec['plain_ms']:8.3f} ms {rec['plain_ns_row']:6.3f} ns/row"
                 + _bound(rec))
+    if rec["probe"] == "row_gather_parts":
+        return (f"row_gather {rec['name']:14s} device ms by launch: "
+                + ", ".join(f"{n} {ms:.4f}" for n, ms in rec["parts"].items())
+                + f"; sum {rec['ms']:.4f}")
     return (f"index_select {rec['name']} {rec['ms']:8.3f} ms "
             f"{rec['ns_row']:6.3f} ns/row {rec['gbs']:7.1f} GB/s "
             "(row out + row in + id)")
 
 
 def run(dev: torch.device, quick: bool = False,
-        log: Callable[[str], None] = print) -> List[Dict]:
-    """Check and time every probe on ``dev`` (a CUDA device); returns one
-    record per line printed."""
+        log: Callable[[str], None] = print,
+        only: Sequence[str] = (), parts: bool = False) -> List[Dict]:
+    """Check and time every probe on ``dev`` (a CUDA device) whose name
+    holds one of ``only`` (all of them if empty); with ``parts`` also the
+    row gather's time launch by launch.  Returns one record per line
+    printed."""
     if dev.type != "cuda":
         raise ValueError(f"the gather probes measure a GPU, not {dev}")
+
+    def wanted(name: str) -> bool:
+        return not only or any(text in name for text in only)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     recs = []
     for case in take_cases(quick):
-        recs.append(probe_take(case, dev, gen))
-        log(fmt(recs[-1]))
+        if wanted(case.name):
+            recs.append(probe_take(case, dev, gen))
+            log(fmt(recs[-1]))
     table = None
     for roww, k in gather_grid(quick):
-        rec = probe_row_gather(roww, k, dev, gen, table)
-        table = rec.pop("table")
-        recs.append(rec)
-        log(fmt(rec))
+        if wanted(f"rowB={roww * 4} K={k}"):
+            rec = probe_row_gather(roww, k, dev, gen, table)
+            table = rec.pop("table")
+            recs.append(rec)
+            log(fmt(rec))
     del table
-    recs.append(probe_index_select(dev, gen))
-    log(fmt(recs[-1]))
+    if parts:
+        for roww, k in ((128, 2), (128, 8), (8, 8)):
+            recs.append(row_gather_parts(roww, k, dev, gen))
+            log(fmt(recs[-1]))
+    if wanted("index_select"):
+        recs.append(probe_index_select(dev, gen))
+        log(fmt(recs[-1]))
     return recs
+
+
+def use_checkout(root: str) -> None:
+    """Take ``ops.kernels`` (and the CUDA sources it builds) from the
+    checkout at ``root`` for the rest of this process."""
+    global K
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "green_marl_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(root))
+    K = importlib.import_module("green_marl_tpu_torch.ops.kernels")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="one shape per probe family")
+    ap.add_argument("--only", action="append", default=[], metavar="TEXT",
+                    help="keep the lines whose name holds TEXT (repeatable)")
+    ap.add_argument("--parts", action="store_true",
+                    help="the row gather's device time launch by launch")
+    ap.add_argument("--root", help="take the kernels from this checkout")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probes.gather: torch.cuda.is_available() is False; "
                          "the probes need an NVIDIA GPU")
+    if args.root:
+        use_checkout(args.root)
     dev = torch.device("cuda")
-    print(f"# {torch.cuda.get_device_name(dev)}, torch {torch.__version__}")
-    run(dev, quick=args.quick)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"# {card}, torch {torch.__version__}, kernels of "
+          f"{os.path.dirname(os.path.dirname(os.path.dirname(K.__file__)))}",
+          flush=True)
+    run(dev, quick=args.quick, only=args.only, parts=args.parts)
     return 0
 
 

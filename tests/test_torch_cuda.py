@@ -496,6 +496,135 @@ def test_row_gather_matches_ref(dev, roww):
             assert int(got) == int(want), (roww, n_ids, sweeps, k)
 
 
+SLAB_TAKE = [(mode, th, window, split)
+             for mode in ("axis0", "composed")
+             for th in (8, 256, 1024, 4096, 16384)
+             for window in (False, True)
+             for split in (False, True)]
+
+
+@pytest.mark.parametrize("mode,th,window,split", SLAB_TAKE)
+def test_take_along_slab_and_l2_routes(dev, mode, th, window, split):
+    """axis0 (column slabs, or L2 where no slab fits) and composed (whole
+    block or L2) on window and blocked layouts, with R of one grid step and
+    of many, and indices below 0 and above th (clipped)."""
+    rng = np.random.default_rng(th + 2 * window + split)
+    bh = min(th, 256) if window else th
+    for steps in (1, 8):
+        R = steps * bh
+        table = torch.from_numpy(rng.random(
+            (th if window else steps * th, 128)).astype(np.float32)).to(dev)
+        lo, hi = (-999, th * 128 + 999) if split else (-3, th + 5)
+        idx = torch.from_numpy(rng.integers(lo, hi, (R, 128))
+                               .astype(np.int32)).to(dev)
+        got = K.take_along_blocks(table, idx, mode, bh, th, window, split)
+        want = K.take_along_blocks_ref(table, idx, mode, bh, th, window,
+                                       split)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (steps, K.take_along_route(th, mode))
+
+
+@pytest.mark.parametrize("slab_bytes", [1 << 12, 1 << 14, 1 << 16, 1 << 17])
+@pytest.mark.parametrize("th", [8, 64, 256, 1024, 4096])
+def test_take_along_every_slab_width(dev, th, slab_bytes, monkeypatch):
+    """Every slab width from ``SLAB_MIN_COLS`` columns to the whole block,
+    the L2 route where fewer would fit, and R that the persistent blocks of
+    a window do not divide evenly."""
+    monkeypatch.setattr(K, "SLAB_BYTES", slab_bytes)
+    cols = K.take_along_slab_cols(th)
+    fit = min(128, slab_bytes // (th * 4))      # a power of two, as both are
+    assert cols == (fit if fit >= K.SLAB_MIN_COLS else 0)
+    assert K.take_along_route(th) == ("slab" if cols else "L2")
+    rng = np.random.default_rng(th + slab_bytes)
+    for window, bh, R in ((False, th, 3 * th), (True, 8, 8 * 1237)):
+        table = torch.from_numpy(rng.random(
+            (th if window else R, 128)).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-2, th + 2, (R, 128))
+                               .astype(np.int32)).to(dev)
+        got = K.take_along_blocks(table, idx, "axis0", bh, th, window)
+        want = K.take_along_blocks_ref(table, idx, "axis0", bh, th, window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (cols, window)
+
+
+def _row_ids(rng, pattern, n_rows):
+    """int32 ids that stress the binned row gather."""
+    if pattern == "all equal":
+        return np.full(70_001, n_rows // 2)
+    if pattern == "sorted":
+        return np.sort(rng.integers(0, n_rows, 70_001))
+    if pattern == "one bin":               # one region of the table only
+        return rng.integers(n_rows // 2, n_rows // 2 + 7, 70_001)
+    if pattern == "out of range":          # clipped on both sides
+        return rng.integers(-n_rows, 2 * n_rows, 70_001)
+    if pattern == "fewer ids than bins":
+        return rng.integers(0, n_rows, K.ROW_GATHER_BINS // 3)
+    if pattern == "one id":
+        return rng.integers(0, n_rows, 1)
+    return rng.integers(0, n_rows, 300_007)          # duplicate-heavy
+
+
+ROW_PATTERNS = ["all equal", "sorted", "one bin", "out of range",
+                "fewer ids than bins", "one id", "random"]
+
+
+@pytest.mark.parametrize("pattern", ROW_PATTERNS)
+@pytest.mark.parametrize("roww", [4, 8, 32, 128])
+def test_row_gather_binned_patterns(dev, roww, pattern):
+    """Rows of 16 to 512 bytes from a table whose row count is no power of
+    two, every k, sweeps 1 and 3."""
+    rng = np.random.default_rng(roww + len(pattern))
+    n_rows = 100_003
+    table = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (n_rows, roww))
+                             .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(_row_ids(rng, pattern, n_rows)
+                           .astype(np.int32)).to(dev)
+    for sweeps in (1, 3):
+        want = int(K.row_gather_checksum_ref(table, idx, sweeps))
+        for k in K.ROW_GATHER_K:
+            got = K.row_gather_checksum(table, idx, sweeps, k)
+            assert int(got) == want, (sweeps, k)
+
+
+@pytest.mark.parametrize("roww", [12, 20, 36, 68, 124])
+def test_row_gather_odd_row_widths(dev, roww):
+    """Rows of 3, 5, 9, 17 and 31 16-byte pieces: a warp's step holds 8, 4,
+    2, 1 and 1 of them, with lanes left over."""
+    rng = np.random.default_rng(roww)
+    table = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (5003, roww))
+                             .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-9, 5012, 40_001)
+                           .astype(np.int32)).to(dev)
+    want = int(K.row_gather_checksum_ref(table, idx, 2))
+    for k in K.ROW_GATHER_K:
+        assert int(K.row_gather_checksum(table, idx, 2, k)) == want, k
+
+
+@pytest.mark.parametrize("n_rows", [1, 5, 255, 256, 257, 70_000])
+def test_row_gather_small_tables(dev, n_rows):
+    """Tables with fewer rows than bins, and around the bin count."""
+    rng = np.random.default_rng(n_rows)
+    table = torch.from_numpy(rng.integers(0, 1 << 30, (n_rows, 32))
+                             .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-5, n_rows + 5, 50_000)
+                           .astype(np.int32)).to(dev)
+    want = int(K.row_gather_checksum_ref(table, idx, 2))
+    assert int(K.row_gather_checksum(table, idx, 2, 8)) == want
+
+
+def test_row_gather_repeated_launches_agree(dev):
+    """20 launches back to back: each starts from a zeroed histogram and
+    sum, whatever the one before left in the allocator's block."""
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.integers(0, 1 << 30, (1 << 18, 128))
+                             .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 1 << 18, 1 << 19)
+                           .astype(np.int32)).to(dev)
+    want = int(K.row_gather_checksum_ref(table, idx))
+    got = [K.row_gather_checksum(table, idx, 1, 8) for _ in range(20)]
+    assert [int(g) for g in got] == [want] * 20
+
+
 def test_cumsum_empty_launches_nothing(dev):
     K.reset_launch_counts()
     x = torch.ones(0, dtype=torch.int32, device=dev)

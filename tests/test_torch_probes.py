@@ -14,6 +14,7 @@ runs its DMA semaphores on the CPU.  Gathers are exact: equality.
 import functools
 import importlib.util
 import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -138,7 +139,8 @@ def test_row_mode_matches_probe_gather2(window, split):
     want = jax_blocks(body, table, idx, bh, th, window)
     got = K.take_along_blocks(T(table), T(idx), "row", bh, th, window, split)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert not K.take_along_staged(th, "row") and K.take_along_staged(th)
+    assert K.take_along_route(th, "row") == "row"
+    assert K.take_along_route(th) == "slab"
 
 
 def test_take_along_blocks_checks_arguments():
@@ -158,7 +160,8 @@ def test_take_along_blocks_checks_arguments():
         K.take_along_blocks(t[:, :64], i, "axis0", 16)
     with pytest.raises(ValueError):
         K.take_along_blocks(t, i.t().contiguous().t(), "axis0", 16)
-    assert K.take_along_staged(256) and not K.take_along_staged(1024)
+    assert K.take_along_route(256, "axis1") == "block"
+    assert K.take_along_route(1024, "axis1") == "L2"
 
 
 def pallas_row_gather(table, idx, k, sweeps, monkeypatch):
@@ -191,6 +194,88 @@ def test_row_gather_matches_probe_gather4(roww, k, monkeypatch):
     got = K.row_gather_checksum(T(table), T(idx), sweeps=3, k=k)
     assert got.dtype == torch.int32 and got.dim() == 0
     assert int(got) == want == 3 * int(table[idx, 0].sum())
+
+
+ROW_IDS = ["duplicates", "out of range"]
+
+
+@pytest.mark.parametrize("ids", ROW_IDS)
+def test_row_gather_duplicates_and_clipping_match_probe_gather4(
+        ids, monkeypatch):
+    """Ids that name few rows many times, and ids outside the table on both
+    sides.  The port clips an id to the table; the Pallas kernel's DMA takes
+    the row it is told, so it is given the clipped ids."""
+    rng = np.random.default_rng(len(ids))
+    n_rows = 40
+    table = rng.integers(-(1 << 20), 1 << 20, (n_rows, 8)).astype(np.int32)
+    if ids == "duplicates":
+        idx = rng.choice([3, 3, 3, 17, 39, 0], 64).astype(np.int32)
+    else:
+        idx = rng.integers(-n_rows, 2 * n_rows, 64).astype(np.int32)
+        assert (idx < 0).any() and (idx >= n_rows).any()
+    clipped = np.clip(idx, 0, n_rows - 1)
+    want = pallas_row_gather(table, clipped, 4, 2, monkeypatch)
+    got = K.row_gather_checksum(T(table), T(idx), sweeps=2, k=4)
+    assert int(got) == want == 2 * int(table[clipped, 0].sum())
+    assert int(K.row_gather_checksum_ref(T(table), T(idx), 2)) == want
+
+
+ODD_TH = [("axis0", kern_sub, True), ("axis0", kern_axis0, False),
+          ("composed", kern_full, True)]
+
+
+@pytest.mark.parametrize("mode,body,split", ODD_TH,
+                         ids=[f"{m}-split{s:d}" for m, _, s in ODD_TH])
+@pytest.mark.parametrize("th", [24, 100])
+def test_odd_table_heights_match_probe_bodies(mode, body, split, th):
+    """Table blocks whose height is no power of two, so that no slab of a
+    power-of-two number of columns fills its shared memory exactly: a fixed
+    window with split indices, and blocked layouts with plain ones."""
+    rng = np.random.default_rng(th + split)
+    bh, steps = (8, 6) if split else (th, 3)
+    R = bh * steps
+    table = rng.random((th if split else R, L)).astype(np.float32)
+    hi = th * L + 500 if split else th
+    idx = rng.integers(0, hi, (R, L)).astype(np.int32)
+    want = jax_blocks(body, table, idx, bh, th, window=split)
+    got = K.take_along_blocks(T(table), T(idx), mode, bh, th, window=split,
+                              split=split)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        K.take_along_blocks_ref(T(table), T(idx), mode, bh, th, split,
+                                split).numpy(), want)
+
+
+def test_route_of_every_probe_shape():
+    """The route is picked by shape alone: every case of the probe has one,
+    a slab fits its shared memory, and the names are the C entry's."""
+    for c in probe.take_cases():
+        route = K.take_along_route(c.table_rows, c.mode)
+        assert route in K.TAKE_ROUTES and probe.route_name(c).startswith(route)
+        cols = K.take_along_slab_cols(c.table_rows)
+        if route == "slab":
+            assert c.mode == "axis0" and L % cols == 0
+            assert K.SLAB_MIN_COLS <= cols <= L
+            assert c.table_rows * cols * 4 <= K.SLAB_BYTES <= K.SMEM_BYTES
+            assert cols == L or c.table_rows * 2 * cols * 4 > K.SLAB_BYTES
+        if route == "block":
+            assert c.table_rows * L * 4 <= K.SMEM_BYTES
+        assert (route == "row") == (c.mode == "row")
+    assert K.take_along_slab_cols(1 << 20) == 0
+    assert K.take_along_route(16384) == "L2"    # 2 columns would fit
+    assert K.take_along_route(1 << 20) == "L2"
+    assert K.take_along_slab_cols(1) == L
+
+
+def test_row_gather_scratch_sizes():
+    for n in (0, 1, 1000, 1 << 21):
+        zeroed, binned = K.row_gather_scratch(n)
+        # the sum, then a histogram and a cursor word per table region
+        assert zeroed == 1 + 2 * K.ROW_GATHER_BINS and binned == n
+    # the kernel's own count of regions is a constant of its source
+    src = (pathlib.Path(K.__file__).parent.parent / "csrc"
+           / "gather_probe.cu").read_text()
+    assert f"constexpr int kBins = {K.ROW_GATHER_BINS};" in src
 
 
 def test_row_gather_wraps_and_checks():
