@@ -20,9 +20,14 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 3. the main path through the CLI entry point on the tracked fixture
    ``data/parity/parity10k.bin`` (pagerank, hop_dist, sssp), checked against
    its goldens;
-4. the same three apps on an RMAT graph of bench.py's LiveJournal-scale
-   size (N=4.8M, E=69M, seed 42) written to a BIN file, then BFS from the
-   four highest-degree nodes, checked against hop_dist and sssp;
+4. the same three apps through the CLI on a BIN file of an RMAT graph of
+   1/16 of bench.py's LiveJournal-scale size (``running time=``, CRCs, the
+   in-process output equal to the CLI's); then the apps in process on the
+   RMAT graph of the full size (N=4.8M, E=69M, seed 42), built in memory
+   (its edges are drawn on a host thread while phases 1-3 run) and timed
+   over the region the CLI times (a warm-up run, then the host clock from
+   the call to the result on the host) beside CUDA events; then BFS from
+   the four highest-degree nodes, checked against hop_dist and sssp;
 5. one PageRank superstep's pull-sum on that graph, kernel against plain,
    the graph's in-degree picture, and each kernel's time at that graph's
    shapes beside its plain version, its bound (the bytes it must move over
@@ -31,12 +36,30 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    yardsticks that the port never calls), with ``segment_sum_by_offsets``
    (BFS's pull sweep) timed beside its earlier inclusive-scan-and-copy
    form;
-6. the batched engine on that graph: the ``multi_bfs`` CLI at bench.py's
-   headline B=4096, plane_bits=32; then, on one binned schedule, the bit
+6. the batched engine: the ``multi_bfs`` CLI at bench.py's headline
+   B=4096, plane_bits=32 on the 1/16-size file, equal to the in-process
+   run there; then on the full-size graph, on one binned schedule, the bit
    BFS (instances 0-3 against hop_dist), the binned BFS at B=8 (distances
    equal hop_dist's) and the binned PageRank at B=128 (the d=0.85 instance
    against pagerank), with aggregate GTEPS, Gedge/s and the memory peak;
-7. the gather probes: first both probe kernels against their plain versions
+7. triangle counting and the analytics models.  On the full-size directed
+   graph: weak_cc (its labels' invariants, two segment-reduce launches a
+   superstep), conductance of the four cuts of ``conduct_membership``
+   against numpy, avg_teen_cnt (through the prefix-sum kernel) against
+   numpy.  Then that graph made undirected with every slot kept (138M
+   slots; the CSR is merged on the card, and that merge is held against
+   ``to_undirected(dedup=False)`` + ``native.build_csr`` at the 1/16 size):
+   the host DAG build in seconds, and ``count_dag`` (the sort-merge join,
+   by the threshold) equal to the search path on the same ``DagContext``,
+   each with its device time, Mwedges/s and memory peak.  At the 1/16 size,
+   symmetrised with ``dedup=True``: ``triangle_count``, the search, the
+   join and ``triangle_count_literal`` agree, and all four agree with
+   ``triangle_count_np`` on a 2,000-node RMAT; ``triangle_counting``
+   through the CLI on parity10k against its golden; communities, v_cover,
+   potential_friends and adamic_adar_edges against their oracles or the
+   plain host computation on small graphs, communities also timed at the
+   1/16 size;
+8. the gather probes: first both probe kernels against their plain versions
    on the inputs that stress their designs (the row gather at 2^21 ids that
    are duplicate-heavy, clipped on both sides, all equal or sorted; the
    take-along gather's axis0 and composed modes on a 2 MB window and on
@@ -47,11 +70,13 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
-kernel of the port: the engine's edge map is plain PyTorch) and phase 7.
+kernel of the port: the engine's edge map is plain PyTorch), phase 7 (this
+slice's path) and phase 8.
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -66,6 +91,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "data", "parity", "parity10k.bin")
 LJ_N, LJ_E, LJ_SEED = 4_800_000, 69_000_000, 42   # bench.py:50-52
+SMALL_N, SMALL_E = LJ_N // 16, LJ_E // 16         # the CLI round trip's file
 
 # parity10k goldens: JAX CLI on the CPU; hop_dist matches the reference
 # binary bit for bit (BASELINE.md:78)
@@ -73,6 +99,7 @@ GOLD_HOP_CRC16 = "0x5003"
 GOLD_SSSP_CRC16 = "0x8e4e"
 GOLD_SSSP_DIST = [0, 141, 114, 170]
 GOLD_RANK = [0.000078454, 0.000063880, 0.000108653, 0.000057279]
+GOLD_TRIANGLES = 93     # JAX CLI on the CPU; the reference's count too
 RANK_RTOL = 1e-4        # device tolerance of scripts/parity.py:85
 
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
@@ -140,10 +167,276 @@ def run_cli(apps, argv):
     return out
 
 
+def host_graph(native, from_edges, n, e, seed):
+    """(edges, frozen graph on the host, seconds of each) of the native
+    RMAT stream."""
+    t0 = time.time()
+    src, dst = native.rmat_edges(n, e, seed=seed)
+    t1 = time.time()
+    g = from_edges(src, dst, n)[0]
+    return src, dst, g, t1 - t0, time.time() - t1
+
+
 def launched_since(K, before):
     """The kernels launched since ``before = K.launch_counts()``, by name."""
     return {name: n - before[name] for name, n in K.launch_counts().items()
             if n != before[name]}
+
+
+def timed_calls(module, name, sink):
+    """Wrap ``module.name`` so that each call appends its seconds to
+    ``sink``; returns the original, to put back."""
+    real = getattr(module, name)
+
+    def wrapper(*args):
+        t0 = time.time()
+        out = real(*args)
+        sink.append(time.time() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    return real
+
+
+def undirected_csr(torch, g):
+    """``(begin, dst)`` on ``g``'s device of ``g`` made undirected with every
+    slot kept: row v holds v's out- and in-neighbours, sorted.  The CSR of
+    ``to_undirected(src, dst, dedup=False)``, merged from the CSR and CSC the
+    card already holds by one sort of ``row << 32 | neighbour`` keys."""
+    e = g.num_edges
+    keys = torch.cat([
+        (g.node_idx_src[:e].long() << 32) | g.node_idx[:e].long(),
+        (g.r_node_idx_dst[:e].long() << 32) | g.r_node_idx[:e].long()])
+    keys = keys.sort().values
+    return g.begin + g.r_begin, (keys & 0xFFFFFFFF).to(torch.int32)
+
+
+def models_phase(torch, K, dev, g, g_host, g16):
+    """Phase 7, first part: the models that run on the directed graphs.
+    Returns the full-size graph's undirected CSR on the host."""
+    from green_marl_tpu_torch.graph import generate
+    from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.models import analytics, cc, communities
+    from green_marl_tpu_torch.models import conductance as cond
+    from green_marl_tpu_torch.models import v_cover
+    from green_marl_tpu_torch.utils.gm_rand import conduct_membership
+
+    n, e = g.num_nodes, g.num_edges
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        ev1.synchronize()
+        return out, ev0.elapsed_time(ev1)
+
+    # weak_cc at the full size
+    cc.weak_cc(g, max_iter=2)                         # warm-up
+    before = K.launch_counts()
+    res, ms = timed(lambda: cc.weak_cc(g))
+    grown = launched_since(K, before)
+    comp = res.comp[:n]
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    check(bool((comp <= ids).all()) and bool((comp >= 0).all())
+          and torch.equal(comp[g.node_idx_src[:e].long()],
+                          comp[g.node_idx[:e].long()])
+          and torch.equal(comp[comp.long()], comp),
+          f"weak_cc at the full size: comp[v] <= v, equal across every "
+          f"edge, comp[comp[v]] == comp[v]; {res.iterations} supersteps, "
+          f"{ms:.1f} ms ({ms / res.iterations:.2f} a superstep), "
+          f"{int((comp == ids).sum())} components")
+    check(grown == {"segment_reduce_sorted": 2 * res.iterations},
+          f"weak_cc launched the segment-reduce kernel twice a superstep "
+          f"({grown})")
+
+    # conductance of the four cuts against numpy
+    begin = g_host.begin.numpy()
+    src_h = g_host.node_idx_src.numpy()[:e]
+    dst_h = g_host.node_idx.numpy()[:e]
+    t0 = time.time()
+    member_h = conduct_membership(n)
+    member = torch.zeros(g.n_pad, dtype=torch.int32)
+    member[:n] = torch.from_numpy(member_h)
+    member = member.to(dev)
+    deg = np.diff(begin).astype(np.int64)
+    got, ms = timed(lambda: [float(cond.conductance(g, member, i))
+                             for i in range(4)])
+    want = []
+    for num in range(4):
+        inside = member_h == num
+        m = np.float32(min(deg[inside].sum(), deg[~inside].sum()))
+        cross = np.float32((inside[src_h] & ~inside[dst_h]).sum())
+        want.append(float(cross / m))
+    check(got == want and all(0 < c < np.inf for c in got),
+          f"conductance of the four cuts of conduct_membership at the full "
+          f"size == numpy on the host ({got}; sum {sum(got):f}; "
+          f"{ms:.1f} ms for the four, with a host read each; membership "
+          f"and numpy {time.time() - t0:.1f} s)")
+
+    # avg_teen_cnt through the prefix-sum kernel
+    age_h = np.zeros(g.n_pad, np.int32)
+    age_h[:n] = np.random.default_rng(5).integers(0, 60, n)
+    age = torch.from_numpy(age_h).to(dev)
+    before = K.launch_counts()
+    (avg, cnt), ms = timed(lambda: analytics.avg_teen_cnt(g, age, 30))
+    grown = launched_since(K, before)
+    teen = (age_h >= 10) & (age_h < 20)
+    cnt_h = np.bincount(dst_h[teen[src_h]], minlength=n)
+    sel = age_h[:n] > 30
+    check(np.array_equal(cnt[:n].cpu().numpy(), cnt_h)
+          and abs(float(avg) - cnt_h[sel].sum() / sel.sum()) < 1e-5
+          and grown == {"plain_cumsum": 1},
+          f"avg_teen_cnt at the full size: counts == numpy, avg "
+          f"{float(avg):.6f}; {ms:.2f} ms; launches {grown}")
+    del age, cnt, member, comp, ids, res
+
+    # communities: against its oracle on a small graph, timed at 1/16
+    def small(nn, mm, seed):
+        return from_edges(*generate.rmat_edges(nn, mm, seed=seed), nn)[0]
+
+    gs = small(3000, 24_000, 71)
+    res = communities.communities(gs.to(dev))
+    want = communities.communities_np(gs.begin.numpy(),
+                                      gs.node_idx.numpy()[:gs.num_edges])
+    check(np.array_equal(res.comm[:3000].cpu().numpy(), want),
+          f"communities N=3000 E=24000 == communities_np "
+          f"({res.iterations} supersteps, {len(np.unique(want))} labels)")
+    before = K.launch_counts()
+    res, ms = timed(lambda: communities.communities(g16))
+    comm = res.comm[:g16.num_nodes]
+    check(bool(((comm >= 0) & (comm < g16.num_nodes)).all()),
+          f"communities at the 1/16 size: labels are node ids; "
+          f"{res.iterations} supersteps, {ms:.1f} ms "
+          f"({ms / res.iterations:.2f} a superstep), launches "
+          f"{launched_since(K, before)}")
+
+    # v_cover: one host sync a step, so a graph of a few thousand edges
+    gs = small(1000, 4000, 72)
+    res, ms = timed(lambda: v_cover.v_cover(gs.to(dev)))
+    sel, cnt = v_cover.v_cover_np(gs.begin.numpy(),
+                                  gs.node_idx.numpy()[:gs.num_edges])
+    check(np.array_equal(res.select[:gs.num_edges].cpu().numpy(), sel)
+          and int(res.count) == cnt,
+          f"v_cover N=1000 E=4000 == v_cover_np (covered {cnt}, "
+          f"{res.iterations} steps, {ms:.1f} ms)")
+
+    # potential_friends and adamic_adar_edges against dense numpy
+    gs = small(2000, 16_000, 73)
+    ne = gs.num_edges
+    s_h, d_h = gs.node_idx_src.numpy()[:ne], gs.node_idx.numpy()[:ne]
+    slots = np.zeros((2000, 2000))
+    np.add.at(slots, (s_h, d_h), 1.0)                 # with multiplicity
+    adj = (slots > 0).astype(np.float64)
+    pot = ((adj @ adj) > 0) & (adj == 0)
+    np.fill_diagonal(pot, False)
+    got = analytics.potential_friends(gs.to(dev))[:2000, :2000].cpu().numpy()
+    check(np.array_equal(got, pot),
+          f"potential_friends N=2000 == dense numpy ({int(pot.sum())} pairs)")
+    # float32 weights as on the card: 1 / log(1.0000001) is 8.4e6 there
+    wgt = (1.0 / np.log(np.maximum(np.diff(gs.begin.numpy()).astype(
+        np.float32), np.float32(1.0000001)))).astype(np.float64)
+    want = ((slots * wgt) @ adj.T)[s_h, d_h]
+    got = analytics.adamic_adar_edges(gs.to(dev))
+    check(np.allclose(got, want, rtol=1e-5, atol=1e-7) and (want > 0).any(),
+          f"adamic_adar_edges N=2000 within rtol 1e-5 of dense numpy "
+          f"(max abs err {np.abs(got - want).max():.3g})")
+
+    t0 = time.time()
+    u_begin, u_dst = undirected_csr(torch, g)
+    u_begin, u_dst = u_begin.cpu().numpy(), u_dst.cpu().numpy()
+    log(f"  undirected CSR of the full-size graph merged on the card and "
+        f"read back in {time.time() - t0:.1f} s ({u_dst.shape[0]} slots)")
+    return u_begin, u_dst
+
+
+def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
+                   src16, dst16):
+    """Phase 7, second part: triangle counting."""
+    from green_marl_tpu_torch.graph import generate
+    from green_marl_tpu_torch.graph.csr import to_undirected
+    from green_marl_tpu_torch.models import triangle
+    from green_marl_tpu_torch.probes.triangle import count_paths
+
+    # the full size: host DAG build, then the join against the search
+    secs = {"build_dag": [], "desc_layout": []}
+    real = {k: timed_calls(native, k, v) for k, v in secs.items()}
+    t0 = time.time()
+    ctx = triangle.dag_to_device(
+        triangle.build_dag_host(u_begin, u_dst, LJ_N), dev)
+    log(f"  full size, {u_dst.shape[0]} undirected slots: host DAG build "
+        f"{time.time() - t0:.1f} s (gm_build_dag, serial, "
+        f"{sum(secs['build_dag']):.1f} s; the rest numpy and the upload); "
+        f"D={ctx.num_dag_edges} wedges={ctx.num_wedges}")
+    check(ctx.num_wedges >= triangle._HASH_MIN_W,
+          f"{ctx.num_wedges} wedges >= 2^26: count_dag routes to the "
+          "sort-merge join")
+    res = count_paths(ctx, ["routed", "search"],
+                      log=lambda m: log("  " + m))
+    check(res["routed"][0] == res["search"][0] > 0,
+          f"full size: count_dag (sort-merge join) == search path == "
+          f"{res['routed'][0]} triangles (gm_desc_layout, serial, "
+          f"{sum(secs['desc_layout']):.1f} s of the join's time)")
+    del ctx, res
+    triangle._PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # the 1/16 size: the card's CSR merge against the host's, then a simple
+    # graph (dedup=True), where the literal form counts the same triangles
+    t0 = time.time()
+    g16 = from_edges(src16, dst16, SMALL_N)[0].to(dev)
+    m_begin, m_dst = undirected_csr(torch, g16)
+    h_begin, h_dst = native.build_csr(
+        *to_undirected(src16, dst16, dedup=False), SMALL_N)[:2]
+    check(np.array_equal(m_begin.cpu().numpy(), h_begin)
+          and np.array_equal(m_dst.cpu().numpy(), h_dst),
+          "1/16 size: the CSR merged on the card == native.build_csr of "
+          "to_undirected(dedup=False)")
+    del g16, m_begin, m_dst
+    gu = from_edges(*to_undirected(src16, dst16, dedup=True),
+                    SMALL_N)[0].to(dev)
+    multi = triangle.count_search(triangle.dag_to_device(
+        triangle.build_dag_host(h_begin, h_dst, SMALL_N), dev))
+    log(f"  1/16 size: simple undirected graph of {gu.num_edges} slots "
+        f"({h_dst.shape[0]} with parallel edges) built in "
+        f"{time.time() - t0:.1f} s")
+    ctx = triangle.build_dag(gu)
+    t0 = time.time()
+    counts = {"triangle_count": triangle.triangle_count(gu),
+              "search": triangle.count_search(ctx),
+              "sort-merge": triangle.count_sortmerge(ctx),
+              "literal": triangle.triangle_count_literal(gu),
+              "search, parallel edges kept": multi}
+    check(len(set(counts.values())) == 1 and multi > 0,
+          f"1/16 size, dedup=True: {counts} agree "
+          f"({ctx.num_wedges} DAG wedges; {time.time() - t0:.1f} s)")
+    del gu, ctx
+    triangle._PREP_CACHE.clear()
+
+    src, dst = to_undirected(*generate.rmat_edges(2000, 16_000, seed=74))
+    gs = from_edges(src[src != dst], dst[src != dst], 2000)[0]
+    want = triangle.triangle_count_np(gs.begin.numpy(),
+                                      gs.node_idx.numpy()[:gs.num_edges])
+    gs = gs.to(dev)
+    ctx = triangle.build_dag(gs)
+    counts = {"triangle_count": triangle.triangle_count(gs),
+              "search": triangle.count_search(ctx),
+              "sort-merge": triangle.count_sortmerge(ctx),
+              "literal": triangle.triangle_count_literal(gs)}
+    check(set(counts.values()) == {want} and want > 0,
+          f"2,000-node RMAT: {counts} == triangle_count_np ({want})")
+    triangle._PREP_CACHE.clear()
+    for k, fn in real.items():
+        setattr(native, k, fn)
+
+    out = run_cli(apps, ["triangle_counting", "-GMDevice=cuda", FIXTURE])
+    check(int(field(out, r"^number of triangles: (\d+)")) == GOLD_TRIANGLES
+          and field(out, r"^triangle_counting returns: (\d+)")
+          == str(GOLD_TRIANGLES),
+          f"triangle_counting on parity10k through the CLI: "
+          f"{GOLD_TRIANGLES} triangles")
 
 
 def field(out, pattern):
@@ -326,13 +619,19 @@ def main():
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.time()
+    native.lib()       # raises if native/gm_io.cc does not build
+    log(f"native host library build: {time.time() - t0:.2f} s")
+    # phase 4's graph: drawn and frozen by the serial host library on a
+    # thread of its own (the calls release the interpreter) while phases
+    # 1-3 keep the card busy
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    lj_host = pool.submit(host_graph, native, from_edges, LJ_N, LJ_E, LJ_SEED)
+    pool.shutdown(wait=False)
+    t0 = time.time()
     so = _build.build()
     _build.lib()
     log(f"kernel build: {time.time() - t0:.2f} s -> "
         f"{os.path.relpath(so, ROOT)}")
-    t0 = time.time()
-    native.lib()       # raises if native/gm_io.cc does not build
-    log(f"native host library build: {time.time() - t0:.2f} s")
 
     # -- 2. kernels against their plain versions ---------------------------
     log("== 2. kernels against plain PyTorch, on the card")
@@ -454,55 +753,78 @@ def main():
     check(np.allclose(rank, GOLD_RANK, rtol=RANK_RTOL, atol=0.0),
           f"pagerank rank[0..3] {rank} within {RANK_RTOL} of {GOLD_RANK}")
 
-    log(f"== 4. LiveJournal-scale RMAT N={LJ_N} E={LJ_E} seed={LJ_SEED}")
+    log(f"== 4. RMAT graphs: the CLI round trip at N={SMALL_N} E={SMALL_E}, "
+        f"then N={LJ_N} E={LJ_E} in process (seed {LJ_SEED})")
     log("  edges from native/gm_io.cc's RMAT: the same sizes and "
         "parameters as bench.py, not bench.py's numpy edge stream")
     t0 = time.time()
-    src, dst = native.rmat_edges(LJ_N, LJ_E, seed=LJ_SEED)
-    begin, csr_dst = native.build_csr(src, dst, LJ_N)[:2]
+    src16, dst16, g16_host, _, _ = host_graph(native, from_edges, SMALL_N,
+                                              SMALL_E, LJ_SEED)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    path = os.path.join(_build.BUILD_DIR, f"rmat_lj_seed{LJ_SEED}.bin")
-    binary_io.store_binary(path, begin, csr_dst)
-    del csr_dst
-    log(f"  generated and wrote {os.path.relpath(path, ROOT)} "
+    path = os.path.join(_build.BUILD_DIR, f"rmat_small_seed{LJ_SEED}.bin")
+    binary_io.store_binary(
+        path, g16_host.begin.numpy(),
+        g16_host.node_idx.numpy()[:SMALL_E])
+    g16 = g16_host.to(dev)
+    log(f"  generated, froze and wrote {os.path.relpath(path, ROOT)} "
         f"({os.path.getsize(path) / 1e6:.0f} MB) in {time.time() - t0:.1f} s")
-    app_ms, app_crc = {}, {}
-    for app, name in (("pagerank", "rank"), ("hop_dist", "dist"),
-                      ("sssp", "dist")):
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def edge_weights(g):
+        w = np.zeros(g.e_pad, np.int32)
+        w[:g.num_edges] = sssp_edge_lengths(g.num_edges)
+        return torch.from_numpy(w).to(dev)
+
+    w16 = edge_weights(g16)
+    for app, name, fn in (
+            ("pagerank", "rank", lambda: pagerank(g16).rank),
+            ("hop_dist", "dist", lambda: hop_dist(g16, 0).dist),
+            ("sssp", "dist", lambda: sssp(g16, 0, w16).dist)):
         t0 = time.time()
         out = run_cli(apps, [app, "-GMMeasureTime=1", "-GMDevice=cuda",
                              path])
-        app_ms[app] = float(field(out, r"^running time=(\S+)"))
-        app_crc[app] = field(out, rf"^CRC {name} (\S+)")
-        log(f"  {app}: running time {app_ms[app]:.1f} ms, whole CLI call "
-            f"{time.time() - t0:.1f} s")
+        crc = field(out, rf"^CRC {name} (\S+)")
+        cli_ms = float(field(out, r"^running time=(\S+)"))
+        check(array_checksum_hex(fn()[:SMALL_N].cpu().numpy()) == crc,
+              f"{app} at the 1/16 size: in-process output == CLI output (CRC "
+              f"{crc}); CLI running time {cli_ms:.1f} ms, whole CLI call "
+              f"{time.time() - t0:.1f} s")
+    del w16
 
     t0 = time.time()
-    g, _ = from_edges(src, dst, LJ_N)
-    g = g.to(dev)
+    src, dst, g_host, gen_s, freeze_s = lj_host.result()
+    waited = time.time() - t0
+    begin = g_host.begin.numpy()
+    t0 = time.time()
+    g = g_host.to(dev)
     del src, dst
-    log(f"  graph on the card in {time.time() - t0:.1f} s "
+    log(f"  full size: edges drawn in {gen_s:.1f} s and frozen in "
+        f"{freeze_s:.1f} s on the host thread (waited {waited:.1f} s for "
+        f"it), on the card in {time.time() - t0:.1f} s "
         f"(n_pad={g.n_pad} e_pad={g.e_pad})")
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    w = np.zeros(g.e_pad, np.int32)
-    w[:g.num_edges] = sssp_edge_lengths(g.num_edges)
-    w = torch.from_numpy(w).to(dev)
-    # the CLI's outputs are the library's: the checks below hold for them
+    w = edge_weights(g)
+    # the region the CLI times with -GMMeasureTime: a warm-up run, then the
+    # host clock from the call to the result on the host
+    app_ms = {}
     for app, fn in (("pagerank", lambda: pagerank(g)),
                     ("hop_dist", lambda: hop_dist(g, 0)),
                     ("sssp", lambda: sssp(g, 0, w))):
+        fn()
+        torch.cuda.synchronize()
         before = K.launch_counts()
+        t0 = time.time()
         ev0.record()
         res = fn()
         ev1.record()
-        ev1.synchronize()
-        arr = (res.rank if app == "pagerank" else res.dist)[:LJ_N].cpu()
-        check(array_checksum_hex(arr.numpy()) == app_crc[app],
-              f"{app} in-process output == CLI output (CRC "
-              f"{app_crc[app]}; {res.iterations} supersteps, "
-              f"{ev0.elapsed_time(ev1):.1f} ms; kernel launches in this "
-              f"run {launched_since(K, before)})")
+        arr = (res.rank if app == "pagerank" else res.dist).cpu().numpy()
+        app_ms[app] = 1000 * (time.time() - t0)
+        arr = torch.from_numpy(arr[:LJ_N])
+        log(f"  {app} at the full size: {app_ms[app]:.1f} ms by the host "
+            f"clock (the call to the result on the host), "
+            f"{ev0.elapsed_time(ev1):.1f} ms by CUDA events; "
+            f"{res.iterations} supersteps; kernel launches in this run "
+            f"{launched_since(K, before)}")
         if app == "pagerank":
             check(bool(torch.isfinite(arr).all()) and bool((arr >= 0).all())
                   and float(arr.double().sum()) <= 1.0 + 1e-4,
@@ -692,58 +1014,75 @@ def main():
     log(f"  segmented_scan float32 add, n={g.e_pad} CSC ids: kernel "
         f"{times['segmented_scan'][0]:.3f} ms, plain "
         f"{times['segmented_scan'][1]:.3f} ms")
-    log(f"  LJ app running times (CLI, host clock, ms): {app_ms}")
+    log(f"  LJ app running times (in process, host clock, ms): {app_ms}")
     del pulled, cand, bits, s_kernel, s_ref, s_ref64, contrib, out_deg
 
     # -- 6. the batched engine --------------------------------------------
-    log(f"== 6. batched engine on the LJ-scale graph (card: {smi})")
+    log(f"== 6. batched engine (card: {smi})")
     K.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9
+
+    def engine_inputs(graph):
+        """The binned schedule on the card, out-degrees by row, and the
+        nodes by descending out-degree (the CLI's roots)."""
+        bp = binned.binned_in(graph).to(dev, with_edges=False)
+        out_deg = graph.out_degree().cpu().numpy()[:bp.n_nodes]
+        rows = np.zeros(bp.n_rows, np.int32)
+        rows[:bp.n_nodes] = out_deg[bp.perm.cpu().numpy()]
+        return (bp, torch.from_numpy(rows).to(dev), out_deg,
+                np.argsort(out_deg)[::-1])
+
+    chunk = binned.slot_chunk_for(MULTI_B // 8)
     t0 = time.time()
     out = run_cli(apps, ["multi_bfs", "-GMDevice=cuda",
                          f"-num_roots={MULTI_B}", f"-plane_bits={PLANE_BITS}",
                          path])
+    os.remove(path)
     m = re.search(r"^batched bfs: B=(\d+) levels=(\d+) traversed=(\d+) "
                   r"aggregate=(\S+) GTEPS", out, re.M)
-    cli_levels, cli_trav, cli_gteps = int(m[2]), int(m[3]), float(m[4])
-    check(int(m[1]) == MULTI_B and cli_trav > 0,
-          f"multi_bfs CLI B={MULTI_B} plane_bits={PLANE_BITS}: "
-          f"{cli_levels} levels, traversed={cli_trav}, {cli_gteps} GTEPS "
-          f"(host clock), whole CLI call {time.time() - t0:.1f} s, peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    os.remove(path)
+    bp, deg_rows, _, order = engine_inputs(g16)
+    res = batched.multi_source_bfs_bits(bp, order[:MULTI_B], deg_rows,
+                                        plane_bits=PLANE_BITS,
+                                        slot_chunk=chunk)
+    check(int(m[1]) == MULTI_B and int(m[3]) > 0
+          and int(res.traversed.sum()) == int(m[3])
+          and res.levels_run == int(m[2]),
+          f"multi_bfs CLI B={MULTI_B} plane_bits={PLANE_BITS} at the 1/16 "
+          f"size: {m[2]} levels and traversed={m[3]} equal the in-process "
+          f"run's; {m[4]} GTEPS by the CLI's host clock, whole CLI call "
+          f"{time.time() - t0:.1f} s")
+    del bp, deg_rows, res
 
     t0 = time.time()
-    bp = binned.binned_in(g).to(dev, with_edges=False)
+    bp, deg_rows, out_deg_np, order = engine_inputs(g)
     n = bp.n_nodes
-    out_deg_np = g.out_degree().cpu().numpy()[:n]
-    deg_rows_np = np.zeros(bp.n_rows, np.int32)
-    deg_rows_np[:n] = out_deg_np[bp.perm.cpu().numpy()]
-    deg_rows = torch.from_numpy(deg_rows_np).to(dev)
-    order = np.argsort(out_deg_np)[::-1]
-    log(f"  binned schedule built and moved in {time.time() - t0:.1f} s: "
+    log(f"  full size: binned schedule built and moved in "
+        f"{time.time() - t0:.1f} s: "
         f"{len(bp.bins)} bins, {bp.slot_src.numel()} slots "
         f"({bp.slot_src.numel() / g.num_edges:.3f} x E), {bp.n_hub} hubs "
         f"in {bp.n_hub_chunks} chunks")
     check([int(r) for r in order[:4]] == roots,
           "the engine's four highest-degree roots are phase 4's")
-    chunk = binned.slot_chunk_for(MULTI_B // 8)
+    t0 = time.time()
     ev0.record()
     res = batched.multi_source_bfs_bits(bp, order[:MULTI_B], deg_rows,
                                         plane_bits=PLANE_BITS,
                                         slot_chunk=chunk)
     ev1.record()
-    ev1.synchronize()
+    trav = res.traversed.cpu().numpy()      # where the CLI's clock stops
+    host_s = time.time() - t0
     bits_ms = ev0.elapsed_time(ev1)
-    trav = res.traversed.cpu().numpy()
     reached = res.reached.cpu().numpy()
     gteps = float(trav.sum()) / bits_ms / 1e6
-    check(int(trav.sum()) == cli_trav and res.levels_run == cli_levels,
-          f"multi_source_bfs_bits B={MULTI_B}: traversed {int(trav.sum())} "
-          f"and {res.levels_run} levels equal the CLI's; {bits_ms:.1f} ms "
-          f"(CUDA events), {gteps:.2f} GTEPS aggregate")
+    check(int(trav.sum()) > 0,
+          f"multi_source_bfs_bits B={MULTI_B} at the full size: traversed "
+          f"{int(trav.sum())} in {res.levels_run} levels; {bits_ms:.1f} ms "
+          f"(CUDA events), {gteps:.2f} GTEPS aggregate "
+          f"({float(trav.sum()) / host_s / 1e9:.2f} by the host clock over "
+          f"the region the CLI times); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     for b, r in enumerate(roots):
         seen = (hd_dist[r][:n] < INT32_MAX).cpu().numpy()
         check(int(reached[b]) == int(seen.sum())
@@ -795,10 +1134,27 @@ def main():
         f"(graph and phase-4 leftovers {base_gb:.2f} GB); launches "
         f"{counts_engine} (all by the hop_dist and pagerank references: "
         f"the edge map is plain PyTorch)")
-    del bp, deg_rows, g
+    del bp, deg_rows
 
-    # -- 7. the gather probes ----------------------------------------------
-    log("== 7. gather probes (kernel == plain checked before each time)")
+    # -- 7. triangle counting and the analytics models ----------------------
+    log(f"== 7. triangle counting and the analytics models (card: {smi})")
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    u_begin, u_dst = models_phase(torch, K, dev, g, g_host, g16)
+    del g, g_host, g16
+    torch.cuda.empty_cache()
+    triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
+                   src16, dst16)
+    del u_begin, u_dst, src16, dst16
+    counts_models = K.launch_counts()
+    log(f"  phase 7 launches {counts_models}")
+    for name in ("segment_reduce_sorted", "plain_cumsum"):
+        check(counts_models[name] > 0, f"{name} launched by this phase "
+              f"({counts_models[name]} times)")
+        counts[name] += counts_models[name]
+
+    # -- 8. the gather probes ----------------------------------------------
+    log("== 8. gather probes (kernel == plain checked before each time)")
     torch.cuda.empty_cache()
     t0 = time.time()
     check_gather_designs(torch, K, dev)

@@ -20,7 +20,7 @@ import contextlib
 import io
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -41,10 +41,13 @@ _TYPE_NAMES = {
     bio.GMTYPE_NODE: int, bio.GMTYPE_EDGE: int,
 }
 
-# Options of the JAX CLI whose paths are not ported yet: accepted by the
-# parser so that their use fails with a clear message.
-_NOT_PORTED = ("GMProfile", "GMNumChips", "GMPlacement", "GMPlace",
-               "GMPlacementFile", "GMDumpGraph", "GMOutputFormat")
+# Options of the JAX CLI whose paths are not ported yet, with its types and
+# defaults.  Accepted by the parser; refused only where they would change
+# the run (see ``_check_not_ported``).
+_NOT_PORTED = (("GMProfile", bool, "0"), ("GMNumChips", int, None),
+               ("GMPlacement", str, "distribute"), ("GMPlace", str, None),
+               ("GMPlacementFile", str, None), ("GMDumpGraph", int, "0"),
+               ("GMOutputFormat", str, "NULL"))
 
 
 @dataclass
@@ -63,6 +66,10 @@ class RunContext:
     node_props: Dict[str, np.ndarray]
     edge_props: Dict[str, np.ndarray]   # CSR slot order
     scalars: Dict[str, Any]
+    # device tensors an app keeps between runs, by name, so that the warm-up
+    # run of -GMMeasureTime pays for their upload (the reference prepares
+    # its inputs in prepare(), outside the timed region)
+    device_props: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -99,8 +106,8 @@ class UserMain:
                           "Accepted for reference-CLI compatibility")
         self.O.add_option("GMDumpValues", int, "4",
                           "How many leading output values to print")
-        for name in _NOT_PORTED:
-            self.O.add_option(name, str, None, "not yet ported")
+        for name, typ, default in _NOT_PORTED:
+            self.O.add_option(name, typ, default, "not yet ported")
         self.O.add_argument("InputName", "Input graph filename")
 
     # -- declarations ----------------------------------------------------
@@ -123,18 +130,26 @@ class UserMain:
 
     # -- pipeline --------------------------------------------------------
     def _check_not_ported(self) -> None:
-        for name in _NOT_PORTED:
-            raw = self.O.get_option(name)
-            if raw is None:
-                continue
-            if name == "GMNumChips" and raw in ("0", "1"):
-                continue
-            if name in ("GMProfile", "GMDumpGraph") and raw in ("0", "false"):
-                continue
-            if name == "GMOutputFormat" and raw.upper() == "NULL":
-                continue
-            raise SystemExit(f"-{name}={raw}: not yet ported to "
-                             "green_marl_tpu_torch")
+        """Exit on an option whose path is not ported and that would change
+        the run.  What the JAX CLI takes and ignores on one device passes:
+        the placement options without ``-GMNumChips>1`` and
+        ``-GMOutputFormat`` without ``-GMDumpGraph=1``."""
+        opt = self.O.get_option
+        refused = []
+        if (opt("GMNumChips") or 0) > 1:
+            refused.append("GMNumChips")
+            refused += [n for n in ("GMPlacement", "GMPlace",
+                                    "GMPlacementFile") if self.O.given(n)]
+        if opt("GMDumpGraph"):
+            refused.append("GMDumpGraph")
+            if self.O.given("GMOutputFormat"):
+                refused.append("GMOutputFormat")
+        if opt("GMProfile"):
+            refused.append("GMProfile")
+        if refused:
+            raise SystemExit(
+                ", ".join(f"-{n}={opt(n)}" for n in refused)
+                + ": not yet ported to green_marl_tpu_torch")
 
     def load(self, device: torch.device) -> RunContext:
         fmt = self.O.get_option("GMInputFormat").upper()
@@ -206,7 +221,12 @@ class UserMain:
         k = self.O.get_option("GMDumpValues")
         for s in self.schemas:
             val = outputs.get(s.name)
-            if not s.is_output or val is None:
+            if val is None or not (s.is_output or s.name == "return"):
+                continue
+            if s.kind == GM_SCALAR:
+                print(f"{self.proc_name} returns: {_fmt(val, s.type)}"
+                      if s.name == "return"
+                      else f"{s.name} = {_fmt(val, s.type)}")
                 continue
             n = (ctx.graph.num_nodes if s.kind == GM_NODEPROP
                  else ctx.graph.num_edges)

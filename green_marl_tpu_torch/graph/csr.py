@@ -65,6 +65,19 @@ class Graph:
     def device(self) -> torch.device:
         return self.node_idx.device
 
+    @property
+    def sentinel(self) -> int:
+        """Node id of padded slots (a junk row in property tensors)."""
+        return self.num_nodes
+
+    @property
+    def node_dtype(self) -> torch.dtype:
+        return self.node_idx.dtype
+
+    @property
+    def edge_dtype(self) -> torch.dtype:
+        return self.begin.dtype
+
     def to(self, device) -> "Graph":
         """The same graph with every tensor on ``device``."""
         return dataclasses.replace(
@@ -74,6 +87,10 @@ class Graph:
         """[N_pad] bool, True for real nodes."""
         return torch.arange(self.n_pad, device=self.device) < self.num_nodes
 
+    def edge_mask(self) -> torch.Tensor:
+        """[E_pad] bool, True for real edges (CSR and CSC share E)."""
+        return torch.arange(self.e_pad, device=self.device) < self.num_edges
+
     def out_degree(self) -> torch.Tensor:
         """[N_pad] edge_t; reference ``OutDegree()``."""
         return _pad_to(self.begin.diff(), self.n_pad)
@@ -81,6 +98,16 @@ class Graph:
     def in_degree(self) -> torch.Tensor:
         """[N_pad] edge_t; reference ``InDegree()``."""
         return _pad_to(self.r_begin.diff(), self.n_pad)
+
+    def node_prop(self, fill, dtype) -> torch.Tensor:
+        """A node property tensor on the graph's device (``Node_Prop<T>``)."""
+        return torch.full((self.n_pad,), fill, dtype=dtype,
+                          device=self.device)
+
+    def edge_prop(self, fill, dtype) -> torch.Tensor:
+        """An edge property tensor in CSR slot order."""
+        return torch.full((self.e_pad,), fill, dtype=dtype,
+                          device=self.device)
 
 
 def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -170,3 +197,22 @@ def from_edges(src: np.ndarray, dst: np.ndarray,
         e_rev2idx=padded(e_rev2idx, np.dtype(edge_dtype).type(0)),
     ), N, E)
     return g, csr_perm
+
+
+def to_undirected(src: np.ndarray, dst: np.ndarray,
+                  dedup: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetrise an edge list of node ids in ``[0, 2^31)`` (both
+    directions, self-loops once).  With ``dedup`` the pairs come back unique
+    and sorted by (source, destination): one sort of ``src << 32 | dst``
+    keys, which orders them as a row-wise ``np.unique`` does."""
+    s = np.concatenate([src, dst])
+    d = np.concatenate([dst, src])
+    if dedup:
+        keys = np.sort((s.astype(np.int64) << 32) | d.astype(np.int64))
+        if keys.size:
+            # sorted neighbours compared, not np.unique: numpy 2.3's takes
+            # 17 s for 8.6M int64 keys where this takes 0.4 s
+            keys = keys[np.concatenate([[True], keys[1:] != keys[:-1]])]
+        s = (keys >> 32).astype(s.dtype)
+        d = (keys & 0xFFFFFFFF).astype(d.dtype)
+    return s, d

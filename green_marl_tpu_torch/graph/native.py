@@ -1,9 +1,10 @@
 """ctypes binding to the native host runtime (``native/gm_io.cc``).
 
-The CSR+CSC freeze, the RMAT generator and the reference's xorshift edge
-lengths run in C++.  The library is built with the repo's
-``native/Makefile`` into ``build/green_marl_tpu_torch/``, under a name
-keyed by a hash of the sources and flags, on first use.
+The CSR+CSC freeze, the RMAT generator, the reference's xorshift edge
+lengths and triangle counting's host preprocessing (the degree-ordered DAG
+and its descending-pair row layout) run in C++.  The library is built with
+the repo's ``native/Makefile`` into ``build/green_marl_tpu_torch/``, under
+a name keyed by a hash of the sources and flags, on first use.
 
 It is built without OpenMP (``CXXFLAGS`` below replaces the Makefile's):
 the GPU machines' g++ cannot link OpenMP (no ``libgomp.spec``), and
@@ -83,6 +84,12 @@ def lib() -> ctypes.CDLL:
             cdll.gm_xorshift_lengths.restype = None
             cdll.gm_xorshift_lengths.argtypes = [
                 ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i32p]
+            cdll.gm_build_dag.restype = ctypes.c_int64
+            cdll.gm_build_dag.argtypes = [i32p, i32p, ctypes.c_int32, i32p,
+                                          i32p]
+            cdll.gm_desc_layout.restype = None
+            cdll.gm_desc_layout.argtypes = [i32p, i32p, ctypes.c_int32, i32p,
+                                            i32p]
             _LIB = cdll
             return _LIB
     raise RuntimeError(f"native library native/gm_io.cc unavailable: "
@@ -143,3 +150,35 @@ def xorshift_lengths(n: int, mod: int = 100, add: int = 1) -> np.ndarray:
     out = np.empty(n, np.int32)
     lib().gm_xorshift_lengths(n, mod, add, _ptr(out))
     return out
+
+
+def build_dag(begin: np.ndarray, dst: np.ndarray,
+              n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Degree-ordered DAG of an undirected CSR (rows sorted by value,
+    parallel edges allowed): ``(dag_begin [n+1], dag_dst [D])`` int32, rows
+    indexed by rank (ascending degree, ties by id), values the destination
+    ranks, sorted and deduplicated."""
+    native = lib()
+    begin = np.ascontiguousarray(begin, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    dag_begin = np.empty(n + 1, np.int32)
+    dag_dst = np.empty(max(dst.shape[0], 1), np.int32)
+    d = native.gm_build_dag(_ptr(begin), _ptr(dst), n, _ptr(dag_begin),
+                            _ptr(dag_dst))
+    if d < 0:
+        raise ValueError("gm_build_dag: bad CSR")
+    return dag_begin, dag_dst[:d]
+
+
+def desc_layout(dag_begin: np.ndarray, dag_dst: np.ndarray, n: int,
+                d: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows of a DAG reordered by descending pair count (stable):
+    ``(perm_dst [d], new_begin [n+1])`` int32."""
+    native = lib()
+    dag_begin = np.ascontiguousarray(dag_begin, np.int32)
+    dag_dst = np.ascontiguousarray(dag_dst, np.int32)
+    perm_dst = np.empty(max(d, 1), np.int32)
+    nb = np.empty(n + 1, np.int32)
+    native.gm_desc_layout(_ptr(dag_begin), _ptr(dag_dst), n, _ptr(perm_dst),
+                          _ptr(nb))
+    return perm_dst[:d], nb

@@ -37,6 +37,7 @@ from . import _build
 
 OPS = ("add", "min", "max")
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
+KERNEL_DTYPES = tuple(_DTYPE_CODE)   # what the segment kernels take
 _SCATTER_REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 
 
@@ -202,14 +203,18 @@ plain_cumsum.launches = 0
 # Segmented scan
 # ---------------------------------------------------------------------------
 
-_COMBINE = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
+# "or" has no kernel: ``ops.segment.sorted_segment_or`` takes the plain scan
+_COMBINE = {"add": torch.add, "min": torch.minimum, "max": torch.maximum,
+            "or": torch.bitwise_or}
 
 
 def segmented_scan_ref(vals: torch.Tensor, ids: torch.Tensor,
                        op: str = "add") -> torch.Tensor:
     """Plain version of :func:`segmented_scan`: a Hillis-Steele doubling
-    scan, each step combining only within a segment (log2(n) passes)."""
-    n = vals.numel()
+    scan, each step combining only within a segment (log2(n) passes).
+    ``vals`` may carry trailing dimensions ([n, W]): each column is scanned
+    with the same segments."""
+    n = vals.shape[0]
     if n == 0:
         return vals.clone()
     pos = torch.arange(n, device=vals.device)
@@ -218,7 +223,8 @@ def segmented_scan_ref(vals: torch.Tensor, ids: torch.Tensor,
     out = vals.clone()
     k = 1
     while k < n:
-        take = pos[k:] - k >= start[k:]
+        take = (pos[k:] - k >= start[k:]).view(
+            (-1,) + (1,) * (vals.dim() - 1))
         out[k:] = torch.where(take, _COMBINE[op](out[:-k], out[k:]), out[k:])
         k *= 2
     return out

@@ -52,3 +52,18 @@ def sssp_edge_lengths(num_edges: int) -> np.ndarray:
         return native.xorshift_lengths(num_edges, 100, 1)
     r = GmRand32().sequence(num_edges)
     return (c_mod(r, 100) + 1).astype(np.int32)
+
+
+def conduct_membership(num_nodes: int) -> np.ndarray:
+    """The 10/20/30/40% membership split of conduct_main.cc:27-38, from
+    ``rand() % 100`` per node.  Above a million nodes the native loop draws
+    it, when that library builds."""
+    if num_nodes > 1_000_000 and native.available():
+        r = native.xorshift_lengths(num_nodes, 100, 0)
+    else:
+        r = c_mod(GmRand32().sequence(num_nodes), 100)
+    m = np.full(num_nodes, 3, np.int32)
+    m[r < 60] = 2
+    m[r < 30] = 1
+    m[r < 10] = 0
+    return m

@@ -84,16 +84,36 @@ def test_cuda_device_without_cuda_exits(capsys):
     assert "CRC" not in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("opt", ["-GMNumChips=2", "-GMProfile",
-                                 "-GMPlacement=replicate",
-                                 "-GMPlace=dist:replicate",
-                                 "-GMDumpGraph=1", "-GMOutputFormat=EBIN",
-                                 "-GMInputFormat=EDGE", "-GMDevice=mps"])
-def test_unported_options_exit(opt):
+@pytest.mark.parametrize("opts", [
+    ["-GMNumChips=2"], ["-GMProfile"], ["-GMProfile=1"], ["-GMDumpGraph=1"],
+    ["-GMDumpGraph=1", "-GMOutputFormat=EBIN"],
+    ["-GMNumChips=2", "-GMPlacement=replicate"],
+    ["-GMNumChips=4", "-GMPlace=dist:replicate"],
+    ["-GMNumChips=2", "-GMPlacementFile=placement.json"],
+    ["-GMInputFormat=EDGE"], ["-GMDevice=mps"]])
+def test_unported_options_exit(opts):
+    """What would change the run is refused."""
     # a later -GMDevice replaces -GMDevice=cpu
     with pytest.raises(SystemExit) as e:
-        apps.main(["hop_dist", "-GMDevice=cpu", opt, FIXTURE])
+        apps.main(["hop_dist", "-GMDevice=cpu"] + opts + [FIXTURE])
     assert e.value.code not in (0, None)
+    if opts[0].startswith(("-GMNumChips", "-GMProfile", "-GMDumpGraph")):
+        assert all(o.split("=")[0] in str(e.value.code) for o in opts)
+
+
+@pytest.mark.parametrize("opts", [
+    ["-GMPlacement=replicate"], ["-GMPlace=dist:replicate"],
+    ["-GMOutputFormat=EBIN"],
+    ["-GMPlacement=distribute", "-GMOutputFormat=BIN"],
+    ["-GMPlacementFile=placement.json", "-GMNumChips=1"],
+    ["-GMDumpGraph=0", "-GMOutputFormat=NULL", "-GMProfile=0"]])
+def test_accepted_and_ignored_options(opts, capsys):
+    """What the JAX CLI takes and ignores on one device changes nothing."""
+    base = ["hop_dist", "-GMDevice=cpu", FIXTURE]
+    want = run(capsys, apps.main, base)
+    got = run(capsys, apps.main, base[:2] + opts + base[2:])
+    assert results(got) == results(want)
+    assert "CRC16 dist 0x5003" in got
 
 
 def test_accepted_options_and_usage(capsys):
@@ -103,7 +123,81 @@ def test_accepted_options_and_usage(capsys):
                                     "-root=3", FIXTURE])
     assert "dist[3] = 0" in lines          # the root's own distance
     assert apps.main([]) == 1
-    assert apps.main(["triangle_counting", FIXTURE]) == 1
+    assert apps.main(["bc", FIXTURE]) == 1  # not ported yet
+    assert len(apps.APPS) == 12
+
+
+def test_sssp_keeps_its_device_weights(capsys):
+    """The second run reuses the weights tensor of the first, so that the
+    timed run of -GMMeasureTime does not upload them."""
+    from green_marl_tpu_torch.models import sssp as tsssp
+    m = apps.make_sssp()
+    assert m.O.parse(["-GMDevice=cpu", FIXTURE])
+    ctx = m.load(torch.device("cpu"))
+    seen = []
+    real = tsssp.sssp
+
+    def spy(g, root, edge_len, **kw):
+        seen.append(edge_len)
+        return real(g, root, edge_len, **kw)
+
+    tsssp.sssp = spy
+    try:
+        first = m.run_fn(ctx)
+        second = m.run_fn(ctx)
+    finally:
+        tsssp.sssp = real
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0] is ctx.device_props["len"]
+    np.testing.assert_array_equal(first["dist"], second["dist"])
+    np.testing.assert_array_equal(
+        seen[0].numpy()[: ctx.graph.num_edges], ctx.edge_props["len"])
+    m.report(ctx, second)
+    assert "CRC16 dist 0x8e4e" in capsys.readouterr().out.splitlines()
+
+
+@pytest.fixture(scope="module")
+def small_rmat(tmp_path_factory):
+    """An RMAT of 500 nodes as a BIN file, for the apps that sync once a
+    step (v_cover) or build a dense N x N matrix (potential_friends)."""
+    from green_marl_tpu.graph import generate as jgen
+    from green_marl_tpu.graph.csr import from_edges as jfrom_edges
+    src, dst = jgen.rmat_edges(500, 1500, seed=41)
+    g, _ = jfrom_edges(src, dst, 500)
+    path = str(tmp_path_factory.mktemp("rmat") / "rmat500.bin")
+    jbio.store_binary(path, np.asarray(g.begin),
+                      np.asarray(g.node_idx)[: g.num_edges])
+    return path
+
+
+@pytest.mark.parametrize("app,small,must_have", [
+    ("triangle_counting", False, "number of triangles: 93"),
+    ("conduct", False, "conduct returns: "),
+    ("conduct_main", False, "sum C = "),
+    ("weak_cc", False, "CRC16 comp "),
+    ("avg_teen_cnt", False, "avg = "),
+    ("communities", False, "CRC16 Comm "),
+    ("v_cover", True, "covered (may be non-deterministic) = "),
+    ("potential_friends", True, "potential friend pairs = ")])
+def test_new_apps_match_jax_cli(app, small, must_have, small_rmat, capsys):
+    argv = [app, small_rmat if small else FIXTURE]
+    want = run(capsys, japps.main, argv)
+    got = run(capsys, apps.main, argv[:1] + ["-GMDevice=cpu"] + argv[1:])
+    assert results(got) == results(want)
+    assert any(ln.startswith(must_have) for ln in got)
+
+
+def test_conduct_reads_membership_from_ebin(tmp_path, capsys):
+    raw = jbio.load_binary(FIXTURE)
+    member = np.random.default_rng(5).integers(0, 3, raw.num_nodes) \
+        .astype(np.int32)
+    path = str(tmp_path / "member.ebin")
+    jbio.store_binary(path, raw.begin, raw.node_idx, node_props=[member])
+    argv = ["conduct", "-GMInputFormat=EBIN", "-num=2", path]
+    want = run(capsys, japps.main, argv)
+    got = run(capsys, apps.main, argv[:1] + ["-GMDevice=cpu"] + argv[1:])
+    assert results(got) == results(want)
+    assert not any(ln == "conduct returns: 0.000000000" for ln in got)
 
 
 def test_port_runs_without_jax():

@@ -664,3 +664,166 @@ def test_new_kernels_count_and_check(dev):
     assert (counts["segmented_scan"], counts["take_along_blocks"],
             counts["row_gather_checksum"]) == (1, 1, 1)
     assert K.launch_counts() == counts
+
+
+# -- triangle counting and the analytics models: the card equals the CPU -----
+
+def _rmat_graph(n, m, seed, undirected=False):
+    from green_marl_tpu_torch.graph import csr, generate
+    src, dst = generate.rmat_edges(n, m, seed=seed)
+    if undirected:
+        src, dst = csr.to_undirected(src, dst)
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+    return csr.from_edges(src, dst, n)[0]
+
+
+def test_triangle_paths_on_the_card(dev, monkeypatch):
+    from green_marl_tpu_torch.models import triangle as T
+    g = _rmat_graph(3000, 40_000, 51, undirected=True)
+    want = T.triangle_count(g)                      # CPU, bitmap route
+    assert want == T.count_search(T.build_dag(g)) > 0
+    gd = g.to(dev)
+    ctx = T.build_dag(gd)
+    assert ctx.dag_dst.is_cuda and ctx.pair_cum.dtype == torch.int64
+    assert T.triangle_count(gd) == want             # bitmap route
+    assert T.count_search(ctx) == want
+    assert T.count_search(ctx, chunk=5000) == want
+    assert T.count_sortmerge(ctx) == want
+    monkeypatch.setattr(T, "_SM_DISPATCH_W", 1 << 15)
+    T._PREP_CACHE.clear()
+    assert T.count_sortmerge(ctx, chunk=1 << 10) == want
+    assert T.triangle_count_literal(gd) == want
+    monkeypatch.setattr(T, "_BITMAP_MAX_N", 1)
+    T._PREP_CACHE.clear()
+    assert T.triangle_count_literal(gd, chunk=70_000) == want
+    T._PREP_CACHE.clear()
+
+
+def test_triangle_literal_directed_on_the_card(dev, monkeypatch):
+    from green_marl_tpu_torch.models import analytics as A
+    from green_marl_tpu_torch.models import triangle as T
+    g = _rmat_graph(2000, 30_000, 52)
+    want = T.triangle_count_literal(g)
+    gd = g.to(dev)
+    assert T.triangle_count_literal(gd) == want > 0
+    monkeypatch.setattr(T, "_BITMAP_MAX_N", 1)
+    T._PREP_CACHE.clear()
+    assert T.triangle_count_literal(gd) == want
+    assert A.triangle_directed_count(gd) == A.triangle_directed_count(g) > 0
+    T._PREP_CACHE.clear()
+
+
+def test_weak_cc_and_communities_on_the_card(dev):
+    from green_marl_tpu_torch.models import cc, communities
+    g = _rmat_graph(20_000, 60_000, 53)
+    gd = g.to(dev)
+    K.reset_launch_counts()
+    want, got = cc.weak_cc(g), cc.weak_cc(gd)
+    assert got.iterations == want.iterations > 1
+    assert torch.equal(got.comp.cpu(), want.comp)
+    # two min reductions a superstep, each one launch of the kernel
+    assert K.launch_counts()["segment_reduce_sorted"] == 2 * got.iterations
+    K.reset_launch_counts()
+    want, got = communities.communities(g), communities.communities(gd)
+    assert got.iterations == want.iterations > 1
+    assert torch.equal(got.comm.cpu(), want.comm)
+    assert K.launch_counts()["segment_reduce_sorted"] == 2 * got.iterations
+
+
+def test_communities_int64_route_on_the_card(dev, monkeypatch):
+    from green_marl_tpu_torch.models import communities
+    g = _rmat_graph(5000, 30_000, 54)
+    want = communities.communities(g)
+    monkeypatch.setattr(communities, "_ENC_LIMIT", 1)
+    K.reset_launch_counts()
+    got = communities.communities(g.to(dev))
+    assert got.iterations == want.iterations
+    assert torch.equal(got.comm.cpu(), want.comm)
+    # int64 best-count reduction: plain version; int32 own-count: kernel
+    assert K.launch_counts()["segment_reduce_sorted"] == got.iterations
+
+
+def test_small_models_on_the_card(dev):
+    from green_marl_tpu_torch.models import analytics as A
+    from green_marl_tpu_torch.models import conductance, v_cover
+    from green_marl_tpu_torch.utils.gm_rand import conduct_membership
+    g = _rmat_graph(1000, 4000, 55)
+    gd = g.to(dev)
+    want, got = v_cover.v_cover(g), v_cover.v_cover(gd)
+    assert got.iterations == want.iterations > 10
+    assert int(got.count) == int(want.count)
+    assert torch.equal(got.select.cpu(), want.select)
+    member = torch.zeros(g.n_pad, dtype=torch.int32)
+    member[: g.num_nodes] = torch.from_numpy(conduct_membership(g.num_nodes))
+    for num in range(4):
+        assert float(conductance.conductance(gd, member.to(dev), num)) == \
+            float(conductance.conductance(g, member, num)) > 0
+    age = torch.from_numpy(np.random.default_rng(56).integers(
+        0, 60, g.n_pad).astype(np.int32))
+    K.reset_launch_counts()
+    avg_d, cnt_d = A.avg_teen_cnt(gd, age.to(dev), 30)
+    assert K.launch_counts()["plain_cumsum"] == 1
+    avg_c, cnt_c = A.avg_teen_cnt(g, age, 30)
+    assert torch.equal(cnt_d.cpu(), cnt_c)
+    assert float(avg_d) == pytest.approx(float(avg_c), rel=1e-6)
+    assert torch.equal(A.potential_friends(gd).cpu(), A.potential_friends(g))
+    np.testing.assert_allclose(A.adamic_adar_edges(gd),
+                               A.adamic_adar_edges(g), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64, torch.int16,
+                                   torch.uint8, torch.bool])
+def test_segment_ops_route_by_dtype_on_the_card(dev, dtype):
+    """Types the kernels lack take the plain versions on the card too."""
+    from green_marl_tpu_torch.ops import segment
+    g = _rmat_graph(5000, 40_000, 57)
+    gd = g.to(dev)
+    rng = np.random.default_rng(58)
+    if dtype == torch.bool:
+        vals = torch.from_numpy(rng.random(g.n_pad) < 0.3)
+    elif dtype.is_floating_point:
+        vals = torch.from_numpy(rng.random(g.n_pad))
+    else:
+        vals = torch.from_numpy(rng.integers(0, 100, g.n_pad)).to(dtype)
+    K.reset_launch_counts()
+    for f in (segment.in_nbr_sum, segment.in_nbr_max, segment.out_nbr_min):
+        if dtype == torch.bool and f is segment.in_nbr_sum:
+            continue
+        got, want = f(gd, vals.to(dev)), f(g, vals)
+        assert got.dtype == dtype and got.is_cuda
+        if dtype.is_floating_point:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(got.cpu(), want)
+    assert sum(K.launch_counts().values()) == 0
+
+
+def test_float64_pagerank_on_the_card(dev):
+    from green_marl_tpu_torch.models.pagerank import pagerank
+    g = _rmat_graph(5000, 40_000, 59)
+    want = pagerank(g, dtype=torch.float64)
+    got = pagerank(g.to(dev), dtype=torch.float64)
+    assert got.iterations == want.iterations
+    torch.testing.assert_close(got.rank.cpu(), want.rank, rtol=1e-9, atol=0)
+
+
+def test_segment_or_and_has_edge_to_on_the_card(dev):
+    from green_marl_tpu_torch.ops import segment
+    g = _rmat_graph(5000, 40_000, 60)
+    gd = g.to(dev)
+    rng = np.random.default_rng(61)
+    src = torch.from_numpy(rng.integers(0, 5000, 100_000).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, 5000, 100_000).astype(np.int32))
+    src[:30_000] = g.node_idx_src[:30_000]
+    dst[:30_000] = g.node_idx[:30_000]
+    want = segment.has_edge_to(g, src, dst)
+    assert torch.equal(segment.has_edge_to(gd, src.to(dev),
+                                           dst.to(dev)).cpu(), want)
+    assert want[:30_000].all() and not want.all()
+    words = torch.from_numpy(rng.integers(0, 1 << 30, (g.e_pad, 2))
+                             .astype(np.int32))
+    ids = g.node_idx_src
+    assert torch.equal(
+        segment.sorted_segment_or(words.to(dev), ids.to(dev), g.n_pad).cpu(),
+        segment.sorted_segment_or(words, ids, g.n_pad))

@@ -11,9 +11,12 @@ import pytest
 
 from green_marl_tpu.graph import binary_io as jbio
 from green_marl_tpu.graph import generate as jgen
+from green_marl_tpu.graph import native as jnative
 from green_marl_tpu.graph.csr import from_edges as jfrom_edges
+from green_marl_tpu.graph.csr import to_undirected as jto_undirected
 from green_marl_tpu_torch.graph import binary_io as tbio
 from green_marl_tpu_torch.graph import csr as tcsr
+from green_marl_tpu_torch.graph import generate as tgen
 from green_marl_tpu_torch.graph import native as tnative
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "data", "parity",
@@ -136,3 +139,49 @@ def test_native_library_matches_jax_binding():
         np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tnative.xorshift_lengths(1000),
                                   jnative.xorshift_lengths(1000))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_generate_matches_jax(seed):
+    """graph/generate.py is a copy: equal arrays for equal seeds."""
+    for name, args in (("uniform_random_edges", (300, 2000)),
+                       ("uniform_random_nonmulti_edges", (100, 900)),
+                       ("rmat_edges", (500, 4000))):
+        want = getattr(jgen, name)(*args, seed=seed)
+        got = getattr(tgen, name)(*args, seed=seed)
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == w_.dtype
+            np.testing.assert_array_equal(g_, w_)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_to_undirected_matches_jax(dedup):
+    src, dst = tgen.rmat_edges(200, 1500, seed=12)
+    got = tcsr.to_undirected(src, dst, dedup=dedup)
+    for g_, w_ in zip(got, jto_undirected(src, dst, dedup=dedup)):
+        assert g_.dtype == w_.dtype
+        np.testing.assert_array_equal(g_, w_)
+    assert got[0].size == 3000 if not dedup else got[0].size < 3000
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+def test_native_dag_bindings_match_jax(seed):
+    """gm_build_dag and gm_desc_layout through both packages' bindings."""
+    src, dst = tcsr.to_undirected(*tgen.rmat_edges(500, 5000, seed=seed),
+                                  dedup=False)
+    g, _ = tcsr.from_edges(src, dst, 500)
+    begin = g.begin.numpy()
+    node_idx = g.node_idx.numpy()[: g.num_edges]
+    t_begin, t_dst = tnative.build_dag(begin, node_idx, 500)
+    j_begin, j_dst = jnative.build_dag(begin, node_idx, 500)
+    np.testing.assert_array_equal(t_begin, j_begin)
+    np.testing.assert_array_equal(t_dst, j_dst)
+    assert t_dst.dtype == np.int32 and 0 < t_dst.size < g.num_edges // 2
+    # rows ascend strictly: sorted and deduplicated
+    for r in range(500):
+        row = t_dst[t_begin[r]:t_begin[r + 1]]
+        assert (np.diff(row) > 0).all() and (row > r).all()
+    got = tnative.desc_layout(t_begin, t_dst, 500, t_dst.size)
+    want = jnative.desc_layout(j_begin, j_dst, 500, j_dst.size)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_, w_)

@@ -139,3 +139,108 @@ def test_loops_count_like_jax():
     state, stats = converge_loop(step, lambda s: torch.tensor(True), 0,
                                  max_iter=4)
     assert (state, stats.iterations) == (4, 4)
+
+
+# -- every dtype the JAX package takes ---------------------------------------
+
+def enable_x64():
+    """JAX's 64-bit context, under its newer or its older name."""
+    import jax
+    if hasattr(jax, "enable_x64"):
+        return jax.enable_x64(True)
+    from jax.experimental import enable_x64 as ctx
+    return ctx()
+
+
+def _parity10k():
+    import os
+
+    from green_marl_tpu.graph import binary_io as jbio
+    path = os.path.join(os.path.dirname(__file__), "..", "data", "parity",
+                        "parity10k.bin")
+    jg, _ = jbio.load_binary(path).freeze()
+    tg = graph_from_arrays({f: np.asarray(getattr(jg, f))
+                            for f in ARRAY_FIELDS}, jg.num_nodes,
+                           jg.num_edges)
+    return jg, tg
+
+
+def test_pagerank_float64_matches_jax_x64():
+    """The reference's pagerank is in Double: float64 takes the plain
+    segment sum (the kernels have int32 and float32 only)."""
+    jg, tg = _parity10k()
+    tr = tpr.pagerank(tg, dtype=torch.float64)
+    assert tr.rank.dtype == torch.float64
+    with enable_x64():
+        jr = jpr.pagerank(jg, dtype=jnp.float64)
+        want = np.asarray(jr.rank)
+        assert want.dtype == np.float64
+        assert tr.iterations == int(jr.iterations)
+    np.testing.assert_allclose(tr.rank.numpy(), want, rtol=1e-9, atol=0)
+    # and it is not the float32 run in another coat
+    r32 = tpr.pagerank(tg).rank.double().numpy()
+    assert np.abs(r32 - want).max() > 1e-3 * np.abs(tr.rank.numpy()
+                                                     - want).max() > 0 \
+        or np.array_equal(tr.rank.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype,op", [
+    (np.int64, "sum"), (np.int64, "min"), (np.int64, "max"),
+    (np.float64, "sum"), (np.float64, "max"), (np.int16, "sum"),
+    (np.int16, "min"), (np.uint8, "max"), (np.bool_, "max"),
+    (np.bool_, "min")])
+def test_pull_reductions_take_every_dtype(graphs, dtype, op):
+    from green_marl_tpu.ops import segment as jseg
+    from green_marl_tpu_torch.ops import segment as tseg
+    jg, tg, _, _, _ = graphs
+    rng = np.random.default_rng(7)
+    if dtype == np.bool_:
+        vals = rng.random(jg.n_pad) < 0.3
+    elif dtype == np.float64:
+        vals = rng.random(jg.n_pad)
+    elif dtype == np.int64:
+        vals = rng.integers(1 << 40, 1 << 50, jg.n_pad)
+    else:
+        vals = rng.integers(0, 20, jg.n_pad).astype(dtype)
+    got = getattr(tseg, f"in_nbr_{op}")(tg, torch.from_numpy(vals))
+    with enable_x64():
+        want = np.asarray(getattr(jseg, f"in_nbr_{op}")(jg,
+                                                        jnp.asarray(vals)))
+    assert got.numpy().dtype == want.dtype == dtype
+    # rows with no in-edge hold the identity here and the JAX CPU path's
+    # fill there (both are the dtype's extreme for min/max)
+    if dtype == np.float64 and op == "sum":
+        np.testing.assert_allclose(got.numpy()[:N], want[:N], rtol=1e-12)
+    else:
+        np.testing.assert_array_equal(got.numpy()[:N], want[:N])
+    assert len(np.unique(want[:N])) > 1
+
+
+def test_bool_sum_is_refused_as_in_jax(graphs):
+    from green_marl_tpu.ops import segment as jseg
+    from green_marl_tpu_torch.ops import segment as tseg
+    jg, tg, _, _, _ = graphs
+    vals = np.zeros(jg.n_pad, bool)
+    with pytest.raises(TypeError):
+        jseg.in_nbr_sum(jg, jnp.asarray(vals))
+    with pytest.raises(TypeError):
+        tseg.in_nbr_sum(tg, torch.from_numpy(vals))
+
+
+def test_out_nbr_and_count_reductions_int64(graphs):
+    from green_marl_tpu.ops import scan_reduce as jscan
+    from green_marl_tpu.ops import segment as jseg
+    from green_marl_tpu_torch.ops import scan_reduce as tscan
+    from green_marl_tpu_torch.ops import segment as tseg
+    jg, tg, _, _, _ = graphs
+    vals = np.random.default_rng(8).integers(1 << 33, 1 << 40, jg.n_pad)
+    with enable_x64():
+        jv = jnp.asarray(vals)
+        want = [np.asarray(f(jg, jv)) for f in (
+            jseg.out_nbr_sum, jseg.out_nbr_min, jscan.in_nbr_sum_int)]
+    tv = torch.from_numpy(vals)
+    got = [f(tg, tv) for f in (tseg.out_nbr_sum, tseg.out_nbr_min,
+                               tscan.in_nbr_sum_int)]
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.int64 and w_.dtype == np.int64
+        np.testing.assert_array_equal(g_.numpy()[:N], w_[:N])
