@@ -46,7 +46,18 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    graph: weak_cc (its labels' invariants, two segment-reduce launches a
    superstep), conductance of the four cuts of ``conduct_membership``
    against numpy, avg_teen_cnt (through the prefix-sum kernel) against
-   numpy.  Then that graph made undirected with every slot kept (138M
+   numpy.  The component and path models on the same graph: scc (its
+   labels' invariants; the four largest components equal forward-reached
+   and reverse-reached from their representatives), bc from each of phase
+   4's roots (BC >= 0, sum of BC == sum of hop distances within rtol 1e-5),
+   sssp_path (dist and supersteps equal sssp's, each predecessor edge
+   tight and its source the smallest that is) and delta_stepping (delta=8,
+   dist equal sssp's), each with its CUDA-event time and segment-reduce
+   launches; their nine apps through the CLI on parity10k (bc_adj and
+   sssp_path_adj from an adjacency list written to a temporary directory)
+   against the JAX CLI's goldens; dijkstra_host_exact on parity10k against
+   sssp, scc_np, bc_np and get_path on a 3,000-node RMAT.  Then that graph
+   made undirected with every slot kept (138M
    slots; the CSR is merged on the card, and that merge is held against
    ``to_undirected(dedup=False)`` + ``native.build_csr`` at the 1/16 size):
    the host DAG build in seconds, and ``count_dag`` (the sort-merge join,
@@ -70,8 +81,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
-kernel of the port: the engine's edge map is plain PyTorch), phase 7 (this
-slice's path) and phase 8.
+kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
+the component and path models counted on their own too) and phase 8.
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
@@ -101,6 +112,22 @@ GOLD_SSSP_DIST = [0, 141, 114, 170]
 GOLD_RANK = [0.000078454, 0.000063880, 0.000108653, 0.000057279]
 GOLD_TRIANGLES = 93     # JAX CLI on the CPU; the reference's count too
 RANK_RTOL = 1e-4        # device tolerance of scripts/parity.py:85
+# the JAX CLI on the CPU (bc_adj and sssp_path_adj on parity10k written as
+# an adjacency list): BC[0..3] within rtol 1e-4, else lines printed as they are
+GOLD_PATH_APPS = {
+    "kosaraju": ["num_membership = 5", "CRC16 mem 0x548e"],
+    "tarjan_scc": ["num_membership = 5", "CRC16 mem 0x548e"],
+    "bc": [9997.305664062, 9996.0, 9998.295898438, 9998.009765625],
+    "bc_random": [1.059930205, 0.111111112, 0.184523821, 1.811904788],
+    "bc_adj": [9997.305664062, 9996.0, 9998.295898438, 9998.009765625],
+    "sssp_path": ["shortest path from 0 to 1",
+                  "0 -> 6375 -> 3953 -> 3521 -> 8551 -> 1"],
+    "sssp_path_adj": ["0 -> 1", "    Costs are 141.000000",
+                      "    Number of links is 5"],
+    "sssp_dijkstra": ["weight  141 ,hops  -1, path=FOUND"],
+    "bidir_dijkstra": ["weight  141 ,hops   6, time    0.00 path="
+                       "v0=>v6375=>v3953=>v3521=>v8551=>v1=>"],
+}
 
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
 MULTI_B, PLANE_BITS = 4096, 32     # bench.py:53-54, the headline
@@ -350,6 +377,199 @@ def models_phase(torch, K, dev, g, g_host, g16):
     log(f"  undirected CSR of the full-size graph merged on the card and "
         f"read back in {time.time() - t0:.1f} s ({u_dst.shape[0]} slots)")
     return u_begin, u_dst
+
+
+def paths_phase(torch, K, dev, apps, g, w, roots, bfs_res):
+    """Phase 7, the component and path models: scc, bc, sssp_path and
+    delta_stepping on the full-size graph, each against what it must equal;
+    the nine apps through the CLI on parity10k against the JAX CLI's
+    goldens; the host oracles on a 3,000-node RMAT."""
+    import tempfile
+
+    from green_marl_tpu_torch.graph import binary_io, generate
+    from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.models import bc, bfs, delta_stepping, scc
+    from green_marl_tpu_torch.models import sssp as sssp_mod
+    from green_marl_tpu_torch.models import sssp_path
+    from green_marl_tpu_torch.models.relax import INT32_MAX
+    from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
+
+    n, e = g.num_nodes, g.num_edges
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        """(result, CUDA-event ms, segment-reduce launches) of one call."""
+        before = K.launch_counts()["segment_reduce_sorted"]
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        ev1.synchronize()
+        return (out, ev0.elapsed_time(ev1),
+                K.launch_counts()["segment_reduce_sorted"] - before)
+
+    # scc at the full size; the four largest components against forward and
+    # reverse BFS from their representatives
+    res, ms, launches = timed(lambda: scc.scc(g))
+    comp = res.comp[:n]
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    sizes = torch.bincount(comp.long(), minlength=n)
+    top = sizes.topk(4)
+    check(bool((comp >= 0).all()) and bool((comp <= ids).all())
+          and torch.equal(comp[comp.long()], comp),
+          f"scc at the full size: comp[v] <= v, comp[comp[v]] == comp[v]; "
+          f"{res.rounds} rounds, {int((comp == ids).sum())} components, the "
+          f"largest {int(top.values[0])} nodes; {ms:.1f} ms (CUDA events), "
+          f"{launches} segment-reduce launches")
+    for r, size in zip(top.indices.tolist(), top.values.tolist()):
+        fwd = bfs.bfs(g, r).level[:n] >= 0
+        rev = bfs.bfs(g, r, reverse=True).level[:n] >= 0
+        check(torch.equal(comp == r, fwd & rev),
+              f"scc component of {r} ({size} nodes) == forward-reached "
+              f"and reverse-reached from {r}")
+    del comp, ids, sizes, fwd, rev, res
+
+    # bc seeded at each of phase 4's roots: sum_v BC(v) == sum_t dist(s, t)
+    for r in roots:
+        res, ms, launches = timed(lambda: bc.bc(g, [r]))
+        vals = res.bc[:n]
+        level = bfs_res[r].level[:n]
+        total = float(vals.double().sum())
+        hops = float(level[level > 0].double().sum())
+        check(bool((vals >= 0).all()) and bool(torch.isfinite(vals).all())
+              and abs(total - hops) <= 1e-5 * hops,
+              f"bc seed {r}: BC >= 0, sum BC {total:.6e} == sum of hop "
+              f"distances {hops:.6e} within rtol 1e-5 ({abs(total - hops) / hops:.2e}); "
+              f"{bfs_res[r].levels_run} levels, {ms:.1f} ms, {launches} "
+              f"segment-reduce launches")
+    del res, vals, level
+
+    # sssp_path and delta_stepping from the same roots, against sssp
+    src64 = g.node_idx_src[:e].long()
+    dst64 = g.node_idx[:e].long()
+    w64 = w[:e].long()
+    for r in roots:
+        sp, sp_ms, sp_l = timed(lambda: sssp_mod.sssp(g, r, w))
+        res, ms, launches = timed(lambda: sssp_path.sssp_path(g, r, w))
+        check(torch.equal(res.dist, sp.dist)
+              and res.iterations == sp.iterations,
+              f"sssp_path root {r}: dist == sssp's bit for bit, "
+              f"{res.iterations} supersteps each; sssp_path {ms:.1f} ms "
+              f"({launches} segment-reduce launches), sssp {sp_ms:.1f} ms "
+              f"({sp_l})")
+        dist = res.dist[:n].long()
+        prev = res.prev[:n].long()
+        pe = res.prev_edge[:n].long()
+        reached = (dist < INT32_MAX) & (torch.arange(n, device=dev) != r)
+        v = reached.nonzero().squeeze(1)
+        pv, pev = prev[v], pe[v]
+        # a superstep keeps, among the sources that lower dist[x] to its
+        # final value, the smallest, and the smallest slot of that source's
+        # edges; those sources settled one superstep before x, so x's
+        # superstep is its depth in the prev tree
+        depth = torch.zeros(n, dtype=torch.long, device=dev)
+        for _ in range(res.iterations):
+            depth = torch.where(reached, depth[prev.clamp(min=0)] + 1, 0)
+        du, dv = dist[src64], dist[dst64]
+        tight = ((du < INT32_MAX) & (dv < INT32_MAX) & (du + w64 == dv)
+                 & (dst64 != r))
+        first = tight & (depth[src64] + 1 == depth[dst64])
+        least = torch.full((n,), n, dtype=torch.long, device=dev)
+        least.scatter_reduce_(0, dst64[first], src64[first], "amin")
+        first &= src64 == prev[dst64]
+        least_slot = torch.full((n,), e, dtype=torch.long, device=dev)
+        least_slot.scatter_reduce_(0, dst64[first], first.nonzero()
+                                   .squeeze(1), "amin")
+        check(bool((pv >= 0).all()) and torch.equal(src64[pev], pv)
+              and torch.equal(dst64[pev], v)
+              and torch.equal(dist[pv] + w64[pev], dist[v]),
+              f"sssp_path root {r}: for all {v.numel()} reached v != root, "
+              f"node_idx_src[prev_edge[v]] == prev[v] and dist[prev[v]] + "
+              f"len[prev_edge[v]] == dist[v]")
+        check(bool((depth[src64[tight]] + 1 >= depth[dst64[tight]]).all())
+              and torch.equal(least[v], pv)
+              and torch.equal(least_slot[v], pev),
+              f"sssp_path root {r}: prev[v] is the smallest source of the "
+              f"tight edges into v from the superstep that settled v, and "
+              f"prev_edge[v] that source's smallest such slot ("
+              f"{int((tight & (depth[src64] + 1 > depth[dst64])).sum())} "
+              f"tight edges settle later; prev tree depth "
+              f"{int(depth.max())})")
+        del dist, prev, pe, reached, v, pv, pev, du, dv, tight, first
+        del depth, least, least_slot
+        ds, ms, launches = timed(
+            lambda: delta_stepping.delta_stepping(g, r, w, delta=8))
+        check(torch.equal(ds.dist, sp.dist),
+              f"delta_stepping delta=8 root {r}: dist == sssp's; "
+              f"{ds.buckets_processed} buckets, {ds.inner_steps} inner "
+              f"steps, {ms:.1f} ms, {launches} segment-reduce launches")
+        del sp, res, ds
+    del src64, dst64, w64
+
+    # the nine apps through the CLI on parity10k, against the JAX CLI
+    raw = binary_io.load_binary(FIXTURE)
+    with tempfile.TemporaryDirectory() as tmp:
+        adj = os.path.join(tmp, "parity10k.adj")
+        with open(adj, "w") as f:
+            for u in range(raw.begin.shape[0] - 1):
+                f.write(" ".join(map(str, [u, *raw.node_idx[
+                    raw.begin[u]:raw.begin[u + 1]]])) + "\n")
+        for app, gold in GOLD_PATH_APPS.items():
+            t0 = time.time()
+            before = K.launch_counts()
+            out = run_cli(apps, [app, "-GMDevice=cuda",
+                                 adj if app.endswith("_adj") else FIXTURE])
+            launched = launched_since(K, before)
+            lines = [ln for ln in out.splitlines() if "time=" not in ln]
+            if app.startswith("bc"):
+                got = [float(field(out, rf"^BC\[{i}\] = (\S+)"))
+                       for i in range(4)]
+                ok = np.allclose(got, gold, rtol=1e-4, atol=0.0)
+            else:
+                ok = all(ln in lines for ln in gold)
+            check(ok, f"{app} on parity10k through the CLI == the JAX CLI's "
+                  f"{gold} ({time.time() - t0:.1f} s; launches {launched})")
+
+    # the host oracles on small graphs
+    g10 = raw.freeze()[0].to(dev)
+    wf = np.zeros(g10.e_pad, np.int32)
+    wf[:g10.num_edges] = sssp_edge_lengths(g10.num_edges)
+    wf = torch.from_numpy(wf).to(dev)
+    d10 = sssp_mod.sssp(g10, 0, wf).dist.cpu().numpy()
+    t0 = time.time()
+    for dest in (1, 77, 9999):
+        found, _, _, dd = sssp_mod.dijkstra_host_exact(g10, wf, 0, dest)
+        check(found and dd == int(d10[dest]),
+              f"dijkstra_host_exact on parity10k 0 -> {dest}: {dd} == sssp's "
+              f"distance ({time.time() - t0:.1f} s)")
+    gs_h = from_edges(*generate.rmat_edges(3000, 24_000, seed=75), 3000)[0]
+    gs = gs_h.to(dev)
+    b_h, ni_h = gs_h.begin.numpy(), gs_h.node_idx[:gs_h.num_edges].numpy()
+    got = scc.scc(gs).comp[:3000].cpu().numpy()
+    want = scc.scc_np(b_h, ni_h)
+    check(np.array_equal(got, want), f"scc N=3000 == scc_np (Tarjan; "
+          f"{len(np.unique(want))} components)")
+    seeds = [int(s) for s in np.argsort(np.diff(b_h))[::-1][:4]]
+    got = bc.bc(gs, seeds).bc[:3000].cpu().numpy()
+    want = bc.bc_np(b_h, ni_h, seeds)
+    check(np.allclose(got, want, rtol=1e-4, atol=1e-3) and want.max() > 0,
+          f"bc N=3000 seeds {seeds} within rtol 1e-4 of bc_np (float64; max "
+          f"abs err {np.abs(got - want).max():.3g})")
+    ws = torch.from_numpy(np.random.default_rng(75).integers(
+        1, 100, gs.e_pad).astype(np.int32)).to(dev)
+    res = sssp_path.sssp_path(gs, seeds[0], ws)
+    dist, prev = res.dist.cpu().numpy(), res.prev.cpu().numpy()
+    pe, w_h = res.prev_edge.cpu().numpy(), ws.cpu().numpy()
+    reached = np.flatnonzero(dist[:3000] < INT32_MAX)
+    good = True
+    for v in reached:
+        path = sssp_path.get_path(prev, seeds[0], int(v))
+        good &= (path[0] == seeds[0] and path[-1] == v and int(
+            sum(w_h[pe[x]] for x in path[1:])) == dist[v])
+    check(good and reached.size > 1,
+          f"get_path N=3000 from {seeds[0]}: each of {reached.size} paths "
+          f"starts at the root, ends at its target and costs dist[target]")
 
 
 def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
@@ -1141,12 +1361,26 @@ def main():
     torch.cuda.empty_cache()
     K.reset_launch_counts()
     u_begin, u_dst = models_phase(torch, K, dev, g, g_host, g16)
-    del g, g_host, g16
+    counts_models = K.launch_counts()
+    log("  -- the component and path models (scc, bc, sssp_path, "
+        "delta_stepping, the host Dijkstra) and their nine apps")
+    t0 = time.time()
+    K.reset_launch_counts()
+    paths_phase(torch, K, dev, apps, g, w, roots, bfs_res)
+    counts_paths = K.launch_counts()
+    log(f"  component and path models {time.time() - t0:.1f} s; launches "
+        f"{counts_paths}")
+    for name in ("segment_reduce_sorted", "plain_cumsum"):
+        check(counts_paths[name] > 0, f"{name} launched by the component "
+              f"and path models ({counts_paths[name]} times)")
+    del g, g_host, g16, w, bfs_res
     torch.cuda.empty_cache()
+    K.reset_launch_counts()
     triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
                    src16, dst16)
     del u_begin, u_dst, src16, dst16
-    counts_models = K.launch_counts()
+    counts_models = {name: counts_models[name] + counts_paths[name] + n
+                     for name, n in K.launch_counts().items()}
     log(f"  phase 7 launches {counts_models}")
     for name in ("segment_reduce_sorted", "plain_cumsum"):
         check(counts_models[name] > 0, f"{name} launched by this phase "

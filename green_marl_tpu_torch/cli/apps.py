@@ -8,7 +8,10 @@ multi_bfs (the batched bit-plane BFS; one ``batched bfs:`` line),
 triangle_counting (``number of triangles: %d``), conduct and conduct_main
 (``sum C = %lf`` over the four cuts of the xorshift membership), weak_cc,
 avg_teen_cnt (``avg = %0.9f``; the main sets age=10, K=5), v_cover,
-communities (the table of community sizes) and potential_friends.
+communities (the table of community sizes), potential_friends, kosaraju and
+tarjan_scc (``num_membership = %d``), bc, bc_random and bc_adj (``BC[0..3]``),
+sssp_path and sssp_path_adj (the path), sssp_dijkstra and bidir_dijkstra
+(the ``weight`` line).  bc_adj and sssp_path_adj read ADJ input by default.
 """
 
 from __future__ import annotations
@@ -60,6 +63,25 @@ def make_hop_dist() -> UserMain:
     return m
 
 
+def _device_weights(ctx: RunContext, name: str) -> torch.Tensor:
+    """[E_pad] int32 edge weights ``name`` on the graph's device.
+
+    Without the property in the file, the reference mains draw lengths
+    from their xorshift RNG over CSR slots (sssp_main.cc:31-33).  Host
+    lengths and device weights stay on ``ctx``, so that -GMMeasureTime's
+    warm-up run pays for drawing and uploading them, as the reference's
+    prepare() does outside its timed run."""
+    if name not in ctx.device_props:
+        g = ctx.graph
+        if name not in ctx.edge_props:
+            from ..utils.gm_rand import sssp_edge_lengths
+            ctx.edge_props[name] = sssp_edge_lengths(g.num_edges)
+        w = np.zeros(g.e_pad, np.int32)
+        w[: g.num_edges] = ctx.edge_props[name]
+        ctx.device_props[name] = torch.from_numpy(w).to(g.device)
+    return ctx.device_props[name]
+
+
 def make_sssp() -> UserMain:
     m = UserMain("sssp", "Bellman-Ford SSSP (sssp.gm)")
     m.declare_scalar("root", bio.GMTYPE_NODE, True, False, default=0)
@@ -69,20 +91,7 @@ def make_sssp() -> UserMain:
 
     def run(ctx: RunContext) -> Dict:
         from ..models.sssp import sssp
-        g = ctx.graph
-        if "len" not in ctx.device_props:
-            if "len" not in ctx.edge_props:
-                # the reference main draws lengths from its xorshift RNG
-                # over CSR slots (sssp_main.cc:31-33)
-                from ..utils.gm_rand import sssp_edge_lengths
-                ctx.edge_props["len"] = sssp_edge_lengths(g.num_edges)
-            # host lengths and device weights stay on ctx, so that
-            # -GMMeasureTime's warm-up run pays for drawing and uploading
-            # them, as the reference's prepare() does outside its timed run
-            w = np.zeros(g.e_pad, np.int32)
-            w[: g.num_edges] = ctx.edge_props["len"]
-            ctx.device_props["len"] = torch.from_numpy(w).to(g.device)
-        res = sssp(g, _root(ctx), ctx.device_props["len"])
+        res = sssp(ctx.graph, _root(ctx), _device_weights(ctx, "len"))
         return {"dist": res.dist.cpu().numpy()}
 
     m.set_run(run)
@@ -280,6 +289,187 @@ def make_potential_friends() -> UserMain:
     return m
 
 
+def make_bc(name: str = "bc") -> UserMain:
+    """bc (seeds 0..k-1), bc_random (xorshift seeds) and bc_adj (seeds
+    0..k-1, ADJ input by default): one model, three mains."""
+    m = UserMain(name, "Betweenness centrality, estimated over seeds "
+                 f"({name}_main.cc)")
+    m.declare_scalar("num_seeds", bio.GMTYPE_INT, True, False, default=4)
+    m.declare_property("BC", bio.GMTYPE_FLOAT, False, True, GM_NODEPROP,
+                       dump_count=4)   # the mains print BC[0..3]
+    if name == "bc_adj":
+        m.O.add_option("GMInputFormat", str, "ADJ",
+                       "input format (default ADJ for this main)")
+
+    def run(ctx: RunContext) -> Dict:
+        from ..models.bc import bc
+        n = ctx.graph.num_nodes
+        k = int(ctx.scalars["num_seeds"])
+        if name == "bc_random":
+            # the JAX CLI's expression: int64 % uint64 is float64 in numpy
+            from ..utils.gm_rand import GmRand32
+            seeds = (GmRand32().sequence(k) % np.uint64(n)).astype(np.int32)
+        else:
+            seeds = np.arange(k) % n
+        return {"BC": bc(ctx.graph, seeds).bc.cpu().numpy()}
+
+    m.set_run(run)
+    return m
+
+
+def make_sssp_path(name: str = "sssp_path") -> UserMain:
+    """sssp_path (``shortest path from b to e`` and the path) and
+    sssp_path_adj (ADJ input by default; cost and link count)."""
+    m = UserMain(name, "SSSP with path reconstruction "
+                 f"({name}_main.cc)")
+    m.declare_scalar("begin", bio.GMTYPE_NODE, True, False, default=0)
+    m.declare_scalar("end", bio.GMTYPE_NODE, True, False, default=1)
+    m.declare_property("len", bio.GMTYPE_INT, True, False, GM_EDGEPROP)
+    if name == "sssp_path_adj":
+        m.O.add_option("GMInputFormat", str, "ADJ",
+                       "input format (default ADJ for this main)")
+
+    def run(ctx: RunContext) -> Dict:
+        from ..models.sssp_path import get_path, sssp_path
+        b = int(ctx.scalars["begin"])
+        e = int(ctx.scalars["end"])
+        res = sssp_path(ctx.graph, b, _device_weights(ctx, "len"))
+        path = get_path(res.prev.cpu().numpy(), b, e)
+        if name == "sssp_path":
+            print(f"shortest path from {b} to {e}")
+            print(" -> ".join(str(v) for v in path) if path else "NO_PATH")
+        elif not path:
+            print("PATH NOT FOUND")
+        else:
+            print(f"{b} -> {e}")
+            print(f"    Costs are {float(res.dist[e]):f}")
+            print(f"    Number of links is {max(len(path) - 1, 0)}")
+        return {}
+
+    m.set_run(run)
+    return m
+
+
+def make_scc(name: str = "kosaraju") -> UserMain:
+    """kosaraju and tarjan_scc: both run the forward-backward ``scc``.
+    The JAX CLI runs tarjan_scc.gm literally when the reference's source
+    is present; that route waits for the port of the .gm executor."""
+    m = UserMain(name, "Strongly connected components "
+                 "(kosaraju_main.cc protocol)")
+    m.declare_property("mem", bio.GMTYPE_NODE, False, True, GM_NODEPROP)
+
+    def run(ctx: RunContext) -> Dict:
+        from ..models.scc import scc
+        comp = scc(ctx.graph).comp.cpu().numpy()
+        mem = comp[: ctx.graph.num_nodes]
+        print(f"num_membership = {len(np.unique(mem))}")
+        return {"mem": comp}
+
+    m.set_run(run)
+    return m
+
+
+def make_sssp_dijkstra() -> UserMain:
+    m = UserMain("sssp_dijkstra", "Dijkstra-class SSSP (delta-stepping "
+                 "reformulation; sssp_dijkstra_main.cc)")
+    m.declare_scalar("src", bio.GMTYPE_NODE, True, False, default=0)
+    m.declare_scalar("dst", bio.GMTYPE_NODE, True, False, default=1)
+    m.declare_property("len", bio.GMTYPE_INT, True, False, GM_EDGEPROP)
+
+    def run(ctx: RunContext) -> Dict:
+        from ..models.delta_stepping import delta_stepping
+        res = delta_stepping(ctx.graph, int(ctx.scalars["src"]),
+                             _device_weights(ctx, "len"))
+        cost = int(res.dist[int(ctx.scalars["dst"])])
+        if cost >= np.iinfo(np.int32).max // 2:
+            print("weight   -1 ,hops  -1, path=NO_PATH_EXISTS")
+        else:
+            print(f"weight {cost:4d} ,hops  -1, path=FOUND")
+        return {}
+
+    m.set_run(run)
+    return m
+
+
+def make_bidir_dijkstra() -> UserMain:
+    """bidir_dijkstra_main.cc's ``weight .. path=`` line.  This is the JAX
+    CLI's route where the reference's bidir_dijkstra.gm is absent: forward
+    ``sssp_path`` from src and ``sssp_path`` from dst over the transposed
+    graph, met at the node of the smallest total, the two parent chains
+    stitched.  The literal .gm route waits for the port of the .gm
+    executor."""
+    m = UserMain("bidir_dijkstra", "Bidirectional Dijkstra "
+                 "(bidir_dijkstra_main.cc: 'weight .. path=' line)")
+    m.declare_scalar("src", bio.GMTYPE_NODE, True, False, default=0)
+    m.declare_scalar("dst", bio.GMTYPE_NODE, True, False, default=1)
+    m.declare_property("Weight", bio.GMTYPE_INT, True, False, GM_EDGEPROP)
+
+    def run(ctx: RunContext) -> Dict:
+        from ..graph.csr import from_edges
+        from ..models.sssp_path import sssp_path
+        g = ctx.graph
+        n, e = g.num_nodes, g.num_edges
+        w = _device_weights(ctx, "Weight")
+        if "__transpose" not in ctx.device_props:
+            gt, _ = from_edges(g.node_idx[:e].cpu().numpy(),
+                               g.node_idx_src[:e].cpu().numpy(), n)
+            # the transposed graph's CSR is g's CSC: weights through e_rev2idx
+            wr = torch.zeros(gt.e_pad, dtype=torch.int32, device=g.device)
+            wr[:e] = w.index_select(0, g.e_rev2idx[:e])
+            ctx.device_props["__transpose"] = (gt.to(g.device), wr)
+        gt, wr = ctx.device_props["__transpose"]
+        s = int(ctx.scalars["src"])
+        t = int(ctx.scalars["dst"])
+        rf = sssp_path(g, s, w)
+        rb = sssp_path(gt, t, wr)
+        big = np.int64(np.iinfo(np.int32).max)
+        df = rf.dist[:n].cpu().numpy().astype(np.int64)
+        db = rb.dist[:n].cpu().numpy().astype(np.int64)
+        tot = np.where((df < big) & (db < big), df + db, big)
+        mid = int(np.argmin(tot))
+        if tot[mid] >= big:
+            print("weight %4d ,hops %3d, time %7.2f path=%s"
+                  % (0, -1, 0.0, "NO_PATH_EXISTS"))
+            return {}
+        par = np.full(n, -1, np.int64)
+        pf = rf.prev[:n].cpu().numpy()
+        pb = rb.prev[:n].cpu().numpy()
+        cur = mid
+        while cur != s and pf[cur] >= 0:
+            par[cur] = pf[cur]
+            cur = int(pf[cur])
+        cur = mid
+        while cur != t and pb[cur] >= 0:
+            par[int(pb[cur])] = cur
+            cur = int(pb[cur])
+        # walk dst -> src through the parents, print src -> dst
+        path = [t]
+        seen = set()
+        cur = t
+        while cur != s and par[cur] >= 0 and cur not in seen:
+            seen.add(cur)
+            cur = int(par[cur])
+            path.append(cur)
+        path.reverse()
+        # each hop costs its lightest parallel edge (at most 2^30), 0 where
+        # the stitched chain has no edge
+        begin = g.begin.cpu().numpy()
+        node_idx = g.node_idx[:e].cpu().numpy()
+        w_h = ctx.edge_props["Weight"]
+        weight = 0
+        for a, b in zip(path[:-1], path[1:]):
+            row = slice(begin[a], begin[a + 1])
+            hit = w_h[row][node_idx[row] == b]
+            weight += min(1 << 30, int(hit.min())) if hit.size else 0
+        print("weight %4d ,hops %3d, time %7.2f path="
+              % (weight, len(path), 0.0)
+              + "".join(f"v{v}=>" for v in path))
+        return {}
+
+    m.set_run(run)
+    return m
+
+
 APPS = {
     "pagerank": make_pagerank,
     "hop_dist": make_hop_dist,
@@ -293,6 +483,15 @@ APPS = {
     "v_cover": make_v_cover,
     "communities": make_communities,
     "potential_friends": make_potential_friends,
+    "kosaraju": make_scc,
+    "tarjan_scc": lambda: make_scc("tarjan_scc"),
+    "bc": make_bc,
+    "bc_random": lambda: make_bc("bc_random"),
+    "bc_adj": lambda: make_bc("bc_adj"),
+    "sssp_path": make_sssp_path,
+    "sssp_path_adj": lambda: make_sssp_path("sssp_path_adj"),
+    "sssp_dijkstra": make_sssp_dijkstra,
+    "bidir_dijkstra": make_bidir_dijkstra,
 }
 
 

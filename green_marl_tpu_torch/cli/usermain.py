@@ -1,7 +1,8 @@
 """Default usermain: graph in, run the procedure, results out.
 
 Counterpart of ``green_marl_tpu/cli/usermain.py`` (the reference's
-``gm_default_usermain.cc``), for BIN and EBIN input.  It prints the stdout
+``gm_default_usermain.cc``), for BIN, EBIN, EDGE and ADJ input (AVRO and
+remote ``hdfs://`` / ``gs://`` paths are not ported).  It prints the stdout
 protocol the verification harness reads (``scripts/extract_result.py``):
 
 * ``graph loading time=<ms>`` and ``reverse edge creation time=<ms>``;
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 
 from ..graph import binary_io as bio
-from ..graph.csr import Graph
+from ..graph import edge_list as el
+from ..graph.csr import Graph, from_edges
 from ..utils.crc import array_checksum_hex, crc16_hex
 from .useropt import UserOpt
 
@@ -63,13 +65,15 @@ class Schema:
 @dataclass
 class RunContext:
     graph: Graph
+    csr_perm: np.ndarray                # input edge index of each CSR slot
     node_props: Dict[str, np.ndarray]
     edge_props: Dict[str, np.ndarray]   # CSR slot order
     scalars: Dict[str, Any]
-    # device tensors an app keeps between runs, by name, so that the warm-up
-    # run of -GMMeasureTime pays for their upload (the reference prepares
-    # its inputs in prepare(), outside the timed region)
-    device_props: Dict[str, torch.Tensor] = field(default_factory=dict)
+    nodekey: Optional[np.ndarray] = None    # dense id -> the file's key
+    # device tensors (and graphs) an app keeps between runs, by name, so
+    # that the warm-up run of -GMMeasureTime pays for their upload (the
+    # reference prepares its inputs in prepare(), outside the timed region)
+    device_props: Dict[str, Any] = field(default_factory=dict)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -101,7 +105,7 @@ class UserMain:
         self.O.add_option("GMMeasureTime", bool, "0", "Measure running time")
         self.O.add_option("GMDevice", str, "cuda",
                           "Torch device: cuda, cuda:<i> or cpu")
-        self.O.add_option("GMInputFormat", str, "BIN", "BIN|EBIN")
+        self.O.add_option("GMInputFormat", str, "BIN", "ADJ|EDGE|BIN|EBIN")
         self.O.add_option("GMNumThreads", int, None,
                           "Accepted for reference-CLI compatibility")
         self.O.add_option("GMDumpValues", int, "4",
@@ -157,21 +161,42 @@ class UserMain:
         if path is None:
             self.O.print_help()
             raise SystemExit(1)
-        if fmt not in ("BIN", "EBIN"):
+        if path.startswith(("hdfs://", "gs://")):
+            raise SystemExit(f"{path}: remote paths are not yet ported to "
+                             "green_marl_tpu_torch (local files are)")
+        in_nprops = [s for s in self.schemas
+                     if s.kind == GM_NODEPROP and s.is_input]
+        in_eprops = [s for s in self.schemas
+                     if s.kind == GM_EDGEPROP and s.is_input]
+        nodekey = None
+        nprop_arrays: List[np.ndarray] = []
+        eprop_arrays: List[np.ndarray] = []
+        if fmt in ("BIN", "EBIN"):
+            raw = bio.load_binary(path)
+            g, perm = raw.freeze()
+            nodekey = raw.nodekey
+            nprop_arrays = raw.node_props
+            eprop_arrays = [p[perm] for p in raw.edge_props]
+        elif fmt == "EDGE":
+            res = el.load_edge_list(path, [s.type for s in in_nprops],
+                                    [s.type for s in in_eprops])
+            g, eprop_arrays = res.freeze()
+            perm = np.arange(g.num_edges)
+            nodekey = res.nodekey
+            nprop_arrays = res.node_props
+        elif fmt == "ADJ":
+            g, perm = from_edges(*el.load_adjacency_list(path))
+        else:
             raise SystemExit(f"-GMInputFormat={fmt}: not yet ported to "
-                             "green_marl_tpu_torch (BIN and EBIN are)")
-        raw = bio.load_binary(path)
-        g, perm = raw.freeze()
+                             "green_marl_tpu_torch (BIN, EBIN, EDGE and ADJ "
+                             "are)")
         g = g.to(device)
-        ctx = RunContext(graph=g, node_props={}, edge_props={}, scalars={})
-        for s, arr in zip((s for s in self.schemas
-                           if s.kind == GM_NODEPROP and s.is_input),
-                          raw.node_props):
+        ctx = RunContext(graph=g, csr_perm=perm, node_props={},
+                         edge_props={}, scalars={}, nodekey=nodekey)
+        for s, arr in zip(in_nprops, nprop_arrays):
             ctx.node_props[s.name] = arr
-        for s, arr in zip((s for s in self.schemas
-                           if s.kind == GM_EDGEPROP and s.is_input),
-                          raw.edge_props):
-            ctx.edge_props[s.name] = arr[perm]
+        for s, arr in zip(in_eprops, eprop_arrays):
+            ctx.edge_props[s.name] = arr
         where = (torch.cuda.get_device_name(device)
                  if device.type == "cuda" else "host")
         print("# loaded: N=%d E=%d fmt=%s node_props=[%s] edge_props=[%s] "

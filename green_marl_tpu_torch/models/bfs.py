@@ -11,6 +11,9 @@ directions, chosen on the host from the frontier's out-edge count:
 * bottom-up ("pull", ST_RD): every node counts its in-neighbours in the
   frontier with one sweep over all edges, through the prefix-sum kernel on
   the card.  Taken when the frontier's out-edges overflow every tier.
+
+``reverse=True`` runs the same over the transposed graph: the push reads
+the CSC (``r_begin``/``r_node_idx``), the pull the CSR.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ class BfsResult(NamedTuple):
     reached: int         # total reached node count
 
 
-def _push_expand(g: Graph, frontier: torch.Tensor, e_cap: int) -> torch.Tensor:
+def _push_expand(g: Graph, frontier: torch.Tensor, push_begin: torch.Tensor,
+                 push_nbr: torch.Tensor, e_cap: int) -> torch.Tensor:
     """Top-down expansion within an edge budget of ``e_cap`` slots.
 
     Sort the masked ids to compact the frontier, mark each frontier node's
@@ -54,7 +58,7 @@ def _push_expand(g: Graph, frontier: torch.Tensor, e_cap: int) -> torch.Tensor:
     ids = torch.sort(torch.where(frontier, pos, n_pad)).values
     valid = ids < N
     idc = ids.clamp(max=N - 1)
-    deg = torch.where(valid, g.begin[idc + 1] - g.begin[idc], 0)
+    deg = torch.where(valid, push_begin[idc + 1] - push_begin[idc], 0)
     cum = torch.cumsum(deg, 0, dtype=torch.int32)
     total = cum[-1]                     # the frontier's out-edges
     start = cum - deg                   # run start of each frontier position
@@ -63,18 +67,18 @@ def _push_expand(g: Graph, frontier: torch.Tensor, e_cap: int) -> torch.Tensor:
     marks[torch.where(kept, start, e_cap + pos).long()] = pos + 1
     owner = (torch.cummax(marks[:e_cap], 0).values - 1).clamp(min=0)
     i = torch.arange(e_cap, dtype=torch.int32, device=dev)
-    base = g.begin[idc[owner]]
+    base = push_begin[idc[owner]]
     slot = (base + i - start[owner]).clamp(0, g.e_pad - 1)
     live = i < torch.clamp(total, max=e_cap)
-    dst = g.node_idx.index_select(0, slot)
+    dst = push_nbr.index_select(0, slot)
     hit = torch.zeros(n_pad + e_cap, dtype=torch.bool, device=dev)
     hit[torch.where(live, dst, n_pad + i).long()] = True
     return hit[:n_pad]
 
 
 def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
-        direction: str = "auto") -> BfsResult:
-    """BFS from ``root`` over out-edges.
+        reverse: bool = False, direction: str = "auto") -> BfsResult:
+    """BFS from ``root`` over out-edges (in-edges if ``reverse``).
 
     ``direction``: "auto" picks push or pull per level as described above;
     "pull" and "push" force one (push with the full ``e_pad`` budget, which
@@ -87,7 +91,14 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
         max_iter = g.num_nodes + 1
     dev = g.device
     node_mask = g.node_mask()
-    out_deg = g.out_degree().to(torch.int32)
+    if reverse:
+        pull_src, pull_off = g.node_idx, g.begin
+        push_begin, push_nbr = g.r_begin, g.r_node_idx
+        out_deg = g.in_degree().to(torch.int32)
+    else:
+        pull_src, pull_off = g.r_node_idx, g.r_begin
+        push_begin, push_nbr = g.begin, g.node_idx
+        out_deg = g.out_degree().to(torch.int32)
     tiers = [cap for cap in PUSH_TIERS if cap < g.e_pad // 2]
 
     ids = torch.arange(g.n_pad, dtype=torch.int32, device=dev)
@@ -95,8 +106,8 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
     level0 = torch.where(frontier0, 0, -1).to(torch.int32)
 
     def expand_pull(frontier):
-        vals = frontier.index_select(0, g.r_node_idx).to(torch.int32)
-        return scan_reduce.segment_sum_by_offsets(vals, g.r_begin,
+        vals = frontier.index_select(0, pull_src).to(torch.int32)
+        return scan_reduce.segment_sum_by_offsets(vals, pull_off,
                                                   g.n_pad) > 0
 
     def step(state):
@@ -104,12 +115,12 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
         if direction == "pull" or not tiers:
             hit = expand_pull(frontier)
         elif direction == "push":
-            hit = _push_expand(g, frontier, g.e_pad)
+            hit = _push_expand(g, frontier, push_begin, push_nbr, g.e_pad)
         else:
             fe = int(torch.where(frontier, out_deg, 0).sum())
             fits = [cap for cap in tiers if fe <= cap]
-            hit = (_push_expand(g, frontier, fits[0]) if fits
-                   else expand_pull(frontier))
+            hit = (_push_expand(g, frontier, push_begin, push_nbr, fits[0])
+                   if fits else expand_pull(frontier))
         nxt = hit & (level < 0) & node_mask
         level = torch.where(nxt, depth + 1, level)
         return level, nxt, depth + 1, count + nxt.sum()
@@ -119,6 +130,12 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
                                              state0, max_iter)
     return BfsResult(level=level, levels_run=stats.iterations,
                      reached=int(count))
+
+
+def level_masks(level: torch.Tensor, max_levels: int) -> torch.Tensor:
+    """[max_levels, N_pad] bool: per-level membership, for reverse sweeps."""
+    return (torch.arange(max_levels, dtype=torch.int32,
+                         device=level.device)[:, None] == level[None, :])
 
 
 def bfs_np(begin, node_idx, root):

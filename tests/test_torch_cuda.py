@@ -827,3 +827,102 @@ def test_segment_or_and_has_edge_to_on_the_card(dev):
     assert torch.equal(
         segment.sorted_segment_or(words.to(dev), ids.to(dev), g.n_pad).cpu(),
         segment.sorted_segment_or(words, ids, g.n_pad))
+
+
+# -- the component and path models: the card equals the CPU ------------------
+
+def _weights(g, seed, lo=0, hi=100):
+    w = torch.zeros(g.e_pad, dtype=torch.int32)
+    w[: g.num_edges] = torch.from_numpy(np.random.default_rng(seed).integers(
+        lo, hi, g.num_edges).astype(np.int32))
+    return w
+
+
+def test_reverse_bfs_and_scc_on_the_card(dev):
+    from green_marl_tpu_torch.models import bfs, scc
+    g = _rmat_graph(20_000, 120_000, 80)
+    gd = g.to(dev)
+    deg = g.in_degree()
+    for root in (int(deg.argmax()), 0, 17):
+        for direction in ("auto", "pull", "push"):
+            want = bfs.bfs(g, root, reverse=True, direction=direction)
+            got = bfs.bfs(gd, root, reverse=True, direction=direction)
+            assert torch.equal(got.level.cpu(), want.level)
+            assert (got.levels_run, got.reached) == (want.levels_run,
+                                                     want.reached)
+    want = scc.scc(g)
+    K.reset_launch_counts()
+    got = scc.scc(gd)
+    assert got.rounds == want.rounds >= 1
+    assert torch.equal(got.comp.cpu(), want.comp)
+    launched = K.launch_counts()
+    assert launched["segment_reduce_sorted"] > 2 * got.rounds
+    assert launched["plain_cumsum"] == 0
+    np.testing.assert_array_equal(
+        got.comp[: g.num_nodes].cpu().numpy(),
+        scc.scc_np(g.begin.numpy(), g.node_idx[: g.num_edges].numpy()))
+
+
+def test_sssp_path_and_delta_stepping_on_the_card(dev):
+    from green_marl_tpu_torch.models import delta_stepping, sssp, sssp_path
+    g = _rmat_graph(20_000, 120_000, 81)
+    gd = g.to(dev)
+    w = _weights(g, 81)
+    wd = w.to(dev)
+    for root in (int(g.out_degree().argmax()), 0):
+        want = sssp_path.sssp_path(g, root, w)
+        K.reset_launch_counts()
+        got = sssp_path.sssp_path(gd, root, wd)
+        # three min reductions a superstep, each one launch of the kernel
+        assert K.launch_counts()["segment_reduce_sorted"] == \
+            3 * got.iterations
+        assert got.iterations == want.iterations
+        for f in ("dist", "prev", "prev_edge"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+        assert torch.equal(got.dist, sssp.sssp(gd, root, wd).dist)
+        for delta in (1, 8, 64):
+            want = delta_stepping.delta_stepping(g, root, w, delta=delta)
+            got = delta_stepping.delta_stepping(gd, root, wd, delta=delta)
+            assert torch.equal(got.dist.cpu(), want.dist)
+            assert (got.buckets_processed, got.inner_steps) == (
+                want.buckets_processed, want.inner_steps)
+        found, par, pare, dist = sssp.dijkstra_host_exact(gd, wd, root, 5)
+        want = sssp.dijkstra_host_exact(g, w, root, 5)
+        assert (found, dist) == (want[0], want[3])
+        assert np.array_equal(par, want[1]) and np.array_equal(pare, want[2])
+
+
+def test_bc_on_the_card(dev):
+    from green_marl_tpu_torch.models import bc
+    g = _rmat_graph(20_000, 120_000, 82)
+    gd = g.to(dev)
+    seeds = [int(s) for s in g.out_degree().argsort(descending=True)[:3]]
+    want = bc.bc(g, seeds + [0])
+    K.reset_launch_counts()
+    got = bc.bc(gd, seeds + [0])
+    assert K.launch_counts()["segment_reduce_sorted"] > 0
+    assert float(want.bc.sum()) > 0
+    torch.testing.assert_close(got.bc.cpu(), want.bc, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("app", ["kosaraju", "tarjan_scc", "bc", "bc_random",
+                                 "sssp_path", "sssp_dijkstra",
+                                 "bidir_dijkstra"])
+def test_path_apps_on_the_card(dev, app, capsys):
+    """The CLI on the card prints what it prints on the CPU (BC values
+    within rtol 1e-5)."""
+    import os
+    from green_marl_tpu_torch.cli import apps
+    fixture = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "data", "parity", "parity10k.bin")
+    out = {}
+    for device in ("cpu", "cuda"):
+        assert apps.main([app, f"-GMDevice={device}", fixture]) == 0
+        out[device] = [ln for ln in capsys.readouterr().out.splitlines()
+                       if "time=" not in ln]
+    if app.startswith("bc"):
+        vals = {d: [float(ln.split(" = ")[1]) for ln in lines
+                    if ln.startswith("BC[")] for d, lines in out.items()}
+        np.testing.assert_allclose(vals["cuda"], vals["cpu"], rtol=1e-5)
+    else:
+        assert out["cuda"] == out["cpu"]
