@@ -56,7 +56,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    launches; their nine apps through the CLI on parity10k (bc_adj and
    sssp_path_adj from an adjacency list written to a temporary directory)
    against the JAX CLI's goldens; dijkstra_host_exact on parity10k against
-   sssp, scc_np, bc_np and get_path on a 3,000-node RMAT.  Then that graph
+   sssp, scc_np, bc_np and get_path on a 3,000-node RMAT.  The sampling
+   family on the same graph: the card's threefry against the CPU's over
+   2^24 draws, the two node samplings (n=100 and 100,000) and the walk of
+   100,000 steps against the host's computation from the same draws (the
+   degree sampling up to the nodes within 4 ulps of their probability:
+   the card sums 69M degrees in float32), W=4096 walkers of 100 steps
+   (each move along an edge or a jump) and the matching (mutual, left to
+   right, maximal) with its rounds and launches; pagerank_profiled against
+   pagerank; through the CLI the four sampling apps on parity10k, hop_dist
+   -GMDumpGraph=1 in six formats and -GMProfile=1 on the 1/16-size file,
+   against the JAX CLI's goldens.  Then that graph
    made undirected with every slot kept (138M
    slots; the CSR is merged on the card, and that merge is held against
    ``to_undirected(dedup=False)`` + ``native.build_csr`` at the 1/16 size):
@@ -82,7 +92,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
 kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
-the component and path models counted on their own too) and phase 8.
+the component and path models and the sampling family counted on their own
+too) and phase 8.
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
@@ -128,6 +139,37 @@ GOLD_PATH_APPS = {
     "bidir_dijkstra": ["weight  141 ,hops   6, time    0.00 path="
                        "v0=>v6375=>v3953=>v3521=>v8551=>v1=>"],
 }
+
+# the JAX CLI on the CPU: the four sampling apps on parity10k (-n=100,
+# PRNGKey(0)); the matching with isLeft = even ids from an EBIN property
+GOLD_SAMPLING_APPS = {
+    "random_node_sampling": ["CRC sampled 0x96dd5f0c",
+                             "CRC16 sampled 0x9d72"],
+    "random_degree_node_sampling": ["CRC sampled 0xcc996094",
+                                    "CRC16 sampled 0x33c2"],
+    "random_walk_sampling_with_random_jump": ["CRC sampled 0x489144ab",
+                                              "CRC16 sampled 0xdb25"],
+    "random_bipartite_matching": ["matched = 1",
+                                  "random_bipartite_matching returns: 1"],
+}
+GOLD_MATCHED_EVEN_LEFT = 4128
+# SHA-256 of the file hop_dist -GMDumpGraph=1 writes on parity10k (AVRO with
+# its random sync marker zeroed), by the JAX CLI on the CPU
+GOLD_DUMP_SHA256 = {
+    "BIN": "e187c7eab368e503e13d2d3a57fa8cfd8d7eb3c7f17dc06f3ffe6c6e5a619b88",
+    "NULL": "e187c7eab368e503e13d2d3a57fa8cfd8d7eb3c7f17dc06f3ffe6c6e5a619b88",
+    "EBIN": "5b0fb30bb09686de3e48ce47bb3144d20df5907a61f5a231ebac05c6d7183861",
+    "EDGE": "1b3944e3942fb2286f024679e305fdf47e96dffdec965dfc8fe6295d8ef128d1",
+    "NODE_PROP":
+        "69ff5bb3942db1b381cc4d2fd8f98bfe0282dadd62a67d2d455e30076735225c",
+    "AVRO": "49638c057863817850a0f8f17e9f9d77a22e8f3c2784253e067a74a4bf80cb40",
+}
+# -GMProfile=1 on the 1/16-size file (SHA-256 below): the JAX CLI's
+# superstep lines, and hop_dist's CRC16
+GOLD_SMALL_SHA256 = \
+    "c3dd2a5b049b5e0afaf1ac5f6491f40cfce87c085dffba13a255a5a75c854c25"
+GOLD_PROFILE_STEPS = {"pagerank": 10, "hop_dist": 9}
+GOLD_SMALL_HOP_CRC16 = "0x0893"
 
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
 MULTI_B, PLANE_BITS = 4096, 32     # bench.py:53-54, the headline
@@ -570,6 +612,195 @@ def paths_phase(torch, K, dev, apps, g, w, roots, bfs_res):
     check(good and reached.size > 1,
           f"get_path N=3000 from {seeds[0]}: each of {reached.size} paths "
           f"starts at the root, ends at its target and costs dist[target]")
+
+
+def sampling_phase(torch, K, dev, apps, g, g_host, small_path):
+    """Phase 7, the sampling family, -GMProfile and the output path: the
+    card's threefry against the CPU's over 2^24 draws; the two node
+    samplings, the walk, the W-walker walks and the matching at the full
+    size, each against the host's computation from the same draws or its
+    invariants; the four sampling apps, -GMDumpGraph in six formats and
+    -GMProfile through the CLI against the JAX CLI's goldens."""
+    import hashlib
+    import tempfile
+
+    from green_marl_tpu_torch.graph import binary_io
+    from green_marl_tpu_torch.models import sampling as S
+    from green_marl_tpu_torch.models.pagerank import (pagerank,
+                                                      pagerank_profiled)
+    from green_marl_tpu_torch.ops.segment import has_edge_to
+    from green_marl_tpu_torch.runtime import rng
+
+    n, e = g.num_nodes, g.num_edges
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        """(result, CUDA-event ms, segment-reduce launches) of one call."""
+        before = K.launch_counts()["segment_reduce_sorted"]
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        ev1.synchronize()
+        return (out, ev0.elapsed_time(ev1),
+                K.launch_counts()["segment_reduce_sorted"] - before)
+
+    # threefry: the card's bits are the CPU's (the CPU's are JAX's: tests)
+    key = rng.PRNGKey(LJ_SEED)
+    t0 = time.time()
+    host = rng.uniform(key, (1 << 24,))
+    host_s = time.time() - t0
+    got, ms, _ = timed(lambda: rng.uniform(key.to(dev), (1 << 24,)))
+    same = torch.equal(got.cpu().view(torch.int32), host.view(torch.int32))
+    ints = rng.randint(key.to(dev), (1 << 20,), 0, n)
+    check(same and torch.equal(ints.cpu(), rng.randint(key, (1 << 20,), 0, n)),
+          f"threefry on the card == on the CPU bit for bit: uniform over "
+          f"2^24 draws ({ms:.2f} ms on the card, {host_s:.1f} s on the host), "
+          f"randint(0, N) over 2^20")
+    del host, got, ints
+
+    # the node samplings at the full size, against the host's computation
+    # from the same draws (key 0, as the CLI's)
+    key = rng.PRNGKey(0)
+    dice = rng.uniform(key, (g.n_pad,)).numpy()[:n]
+    deg = np.diff(g_host.begin.numpy()).astype(np.float32)
+    for n_s in (100, 100_000):
+        got, ms, _ = timed(lambda: S.random_node_sampling(g, key, n_s))
+        want = dice < np.float32(1.0) / np.float32(n_s)
+        check(np.array_equal(got.cpu().numpy()[:n], want)
+              and not bool(got[n:].any()),
+              f"random_node_sampling n={n_s}: {int(want.sum())} nodes, == the "
+              f"host's set from the same draws; {ms:.2f} ms")
+        got, ms, _ = timed(lambda: S.random_degree_node_sampling(g, key, n_s))
+        # the card sums E = {e} degrees in float32, exact only below 2^24:
+        # nodes whose dice lies within 4 ulps of prob may fall either way
+        prob = deg / np.float32(e) * np.float32(n_s)
+        near = np.abs(dice - prob) <= 4 * np.spacing(prob)
+        got = got.cpu().numpy()[:n]
+        want = dice < prob
+        off = got != want
+        card_sum = float(torch.where(g.node_mask(), g.out_degree().float(),
+                                     0.0).sum())
+        check(not (off & ~near).any(),
+              f"random_degree_node_sampling n={n_s}: {int(got.sum())} nodes, "
+              f"== the host's set (exact degree sum) except {int(off.sum())} "
+              f"of the {int(near.sum())} nodes within 4 ulps of prob (the "
+              f"card's float32 sum {card_sum:.0f}, E = {e}); {ms:.2f} ms")
+    del dice, deg, prob, near, got, want, off
+
+    # one walker, 100,000 steps; then W walkers of 100 steps
+    steps = 100_000
+    t0 = time.time()
+    got, ms, _ = timed(lambda: S.random_walk_with_jump(g, key, steps))
+    dev_s = time.time() - t0
+    t0 = time.time()
+    want = S.random_walk_with_jump(g_host, key, steps)
+    check(torch.equal(got.cpu(), want),
+          f"random_walk_with_jump {steps} steps: {int(want.sum())} nodes "
+          f"visited, == the same walk on the host ({ms:.1f} ms by CUDA events,"
+          f" {dev_s:.2f} s by the host clock with its key chain; host "
+          f"{time.time() - t0:.2f} s)")
+    W, steps = 4096, 100
+    starts = rng.pick_random_nodes(rng.PRNGKey(1), g, (W,))
+    (counts, traj), ms, _ = timed(
+        lambda: S.parallel_random_walks(g, key, starts, steps))
+    want = S.parallel_random_walks(g_host, key, starts.cpu(), steps)
+    draws = S.walk_draws(g, rng.key_chain(key, steps), W, 0.15)
+    a, b = traj[:-1].reshape(-1), traj[1:].reshape(-1)
+    dead = (g.begin[a.long() + 1] == g.begin[a.long()])
+    jumped = draws.jump[:-1].reshape(-1) | dead
+    along = has_edge_to(g, a, b)
+    check(int(counts.long().sum()) == steps * W
+          and bool((along | jumped).all())
+          and torch.equal(traj.cpu(), want[1])
+          and torch.equal(counts.cpu(), want[0]),
+          f"parallel_random_walks W={W} {steps} steps: counts sum to "
+          f"{steps * W}; each of {a.numel()} moves goes along an edge "
+          f"({int((along & ~jumped).sum())}) or jumps ({int(jumped.sum())}); "
+          f"trajectory == the host's; {ms:.1f} ms")
+    del counts, traj, want, draws, a, b, dead, jumped, along
+
+    # the matching, with the CLI's default sides: nodes with out-edges left
+    left = g.out_degree() > 0
+    res, ms, launches = timed(lambda: S.random_bipartite_matching(g, left))
+    m = res.match[:n].long()
+    ids = torch.arange(n, device=dev)
+    paired = m >= 0
+    u = ids[paired & left[:n]]
+    t = m[u]
+    src64, dst64 = g.node_idx_src[:e].long(), g.node_idx[:e].long()
+    free = ~paired
+    open_edges = (left[src64] & ~left[dst64] & free[src64] & free[dst64])
+    check(bool((m[m[paired]] == ids[paired]).all())
+          and int(paired.sum()) == 2 * res.count == 2 * u.numel()
+          and bool((~left[t]).all()) and bool(has_edge_to(g, u, t).all())
+          and not bool(open_edges.any())
+          and launches == 2 * res.iterations,
+          f"random_bipartite_matching at the full size: {res.count} pairs, "
+          f"mutual, each an edge from left to right, maximal (no edge joins "
+          f"two unmatched nodes of opposite sides); {res.iterations} rounds, "
+          f"{launches} segment-reduce launches, {ms:.1f} ms")
+    del m, ids, paired, u, t, src64, dst64, free, open_edges, left
+
+    # -GMProfile in process at the full size: the same result and supersteps
+    ref, fused_ms, _ = timed(lambda: pagerank(g))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        prof, prof_ms, _ = timed(lambda: pagerank_profiled(g))
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("superstep[")]
+    step_ms = [float(re.search(r"time=(\S+) ms", ln)[1]) for ln in lines]
+    check(torch.equal(prof.rank, ref.rank)
+          and prof.iterations == ref.iterations == len(lines),
+          f"pagerank_profiled at the full size == pagerank bit for bit, "
+          f"{len(lines)} superstep lines; a superstep {np.mean(step_ms):.3f} "
+          f"ms profiled (min {min(step_ms):.3f}), "
+          f"{fused_ms / ref.iterations:.3f} ms in the fused run "
+          f"({prof_ms:.1f} ms in all with its warm-up step, {fused_ms:.1f})")
+
+    # the CLI on parity10k and on the 1/16-size file
+    for app, gold in GOLD_SAMPLING_APPS.items():
+        out = run_cli(apps, [app, "-GMDevice=cuda", FIXTURE])
+        check(all(ln in out.splitlines() for ln in gold),
+              f"{app} on parity10k through the CLI == the JAX CLI's {gold}")
+    raw = binary_io.load_binary(FIXTURE)
+    with tempfile.TemporaryDirectory() as tmp:
+        ebin = os.path.join(tmp, "left.ebin")
+        binary_io.store_binary(ebin, raw.begin, raw.node_idx, node_props=[
+            np.arange(raw.num_nodes) % 2 == 0])
+        out = run_cli(apps, ["random_bipartite_matching", "-GMDevice=cuda",
+                             "-GMInputFormat=EBIN", ebin])
+        check(f"matched = {GOLD_MATCHED_EVEN_LEFT}" in out.splitlines(),
+              f"random_bipartite_matching with isLeft from an EBIN property "
+              f"(even ids): matched = {GOLD_MATCHED_EVEN_LEFT}, the JAX CLI's")
+        for fmt, gold in GOLD_DUMP_SHA256.items():
+            dump = os.path.join(tmp, f"hop.{fmt}")
+            run_cli(apps, ["hop_dist", "-GMDevice=cuda", "-GMDumpGraph=1",
+                           f"-GMOutputFormat={fmt}", FIXTURE, dump])
+            data = open(dump, "rb").read()
+            if fmt == "AVRO":   # its 16-byte sync marker is random
+                sync_at = data.index(b"\x00", data.index(b"avro.codec")) + 1
+                data = data.replace(data[sync_at:sync_at + 16], bytes(16))
+            digest = hashlib.sha256(data).hexdigest()
+            check(digest == gold, f"hop_dist -GMDumpGraph=1 "
+                  f"-GMOutputFormat={fmt} on parity10k: SHA-256 {digest[:16]}"
+                  f"... == the JAX CLI's file")
+    digest = hashlib.sha256(open(small_path, "rb").read()).hexdigest()
+    check(digest == GOLD_SMALL_SHA256, f"the 1/16-size file is the one the "
+          f"goldens were taken on (SHA-256 {digest[:16]}...)")
+    for app, n_steps in GOLD_PROFILE_STEPS.items():
+        out = run_cli(apps, [app, "-GMDevice=cuda", "-GMProfile=1",
+                             small_path])
+        ms = [float(x) for x in re.findall(r"^superstep\[\d+\] time=(\S+) ms",
+                                           out, re.M)]
+        check(len(ms) == n_steps and (app != "hop_dist" or field(
+                  out, r"^CRC16 dist (\S+)") == GOLD_SMALL_HOP_CRC16),
+              f"{app} -GMProfile=1 at the 1/16 size: {len(ms)} superstep "
+              f"lines as the JAX CLI prints"
+              + (f", CRC16 dist {GOLD_SMALL_HOP_CRC16}" if app == "hop_dist"
+                 else "")
+              + f"; {np.mean(ms):.3f} ms a superstep")
 
 
 def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
@@ -1259,7 +1490,6 @@ def main():
     out = run_cli(apps, ["multi_bfs", "-GMDevice=cuda",
                          f"-num_roots={MULTI_B}", f"-plane_bits={PLANE_BITS}",
                          path])
-    os.remove(path)
     m = re.search(r"^batched bfs: B=(\d+) levels=(\d+) traversed=(\d+) "
                   r"aggregate=(\S+) GTEPS", out, re.M)
     bp, deg_rows, _, order = engine_inputs(g16)
@@ -1373,13 +1603,25 @@ def main():
     for name in ("segment_reduce_sorted", "plain_cumsum"):
         check(counts_paths[name] > 0, f"{name} launched by the component "
               f"and path models ({counts_paths[name]} times)")
+    log("  -- the sampling family, -GMProfile and the output path")
+    t0 = time.time()
+    K.reset_launch_counts()
+    sampling_phase(torch, K, dev, apps, g, g_host, path)
+    counts_sampling = K.launch_counts()
+    os.remove(path)
+    log(f"  sampling, -GMProfile and the output path {time.time() - t0:.1f} "
+        f"s; launches {counts_sampling}")
+    check(counts_sampling["segment_reduce_sorted"] > 0,
+          f"segment_reduce_sorted launched by the matching and the profiled "
+          f"runs ({counts_sampling['segment_reduce_sorted']} times)")
     del g, g_host, g16, w, bfs_res
     torch.cuda.empty_cache()
     K.reset_launch_counts()
     triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
                    src16, dst16)
     del u_begin, u_dst, src16, dst16
-    counts_models = {name: counts_models[name] + counts_paths[name] + n
+    counts_models = {name: counts_models[name] + counts_paths[name]
+                     + counts_sampling[name] + n
                      for name, n in K.launch_counts().items()}
     log(f"  phase 7 launches {counts_models}")
     for name in ("segment_reduce_sorted", "plain_cumsum"):

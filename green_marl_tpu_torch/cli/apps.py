@@ -11,7 +11,11 @@ avg_teen_cnt (``avg = %0.9f``; the main sets age=10, K=5), v_cover,
 communities (the table of community sizes), potential_friends, kosaraju and
 tarjan_scc (``num_membership = %d``), bc, bc_random and bc_adj (``BC[0..3]``),
 sssp_path and sssp_path_adj (the path), sssp_dijkstra and bidir_dijkstra
-(the ``weight`` line).  bc_adj and sssp_path_adj read ADJ input by default.
+(the ``weight`` line), random_node_sampling, random_degree_node_sampling and
+random_walk_sampling_with_random_jump (the ``sampled`` set, drawn from JAX's
+threefry stream with ``PRNGKey(0)``) and random_bipartite_matching
+(``matched = %d``).  bc_adj and sssp_path_adj read ADJ input by default.
+With ``-GMProfile``, pagerank and hop_dist time each superstep.
 """
 
 from __future__ import annotations
@@ -31,6 +35,16 @@ def _root(ctx: RunContext) -> int:
     return int(root) if root is not None else 0
 
 
+def _profile(ctx: RunContext) -> bool:
+    """``-GMProfile``: print the graph's array report on stderr; the app
+    then takes its per-superstep timed path."""
+    if not ctx.options.get_option("GMProfile"):
+        return False
+    from ..utils.timing import graph_placement_report
+    print(graph_placement_report(ctx.graph), file=sys.stderr)
+    return True
+
+
 def make_pagerank() -> UserMain:
     m = UserMain("pagerank", "PageRank power iteration (pagerank.gm)")
     m.declare_scalar("max_iter", bio.GMTYPE_INT, True, False, default=100)
@@ -39,10 +53,13 @@ def make_pagerank() -> UserMain:
     m.declare_property("rank", bio.GMTYPE_DOUBLE, False, True, GM_NODEPROP)
 
     def run(ctx: RunContext) -> Dict:
-        from ..models.pagerank import pagerank
-        res = pagerank(ctx.graph, e=float(ctx.scalars["e"]),
-                       d=float(ctx.scalars["d"]),
-                       max_iter=int(ctx.scalars["max_iter"]))
+        from ..models import pagerank as pr
+        fn = pr.pagerank
+        if _profile(ctx):
+            fn = pr.pagerank_profiled
+        res = fn(ctx.graph, e=float(ctx.scalars["e"]),
+                 d=float(ctx.scalars["d"]),
+                 max_iter=int(ctx.scalars["max_iter"]))
         return {"rank": res.rank.cpu().numpy()}
 
     m.set_run(run)
@@ -56,8 +73,13 @@ def make_hop_dist() -> UserMain:
                        dump_count=10)  # hop_dist_main.cc prints dist[0..9]
 
     def run(ctx: RunContext) -> Dict:
-        from ..models.hop_dist import hop_dist
-        return {"dist": hop_dist(ctx.graph, _root(ctx)).dist.cpu().numpy()}
+        if _profile(ctx):
+            from ..models.relax import min_relax_profiled
+            res = min_relax_profiled(ctx.graph, _root(ctx))
+        else:
+            from ..models.hop_dist import hop_dist
+            res = hop_dist(ctx.graph, _root(ctx))
+        return {"dist": res.dist.cpu().numpy()}
 
     m.set_run(run)
     return m
@@ -470,6 +492,59 @@ def make_bidir_dijkstra() -> UserMain:
     return m
 
 
+def _make_sampling(name: str) -> UserMain:
+    m = UserMain(name, f"{name} (sampling family; the JAX package's "
+                 "counter-based threefry stream, not the reference xorshift: "
+                 "outputs are distributional)")
+    m.declare_scalar("n", bio.GMTYPE_INT, True, False, default=100)
+    m.declare_property("sampled", bio.GMTYPE_BOOL, False, True,
+                       GM_NODEPROP, dump_count=0)
+
+    def run(ctx: RunContext) -> Dict:
+        from ..models import sampling as S
+        from ..runtime.rng import PRNGKey
+        g = ctx.graph
+        key = PRNGKey(0, g.device)
+        n = int(ctx.scalars["n"])
+        if name == "random_node_sampling":
+            out = S.random_node_sampling(g, key, n)
+        elif name == "random_degree_node_sampling":
+            out = S.random_degree_node_sampling(g, key, n)
+        else:
+            out = S.random_walk_with_jump(g, key, steps=n)
+        return {"sampled": out.cpu().numpy()}
+
+    m.set_run(run)
+    return m
+
+
+def make_random_bipartite_matching() -> UserMain:
+    m = UserMain("random_bipartite_matching",
+                 "Parallel maximal bipartite matching")
+    m.declare_property("isLeft", bio.GMTYPE_BOOL, True, False, GM_NODEPROP)
+    m.declare_scalar("return", bio.GMTYPE_INT, False, True)
+
+    def run(ctx: RunContext) -> Dict:
+        from ..models.sampling import random_bipartite_matching
+        g = ctx.graph
+        if "__isLeft" not in ctx.device_props:
+            left = np.zeros(g.n_pad, bool)
+            if "isLeft" in ctx.node_props:
+                left[: g.num_nodes] = np.asarray(
+                    ctx.node_props["isLeft"]).astype(bool)
+            else:
+                # no property in the file: nodes with out-edges are left
+                left[: g.num_nodes] = np.diff(g.begin.cpu().numpy()) > 0
+            ctx.device_props["__isLeft"] = torch.from_numpy(left).to(
+                g.device)
+        res = random_bipartite_matching(g, ctx.device_props["__isLeft"])
+        print(f"matched = {res.count}")
+        return {"return": res.count}
+
+    m.set_run(run)
+    return m
+
+
 APPS = {
     "pagerank": make_pagerank,
     "hop_dist": make_hop_dist,
@@ -492,6 +567,12 @@ APPS = {
     "sssp_path_adj": lambda: make_sssp_path("sssp_path_adj"),
     "sssp_dijkstra": make_sssp_dijkstra,
     "bidir_dijkstra": make_bidir_dijkstra,
+    "random_node_sampling": lambda: _make_sampling("random_node_sampling"),
+    "random_degree_node_sampling":
+        lambda: _make_sampling("random_degree_node_sampling"),
+    "random_walk_sampling_with_random_jump":
+        lambda: _make_sampling("random_walk_sampling_with_random_jump"),
+    "random_bipartite_matching": make_random_bipartite_matching,
 }
 
 

@@ -1,15 +1,19 @@
 """Default usermain: graph in, run the procedure, results out.
 
 Counterpart of ``green_marl_tpu/cli/usermain.py`` (the reference's
-``gm_default_usermain.cc``), for BIN, EBIN, EDGE and ADJ input (AVRO and
-remote ``hdfs://`` / ``gs://`` paths are not ported).  It prints the stdout
-protocol the verification harness reads (``scripts/extract_result.py``):
+``gm_default_usermain.cc``) on one device: BIN, EBIN, EDGE, ADJ and AVRO
+input, local or staged from ``hdfs://`` / ``gs://`` (``graph.fs``); with
+``-GMDumpGraph=1`` and an ``OutputName`` the graph and the output
+properties are written as ``-GMOutputFormat`` says (BIN, NULL, EBIN, EDGE,
+NODE_PROP, AVRO).  It prints the stdout protocol the verification harness
+reads (``scripts/extract_result.py``):
 
 * ``graph loading time=<ms>`` and ``reverse edge creation time=<ms>``;
 * ``running time=<ms>`` with ``-GMMeasureTime`` (the algorithm only, after
   one warm-up run; the timed region ends once the result is on the host);
 * ``<name>[i] = <value>`` for the leading values of each output;
-* ``CRC <array> 0x........`` (zlib CRC-32) and ``CRC16 <array> 0x....``.
+* ``CRC <array> 0x........`` (zlib CRC-32) and ``CRC16 <array> 0x....``;
+* ``superstep[i] time=<ms>`` with ``-GMProfile`` (pagerank and hop_dist).
 
 ``-GMDevice`` (default ``cuda``) picks the torch device.  Without CUDA,
 ``-GMDevice=cuda`` exits with an error: it never drops to the CPU.
@@ -18,8 +22,11 @@ protocol the verification harness reads (``scripts/extract_result.py``):
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
+import os
 import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -27,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..graph import avro_io, fs
 from ..graph import binary_io as bio
 from ..graph import edge_list as el
 from ..graph.csr import Graph, from_edges
@@ -43,13 +51,12 @@ _TYPE_NAMES = {
     bio.GMTYPE_NODE: int, bio.GMTYPE_EDGE: int,
 }
 
-# Options of the JAX CLI whose paths are not ported yet, with its types and
-# defaults.  Accepted by the parser; refused only where they would change
-# the run (see ``_check_not_ported``).
-_NOT_PORTED = (("GMProfile", bool, "0"), ("GMNumChips", int, None),
+# Options of the JAX CLI's multi-device path, not ported yet, with its
+# types and defaults.  Accepted by the parser; refused where they would
+# change the run (see ``_check_not_ported``).
+_NOT_PORTED = (("GMNumChips", int, None),
                ("GMPlacement", str, "distribute"), ("GMPlace", str, None),
-               ("GMPlacementFile", str, None), ("GMDumpGraph", int, "0"),
-               ("GMOutputFormat", str, "NULL"))
+               ("GMPlacementFile", str, None))
 
 
 @dataclass
@@ -74,6 +81,7 @@ class RunContext:
     # that the warm-up run of -GMMeasureTime pays for their upload (the
     # reference prepares its inputs in prepare(), outside the timed region)
     device_props: Dict[str, Any] = field(default_factory=dict)
+    options: Optional[UserOpt] = None       # the parsed flags
 
 
 def resolve_device(name: str) -> torch.device:
@@ -105,14 +113,23 @@ class UserMain:
         self.O.add_option("GMMeasureTime", bool, "0", "Measure running time")
         self.O.add_option("GMDevice", str, "cuda",
                           "Torch device: cuda, cuda:<i> or cpu")
-        self.O.add_option("GMInputFormat", str, "BIN", "ADJ|EDGE|BIN|EBIN")
+        self.O.add_option("GMProfile", bool, "0",
+                          "Per-superstep device timing + per-array "
+                          "report (pagerank, hop_dist)")
+        self.O.add_option("GMInputFormat", str, "BIN",
+                          "ADJ|EDGE|BIN|EBIN|AVRO")
+        self.O.add_option("GMOutputFormat", str, "NULL",
+                          "BIN|EBIN|EDGE|NODE_PROP|AVRO|NULL")
         self.O.add_option("GMNumThreads", int, None,
                           "Accepted for reference-CLI compatibility")
+        self.O.add_option("GMDumpGraph", int, "0",
+                          "1: write output graph/props file")
         self.O.add_option("GMDumpValues", int, "4",
                           "How many leading output values to print")
         for name, typ, default in _NOT_PORTED:
             self.O.add_option(name, typ, default, "not yet ported")
         self.O.add_argument("InputName", "Input graph filename")
+        self.O.add_argument("OutputName", "[optional] Output filename")
 
     # -- declarations ----------------------------------------------------
     def declare_scalar(self, name, t, is_input, is_output, default=None):
@@ -134,23 +151,20 @@ class UserMain:
 
     # -- pipeline --------------------------------------------------------
     def _check_not_ported(self) -> None:
-        """Exit on an option whose path is not ported and that would change
-        the run.  What the JAX CLI takes and ignores on one device passes:
-        the placement options without ``-GMNumChips>1`` and
-        ``-GMOutputFormat`` without ``-GMDumpGraph=1``."""
+        """Exit as the JAX CLI does on ``-GMPlace`` or ``-GMPlacementFile``
+        without ``-GMNumChips>1``, and on ``-GMNumChips>1``, whose path is
+        not ported.  ``-GMPlacement`` alone changes nothing on one device,
+        in the JAX CLI too."""
         opt = self.O.get_option
-        refused = []
+        if ((opt("GMPlace") or opt("GMPlacementFile"))
+                and int(opt("GMNumChips") or 1) <= 1):
+            raise SystemExit(
+                "-GMPlace/-GMPlacementFile require -GMNumChips>1 "
+                "(they pin arrays of the distributed placement)")
         if (opt("GMNumChips") or 0) > 1:
-            refused.append("GMNumChips")
-            refused += [n for n in ("GMPlacement", "GMPlace",
-                                    "GMPlacementFile") if self.O.given(n)]
-        if opt("GMDumpGraph"):
-            refused.append("GMDumpGraph")
-            if self.O.given("GMOutputFormat"):
-                refused.append("GMOutputFormat")
-        if opt("GMProfile"):
-            refused.append("GMProfile")
-        if refused:
+            refused = ["GMNumChips"] + [
+                n for n in ("GMPlacement", "GMPlace", "GMPlacementFile")
+                if self.O.given(n)]
             raise SystemExit(
                 ", ".join(f"-{n}={opt(n)}" for n in refused)
                 + ": not yet ported to green_marl_tpu_torch")
@@ -161,9 +175,7 @@ class UserMain:
         if path is None:
             self.O.print_help()
             raise SystemExit(1)
-        if path.startswith(("hdfs://", "gs://")):
-            raise SystemExit(f"{path}: remote paths are not yet ported to "
-                             "green_marl_tpu_torch (local files are)")
+        path = fs.fetch(path)   # hdfs:// and gs:// staged locally
         in_nprops = [s for s in self.schemas
                      if s.kind == GM_NODEPROP and s.is_input]
         in_eprops = [s for s in self.schemas
@@ -186,13 +198,18 @@ class UserMain:
             nprop_arrays = res.node_props
         elif fmt == "ADJ":
             g, perm = from_edges(*el.load_adjacency_list(path))
+        elif fmt == "AVRO":
+            # the Avro object container (gm_graph_avro_loader.cc)
+            src, dst, nprop_arrays, eav, _, _, nn = avro_io.load_avro(path)
+            g, perm = from_edges(src.astype(np.int32), dst.astype(np.int32),
+                                 nn)
+            eprop_arrays = [np.asarray(p)[perm] for p in eav]
         else:
-            raise SystemExit(f"-GMInputFormat={fmt}: not yet ported to "
-                             "green_marl_tpu_torch (BIN, EBIN, EDGE and ADJ "
-                             "are)")
+            raise SystemExit(f"unknown input format {fmt}")
         g = g.to(device)
         ctx = RunContext(graph=g, csr_perm=perm, node_props={},
-                         edge_props={}, scalars={}, nodekey=nodekey)
+                         edge_props={}, scalars={}, nodekey=nodekey,
+                         options=self.O)
         for s, arr in zip(in_nprops, nprop_arrays):
             ctx.node_props[s.name] = arr
         for s, arr in zip(in_eprops, eprop_arrays):
@@ -239,6 +256,7 @@ class UserMain:
         if measure:
             print(f"running time={1000 * (t3 - t2):f}")
         self.report(ctx, outputs)
+        self.store(ctx, outputs)
         return 0
 
     # -- output protocol -------------------------------------------------
@@ -260,6 +278,53 @@ class UserMain:
                 print(f"{s.name}[{i}] = {_fmt(arr[i], s.type)}")
             print(f"CRC {s.name} {array_checksum_hex(arr)}")
             print(f"CRC16 {s.name} {crc16_hex(arr)}")
+
+    def store(self, ctx: RunContext, outputs: Dict[str, Any]) -> None:
+        """``-GMDumpGraph=1``: write the graph and the output properties to
+        ``OutputName`` in ``-GMOutputFormat`` (BIN and NULL: the graph
+        alone), byte for byte as the JAX CLI does; a remote name is written
+        locally first, then published."""
+        if not self.O.get_option("GMDumpGraph"):
+            return
+        out = self.O.get_arg(1)
+        if out is None:
+            return
+        fmt = self.O.get_option("GMOutputFormat").upper()
+        dest = out
+        if fs.is_remote(out):
+            h = hashlib.sha1(out.encode()).hexdigest()[:10]
+            out = os.path.join(tempfile.gettempdir(),
+                               f"gmtpu_out_{h}_" + os.path.basename(out))
+        g = ctx.graph
+        begin = g.begin.cpu().numpy()
+        node_idx = g.node_idx[: g.num_edges].cpu().numpy()
+        props = {kind: [np.asarray(outputs[s.name])[: n]
+                        for s in self.schemas if s.kind == kind
+                        and s.is_output and s.name in outputs]
+                 for kind, n in ((GM_NODEPROP, g.num_nodes),
+                                 (GM_EDGEPROP, g.num_edges))}
+        nprops, eprops = props[GM_NODEPROP], props[GM_EDGEPROP]
+        if fmt in ("BIN", "NULL"):
+            bio.store_binary(out, begin, node_idx)
+        elif fmt == "EBIN":
+            bio.store_binary(out, begin, node_idx, nodekey=ctx.nodekey,
+                             node_props=nprops, edge_props=eprops)
+        elif fmt == "EDGE":
+            src = np.repeat(np.arange(g.num_nodes), np.diff(begin))
+            el.store_edge_list(out, src, node_idx, nodekey=ctx.nodekey,
+                               node_props=nprops, edge_props=eprops)
+        elif fmt == "NODE_PROP":
+            with open(out, "w") as f:
+                for i in range(g.num_nodes):
+                    row = " ".join(str(p[i]) for p in nprops)
+                    f.write(f"{i} {row}\n")
+        elif fmt == "AVRO":
+            avro_io.store_avro(out, begin, node_idx, node_props=nprops,
+                               edge_props=eprops)
+        else:
+            raise SystemExit(f"unknown output format {fmt}")
+        if dest != out:
+            fs.publish(out, dest)
 
 
 def _fmt(v, t) -> str:

@@ -207,3 +207,10 @@ def store_binary(path: str, begin: np.ndarray, node_idx: np.ndarray,
                 f.write(struct.pack(">i", tid))
                 f.write(struct.pack(">q", len(payload)))
                 f.write(payload)
+
+
+def load_graph(path: str) -> Tuple[Graph, RawGraph, np.ndarray]:
+    """Load and freeze in one call: ``(Graph on the CPU, raw, csr_perm)``."""
+    raw = load_binary(path)
+    g, perm = raw.freeze()
+    return g, raw, perm

@@ -15,7 +15,7 @@ or numpy) and moved to a device with :meth:`Graph.to`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -199,6 +199,95 @@ def from_edges(src: np.ndarray, dst: np.ndarray,
     return g, csr_perm
 
 
+class GraphBuilder:
+    """Mutable host-side graph: the reference's "flexible format"
+    (``gm_graph.h:186-203``: ``add_node``/``add_edge``, then ``freeze()``
+    into CSR; ``thaw()`` back for more mutation) and its node-key map
+    (``gm_graph.h:396-436``: ``add_nodekey``/``find_nodekey``/
+    ``find_nodeid`` between external keys and dense ids)."""
+
+    def __init__(self, node_dtype=np.int32, edge_dtype=np.int32):
+        self._src: list = []
+        self._dst: list = []
+        self._num_nodes = 0
+        self.node_dtype = node_dtype
+        self.edge_dtype = edge_dtype
+        self._key2id: dict = {}
+        self._id2key: list = []
+
+    @classmethod
+    def thaw(cls, g: Graph, node_dtype=np.int32,
+             edge_dtype=np.int32) -> "GraphBuilder":
+        """CSR -> flexible (``gm_graph::thaw``): a builder seeded with the
+        graph's edges, from any device."""
+        b = cls(node_dtype=node_dtype, edge_dtype=edge_dtype)
+        begin = g.begin[: g.num_nodes + 1].cpu().numpy()
+        dst = g.node_idx[: g.num_edges].cpu().numpy()
+        src = np.repeat(np.arange(g.num_nodes, dtype=node_dtype),
+                        np.diff(begin.astype(np.int64)))
+        b.add_edges(src, dst.astype(node_dtype, copy=False))
+        b._num_nodes = max(b._num_nodes, g.num_nodes)
+        return b
+
+    def add_nodekey(self, key) -> int:
+        """External key -> dense id (created on first use)."""
+        nid = self._key2id.get(key)
+        if nid is None:
+            nid = self.add_node()
+            self._key2id[key] = nid
+            self._id2key.extend([None] * (nid + 1 - len(self._id2key)))
+            self._id2key[nid] = key
+        return nid
+
+    def find_nodekey(self, key) -> int:
+        """Key -> id, -1 when absent (``gm_graph::find_nodekey``)."""
+        return self._key2id.get(key, -1)
+
+    def find_nodeid(self, nid: int):
+        """Id -> key (``gm_graph::find_nodeid``); None for a node made
+        without a key."""
+        return self._id2key[nid] if 0 <= nid < len(self._id2key) else None
+
+    def add_keyed_edge(self, skey, dkey) -> None:
+        self.add_edge(self.add_nodekey(skey), self.add_nodekey(dkey))
+
+    @property
+    def nodekeys(self) -> list:
+        return list(self._id2key)
+
+    def add_node(self) -> int:
+        self._num_nodes += 1
+        return self._num_nodes - 1
+
+    def add_nodes(self, n: int) -> None:
+        self._num_nodes += int(n)
+
+    def add_edge(self, s: int, d: int) -> None:
+        self._src.append(s)
+        self._dst.append(d)
+        self._num_nodes = max(self._num_nodes, s + 1, d + 1)
+
+    def add_edges(self, src, dst) -> None:
+        src = np.asarray(src)
+        dst = np.asarray(dst)
+        self._src.append(src)
+        self._dst.append(dst)
+        if src.size:
+            self._num_nodes = max(self._num_nodes, int(src.max()) + 1,
+                                  int(dst.max()) + 1)
+
+    def freeze(self) -> Tuple[Graph, np.ndarray]:
+        """``(Graph on the CPU, csr_perm)`` of the edges so far, in the
+        order they were added."""
+        def cat(parts):
+            if not parts:
+                return np.zeros(0, self.node_dtype)
+            return np.concatenate([np.atleast_1d(np.asarray(p))
+                                   for p in parts])
+        return from_edges(cat(self._src), cat(self._dst), self._num_nodes,
+                          self.node_dtype, self.edge_dtype)
+
+
 def to_undirected(src: np.ndarray, dst: np.ndarray,
                   dedup: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """Symmetrise an edge list of node ids in ``[0, 2^31)`` (both
@@ -216,3 +305,14 @@ def to_undirected(src: np.ndarray, dst: np.ndarray,
         s = (keys >> 32).astype(s.dtype)
         d = (keys & 0xFFFFFFFF).astype(d.dtype)
     return s, d
+
+
+def degrees_np(g: Graph) -> Dict[str, Any]:
+    """Host-side degree figures of a graph on any device (a loader's check)."""
+    deg = np.diff(g.begin.cpu().numpy())
+    return dict(
+        num_nodes=g.num_nodes,
+        num_edges=g.num_edges,
+        max_out_degree=int(deg.max(initial=0)),
+        mean_out_degree=float(deg.mean()) if deg.size else 0.0,
+    )

@@ -2,9 +2,9 @@
 adjacency list.
 
 Counterpart of ``green_marl_tpu/graph/edge_list.py`` (``EdgeListResult``,
-``load_edge_list``, ``store_edge_list``, ``load_adjacency_list``), copied:
-that file imports the JAX package's ``csr``, which imports jax.  It
-reimplements the reference readers
+``load_edge_list``, ``store_edge_list``, ``load_adjacency_list``,
+``load_snap_edge_list``), copied: that file imports the JAX package's
+``csr``, which imports jax.  It reimplements the reference readers
 (``apps/output_cpp/gm_graph/inc/gm_edge_list_graph_reader.h:17-240``,
 ``src/gm_edge_list_graph_reader.cc``, ``src/gm_graph_adj_loader.cc``) with
 numpy instead of line-at-a-time ``strtok``.
@@ -175,3 +175,11 @@ def load_adjacency_list(path: str) -> Tuple[np.ndarray, np.ndarray]:
                 src_l.append(u)
                 dst_l.append(int(t))
     return np.asarray(src_l, np.int64), np.asarray(dst_l, np.int64)
+
+
+def load_snap_edge_list(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain two-column (SNAP-style) edge lists such as
+    soc-LiveJournal1.txt, the input of the reference's format-converter
+    pipeline (``README.md:28-33``): ``(src, dst)`` int64."""
+    data = np.loadtxt(path, dtype=np.int64, comments="#", ndmin=2)
+    return data[:, 0].copy(), data[:, 1].copy()

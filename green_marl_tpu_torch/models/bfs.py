@@ -132,6 +132,26 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
                      reached=int(count))
 
 
+def bfs_many_sequential(g: Graph, roots, max_iter: Optional[int] = None):
+    """A full BFS from each of ``roots`` in turn: ``(total levels, total
+    reached, traversed edges per root [R] int32, the last root's level
+    array)``, traversed edges being the out-degrees of the reached set.
+    The JAX version runs the loop on the device to pay the TPU link's round
+    trip once; here it is a host loop over :func:`bfs`."""
+    deg = g.out_degree().to(torch.int32)
+    roots = [int(r) for r in roots]
+    trav = torch.zeros(len(roots), dtype=torch.int32, device=g.device)
+    level = torch.zeros(g.n_pad, dtype=torch.int32, device=g.device)
+    total_levels = total_reached = 0
+    for i, r in enumerate(roots):
+        res = bfs(g, r, max_iter=max_iter)
+        level = res.level
+        trav[i] = torch.where(level >= 0, deg, 0).sum()
+        total_levels += res.levels_run
+        total_reached += res.reached
+    return total_levels, total_reached, trav, level
+
+
 def level_masks(level: torch.Tensor, max_levels: int) -> torch.Tensor:
     """[max_levels, N_pad] bool: per-level membership, for reverse sweeps."""
     return (torch.arange(max_levels, dtype=torch.int32,

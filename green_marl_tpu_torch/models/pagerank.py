@@ -16,6 +16,8 @@ rank, an L1-diff convergence test and an iteration cap::
     } While ((diff > e) && (cnt < max));
 
 Defaults (e=0.001, d=0.85, max=100) are ``pagerank_main.cc:11-15``'s.
+``pagerank_profiled`` is the ``-GMProfile`` form: the same supersteps, each
+timed on its own.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..engine.superstep import converge_loop
 from ..graph.csr import Graph
 from ..ops import segment as ops
+from ..utils.timing import profile_supersteps
 
 
 class PageRankResult(NamedTuple):
@@ -44,6 +47,16 @@ def pagerank(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
     in ``dtype``, as in the JAX version: a float64 test on the host could
     stop at another iteration.
     """
+    e, rank0, step = _setup(g, e, d, dtype)
+    (rank, diff), stats = converge_loop(step, lambda st: st[1] > e,
+                                        (rank0, torch.zeros_like(e)),
+                                        max_iter)
+    return PageRankResult(rank=rank, diff=diff, iterations=stats.iterations)
+
+
+def _setup(g: Graph, e, d, dtype):
+    """``(e, rank0, step)``: the threshold in ``dtype``, the initial ranks
+    and one superstep ``(rank, diff) -> (rank', diff')``."""
     dev = g.device
     mask = g.node_mask()
     inv_n = torch.tensor(1.0 / g.num_nodes, dtype=dtype, device=dev)
@@ -55,7 +68,6 @@ def pagerank(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
     # nodes without out-edges contribute nothing (the pull never reaches
     # them through an edge)
     inv_deg = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1), zero)
-    rank0 = torch.where(mask, inv_n, zero)
 
     def step(state):
         rank, _ = state
@@ -63,9 +75,31 @@ def pagerank(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
         val = torch.where(mask, (1 - d) * inv_n + d * s, zero)
         return val, (val - rank).abs().sum()
 
-    (rank, diff), stats = converge_loop(step, lambda st: st[1] > e,
-                                        (rank0, zero), max_iter)
-    return PageRankResult(rank=rank, diff=diff, iterations=stats.iterations)
+    return e, torch.where(mask, inv_n, zero), step
+
+
+def pagerank_profiled(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
+                      dtype=torch.float32) -> PageRankResult:
+    """:func:`pagerank` with a ``superstep[i] time=X ms`` line a superstep
+    (``utils.timing.profile_supersteps``): the same arithmetic and
+    iterations.  One superstep runs first, untimed and thrown away, as the
+    JAX version compiles its step outside the timings: here it builds the
+    kernels."""
+    e, rank0, step = _setup(g, e, d, dtype)
+    zero = torch.zeros_like(e)
+    step((rank0, zero))
+
+    def counted(state):
+        rank, diff, it = state
+        return (*step((rank, diff)), it + 1)
+
+    def cond(state):
+        _, diff, it = state
+        return it == 0 or bool(diff > e)
+
+    rank, diff, it = profile_supersteps(counted, (rank0, zero, 0), cond,
+                                        max_iter)
+    return PageRankResult(rank=rank, diff=diff, iterations=it)
 
 
 def pagerank_np(begin, node_idx, e=0.001, d=0.85, max_iter=100):

@@ -23,32 +23,31 @@ import torch
 from ..engine.superstep import while_loop
 from ..graph.csr import Graph
 from ..ops import segment as ops
+from ..utils.timing import profile_supersteps
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
 
 class RelaxResult(NamedTuple):
-    dist: torch.Tensor  # [N_pad] int32, INT32_MAX = unreached
+    dist: torch.Tensor  # [N_pad]; the dtype's max (+inf) = unreached
     iterations: int     # supersteps executed
 
 
-def min_relax(g: Graph, root: int, edge_len: Optional[torch.Tensor] = None,
-              max_iter: Optional[int] = None) -> RelaxResult:
-    """Min-relaxation from ``root`` to its fixpoint, in int32.
+def _inf(dtype: torch.dtype):
+    return (float("inf") if dtype.is_floating_point
+            else torch.iinfo(dtype).max)
 
-    ``edge_len``: optional [E_pad] weights in CSR slot order (``e.len`` of
-    sssp.gm); unit weights when None (hop_dist).  ``src_dist + w`` is
-    computed before the mask, as in the JAX version, so both wrap alike.
-    """
-    if max_iter is None:
-        max_iter = g.num_nodes + 1
+
+def _setup(g: Graph, root: int, edge_len: Optional[torch.Tensor],
+           dist_dtype: torch.dtype):
+    """``((dist0, updated0), step)`` of the relaxation from ``root``."""
     dev = g.device
-    inf = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
+    inf = torch.tensor(_inf(dist_dtype), dtype=dist_dtype, device=dev)
     ids = torch.arange(g.n_pad, dtype=torch.int32, device=dev)
     upd0 = ids == root
     dist0 = torch.where(upd0 & g.node_mask(), torch.zeros_like(inf), inf)
-    w = (edge_len.index_select(0, g.e_rev2idx).to(torch.int32)
-         if edge_len is not None else 1)
+    w = (edge_len.index_select(0, g.e_rev2idx).to(dist_dtype)
+         if edge_len is not None else torch.ones_like(inf))
 
     def step(state):
         dist, updated = state
@@ -60,9 +59,43 @@ def min_relax(g: Graph, root: int, edge_len: Optional[torch.Tensor] = None,
         new_dist = torch.minimum(dist, best)
         return new_dist, new_dist < dist
 
-    (dist, _), stats = while_loop(step, lambda s: s[1].any(), (dist0, upd0),
+    return (dist0, upd0), step
+
+
+def min_relax(g: Graph, root: int, edge_len: Optional[torch.Tensor] = None,
+              max_iter: Optional[int] = None,
+              dist_dtype: torch.dtype = torch.int32) -> RelaxResult:
+    """Min-relaxation from ``root`` to its fixpoint, in ``dist_dtype``
+    (int32, or float32 through the segment-reduce kernel's float min).
+
+    ``edge_len``: optional [E_pad] weights in CSR slot order (``e.len`` of
+    sssp.gm); unit weights when None (hop_dist).  ``src_dist + w`` is
+    computed before the mask, as in the JAX version, so both wrap alike.
+    """
+    if max_iter is None:
+        max_iter = g.num_nodes + 1
+    state0, step = _setup(g, root, edge_len, dist_dtype)
+    (dist, _), stats = while_loop(step, lambda s: s[1].any(), state0,
                                   max_iter)
     return RelaxResult(dist=dist, iterations=stats.iterations)
+
+
+def min_relax_profiled(g: Graph, root: int,
+                       edge_len: Optional[torch.Tensor] = None,
+                       max_iter: Optional[int] = None,
+                       dist_dtype: torch.dtype = torch.int32) -> RelaxResult:
+    """:func:`min_relax` with a ``superstep[i] time=X ms`` line a superstep
+    (``utils.timing.profile_supersteps``), the ``-GMProfile`` path of
+    hop_dist.  One superstep runs first, untimed and thrown away, as the
+    JAX version compiles its step outside the timings.  ``iterations`` is
+    0, as the JAX version returns it."""
+    if max_iter is None:
+        max_iter = g.num_nodes + 1
+    state0, step = _setup(g, root, edge_len, dist_dtype)
+    step(state0)
+    dist, _ = profile_supersteps(step, state0, lambda s: s[1].any(),
+                                 max_iter)
+    return RelaxResult(dist=dist, iterations=0)
 
 
 def min_relax_np(begin, node_idx, root, edge_len=None):

@@ -84,28 +84,38 @@ def test_cuda_device_without_cuda_exits(capsys):
     assert "CRC" not in capsys.readouterr().out
 
 
+PLACE_ALONE = ("-GMPlace/-GMPlacementFile require -GMNumChips>1 "
+               "(they pin arrays of the distributed placement)")
+
+
 @pytest.mark.parametrize("opts", [
-    ["-GMNumChips=2"], ["-GMProfile"], ["-GMProfile=1"], ["-GMDumpGraph=1"],
-    ["-GMDumpGraph=1", "-GMOutputFormat=EBIN"],
+    ["-GMNumChips=2"],
     ["-GMNumChips=2", "-GMPlacement=replicate"],
     ["-GMNumChips=4", "-GMPlace=dist:replicate"],
     ["-GMNumChips=2", "-GMPlacementFile=placement.json"],
-    ["-GMInputFormat=AVRO"], ["-GMDevice=mps"]])
+    ["-GMPlace=dist:replicate"],
+    ["-GMPlacementFile=placement.json", "-GMNumChips=1"],
+    ["-GMDevice=mps"]])
 def test_unported_options_exit(opts):
-    """What would change the run is refused."""
+    """What would change the run is refused; placement overrides without
+    -GMNumChips>1 exit as in the JAX CLI, with its message."""
     # a later -GMDevice replaces -GMDevice=cpu
     with pytest.raises(SystemExit) as e:
         apps.main(["hop_dist", "-GMDevice=cpu"] + opts + [FIXTURE])
     assert e.value.code not in (0, None)
-    if opts[0].startswith(("-GMNumChips", "-GMProfile", "-GMDumpGraph")):
+    if opts[0].startswith("-GMNumChips"):
         assert all(o.split("=")[0] in str(e.value.code) for o in opts)
+    if opts[0].startswith("-GMPlace"):
+        assert e.value.code == PLACE_ALONE
+        with pytest.raises(SystemExit) as je:
+            japps.main(["hop_dist"] + opts + [FIXTURE])
+        assert je.value.code == PLACE_ALONE
 
 
 @pytest.mark.parametrize("opts", [
-    ["-GMPlacement=replicate"], ["-GMPlace=dist:replicate"],
+    ["-GMPlacement=replicate"],
     ["-GMOutputFormat=EBIN"],
     ["-GMPlacement=distribute", "-GMOutputFormat=BIN"],
-    ["-GMPlacementFile=placement.json", "-GMNumChips=1"],
     ["-GMDumpGraph=0", "-GMOutputFormat=NULL", "-GMProfile=0"]])
 def test_accepted_and_ignored_options(opts, capsys):
     """What the JAX CLI takes and ignores on one device changes nothing."""
@@ -123,9 +133,41 @@ def test_accepted_options_and_usage(capsys):
                                     "-root=3", FIXTURE])
     assert "dist[3] = 0" in lines          # the root's own distance
     assert apps.main([]) == 1
-    # not ported yet
-    assert apps.main(["random_node_sampling", FIXTURE]) == 1
-    assert len(apps.APPS) == 21
+    assert apps.main(["no_such_app", FIXTURE]) == 1
+    assert len(apps.APPS) == 25
+    # the JAX CLI's apps but the two that exist only as compiled .gm
+    assert set(japps.APPS) - set(apps.APPS) == {"adamicAdar", "b2"}
+
+
+@pytest.mark.parametrize("opts", [
+    ["-GMProfile"], ["-GMProfile=1"], ["-GMDumpGraph=1"],
+    ["-GMDumpGraph=1", "-GMOutputFormat=EBIN"], ["-GMInputFormat=AVRO"]])
+def test_profile_dump_and_avro_match_jax_cli(opts, tmp_path, capsys):
+    """-GMProfile, -GMDumpGraph and AVRO input on hop_dist: the result
+    lines, the superstep lines and the written file equal the JAX CLI's."""
+    from green_marl_tpu.graph import avro_io as javro
+    graph = FIXTURE
+    if "-GMInputFormat=AVRO" in opts:
+        raw = jbio.load_binary(FIXTURE)
+        graph = str(tmp_path / "parity10k.avro")
+        javro.store_avro(graph, raw.begin, raw.node_idx)
+    out = {}
+    for name, main, dev in (("jax", japps.main, []),
+                            ("port", apps.main, ["-GMDevice=cpu"])):
+        argv = ["hop_dist"] + dev + opts + [graph]
+        if opts[0].startswith("-GMDumpGraph"):
+            argv.append(str(tmp_path / f"{name}.out"))
+        out[name] = run(capsys, main, argv)
+    assert results(out["port"]) == results(out["jax"])
+    assert "CRC16 dist 0x5003" in out["port"]
+    steps = [[ln.split(" ")[0] for ln in out[k]
+              if ln.startswith("superstep[")] for k in ("jax", "port")]
+    assert steps[0] == steps[1] and (len(steps[1]) > 0) == (
+        "-GMProfile" in opts[0])
+    if opts[0].startswith("-GMDumpGraph"):
+        jf, tf = (open(tmp_path / f"{k}.out", "rb").read()
+                  for k in ("jax", "port"))
+        assert tf == jf and len(tf) > 0
 
 
 def test_sssp_keeps_its_device_weights(capsys):

@@ -926,3 +926,49 @@ def test_path_apps_on_the_card(dev, app, capsys):
         np.testing.assert_allclose(vals["cuda"], vals["cpu"], rtol=1e-5)
     else:
         assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 33 + 5])
+def test_threefry_on_the_card(dev, seed):
+    """The card draws the CPU's bits (and so JAX's)."""
+    from green_marl_tpu_torch.runtime import rng
+    key = rng.PRNGKey(seed)
+    keys = rng.split(key, 5)
+    assert torch.equal(rng.split(key.to(dev), 5).cpu(), keys)
+    for shape in ((), (1,), (100_003,), (17, 33)):
+        assert torch.equal(rng.random_bits(keys.to(dev), shape).cpu(),
+                           rng.random_bits(keys, shape))
+        got = rng.uniform(key.to(dev), shape).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           rng.uniform(key, shape).view(torch.int32))
+        for span in (1, 3, 12345, 2 ** 31 - 1):
+            assert torch.equal(rng.randint(key.to(dev), shape, 0, span).cpu(),
+                               rng.randint(key, shape, 0, span))
+
+
+def test_sampling_on_the_card(dev):
+    """Node samplings, both walks and the matching on the card equal the
+    CPU's bit for bit (degree sums stay below 2^24: exact in any order)."""
+    from green_marl_tpu_torch.models import sampling as S
+    from green_marl_tpu_torch.runtime import rng
+    g = _rmat_graph(20_000, 120_000, 83)
+    gd = g.to(dev)
+    key = rng.PRNGKey(3)
+    for fn in (S.random_node_sampling, S.random_degree_node_sampling):
+        assert torch.equal(fn(gd, key, 500).cpu(), fn(g, key, 500))
+    assert torch.equal(S.random_walk_with_jump(gd, key, 5000).cpu(),
+                       S.random_walk_with_jump(g, key, 5000))
+    starts = torch.arange(0, 20_000, 97, dtype=torch.int32)
+    want = S.parallel_random_walks(g, key, starts, 30)
+    got = S.parallel_random_walks(gd, key, starts.to(dev), 30)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    left = torch.zeros(g.n_pad, dtype=torch.bool)
+    left[:20_000] = g.out_degree()[:20_000] > 2
+    want = S.random_bipartite_matching(g, left)
+    K.reset_launch_counts()
+    got = S.random_bipartite_matching(gd, left.to(dev))
+    assert (K.launch_counts()["segment_reduce_sorted"]
+            == 2 * got.iterations > 0)
+    assert torch.equal(got.match.cpu(), want.match)
+    assert (got.count, got.iterations) == (want.count, want.iterations)
+    assert got.count > 0

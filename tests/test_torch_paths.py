@@ -462,10 +462,29 @@ def test_load_keeps_csr_perm_and_nodekey(tmp_path, adj_fixture):
 
 
 @pytest.mark.parametrize("path", ["hdfs://nn/graph.bin", "gs://b/graph.bin"])
-def test_remote_paths_exit(path):
-    with pytest.raises(SystemExit) as e:
+def test_remote_paths_exit(path, monkeypatch):
+    """A remote input is staged by the ``hdfs`` or ``gsutil`` command; where
+    that command is missing, the port fails as the JAX CLI does, with its
+    message.  The commands are hidden from both packages (and any call of
+    one fails the test), so that nothing here reaches for the network."""
+    import shutil
+    import subprocess
+
+    from green_marl_tpu.graph import fs as jfs
+    from green_marl_tpu_torch.graph import fs as tfs
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"a remote command was started: {args}")
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(subprocess, "run", refuse)
+    assert jfs.subprocess is subprocess and tfs.subprocess is subprocess
+    with pytest.raises(RuntimeError) as e:
         apps.main(["hop_dist", "-GMDevice=cpu", path])
-    assert "remote" in str(e.value.code)
+    with pytest.raises(RuntimeError) as je:
+        japps.main(["hop_dist", path])
+    assert str(e.value) == str(je.value)
+    assert "CLI not available" in str(e.value) and path in str(e.value)
 
 
 def test_path_apps_keep_their_device_tensors(capsys):
