@@ -106,17 +106,40 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    against the JAX CLI's lines, and ``gmc -DS=2 -Dr`` against JAX gmc's
    output.
 
+10. multi-device on one card: 4 shards of one program share the card
+   (``GM_TORCH_VIRTUAL_DEVICES=4``, ``parallel.comm``), on the full-size
+   graph.  The host partition builds (``build_vertex_sharded``,
+   ``build_schedule``: their host seconds and bytes per shard); the
+   vertex-sharded engines against the single-device models (pagerank
+   within rtol 1e-5 and the same supersteps; hop_dist and sssp from phase
+   4's roots bit for bit; the multi-source BFS at B=64, its first 4
+   instances' reached sets against hop_dist's); the compiled pagerank,
+   hop_dist and avg_teen_cnt programs through ``run_vertex_sharded``
+   (distribute) and pagerank and hop_dist through
+   ``distribute.run_sharded`` (replicate) against the models or the
+   one-device compiled run; each with its CUDA-event time beside the
+   single-device run's, its own launches (the engines one segment reduce a
+   shard a superstep) and the memory peak; the segment reduce and the
+   prefix sum against their plain versions on the shards' own slabs (the
+   engine's, the compiled schedule's, and the replicate placement's with
+   its clipped offsets); then pagerank, hop_dist and sssp through the CLI
+   with ``-GMNumChips=4`` under the distribute, engine and replicate
+   placements on parity10k, against the goldens.  The multi-process path
+   (``parallel.multihost``) is not run: NCCL does not take two ranks on
+   one GPU.
+
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
 kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
 the component and path models and the sampling family counted on their own
-too), phase 8 and phase 9 (each compiled call on its own).
+too), phase 8, phase 9 (each compiled call on its own) and phase 10.
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1098,6 +1121,49 @@ Procedure hop_dist(G:Graph, dist:N_P<Int>, root: Node)
 }
 """
 
+# phase 10: the other programs of the CLI's compiled placements and the
+# integer pull-count program (tests/test_torch_lower.py, and the reference's
+# avg_teen_cnt.gm)
+SSSP_GM = """
+Procedure sssp(G:Graph, dist:N_P<Int>, len:E_P<Int>, root: Node)
+{
+    N_P<Bool> updated;
+    N_P<Bool> updated_nxt;
+    N_P<Int>  dist_nxt;
+    Bool fin = False;
+    G.dist = (G == root) ? 0 : +INF;
+    G.updated = (G == root) ? True: False;
+    G.dist_nxt = G.dist;
+    G.updated_nxt = G.updated;
+    While(!fin) {
+        fin = True;
+        Foreach(n: G.Nodes)(n.updated) {
+            Foreach(s: n.Nbrs) {
+                Edge e = s.ToEdge();
+                <s.dist_nxt; s.updated_nxt> min= <n.dist + e.len; True>;
+            }
+        }
+        G.dist = G.dist_nxt;
+        G.updated = G.updated_nxt;
+        G.updated_nxt = False;
+        fin = ! Exist(n: G.Nodes){n.updated};
+    }
+}
+"""
+
+AVG_TEEN_CNT_GM = """
+Procedure avg_teen_cnt(G: Graph, age, teen_cnt: N_P<Int>, K: Int) : Float {
+    Foreach(n: G.Nodes) {
+        n.teen_cnt = Count(t: n.InNbrs)(t.age >= 10 && t.age < 20);
+    }
+    Float avg = (Float) Avg(n: G.Nodes)(n.age > K){ n.teen_cnt };
+    Return avg;
+}
+"""
+
+SHARDS = 4                # phase 10: shards of one program on the card
+MULTI_BFS_B = 64          # phase 10: instances of the sharded bit BFS
+
 # the small programs of phase 9, run on parity10k: name -> (text, kwargs)
 # the small programs of phase 9: name -> (text, kwargs, graph), the graph
 # parity10k (None) or the RMAT (N, E, seed) of generate.rmat_edges; the DFS
@@ -1424,6 +1490,293 @@ def compiled_phase(torch, K, dev, apps, g_host, roots, smi):
     check(rc == 0 and sha == GOLD_GMC_SHA256,
           f"gmc -DS=2 -Dr on hop_dist.gm: rc 0, stdout SHA-256 {sha[:16]}.. "
           "== JAX gmc's")
+    return total
+
+
+def shard_bytes(obj, fields, shards):
+    """Bytes one shard holds of ``obj``'s [S, ...] arrays."""
+    return sum(getattr(obj, f).numel() // shards
+               * getattr(obj, f).element_size() for f in fields)
+
+
+def check_shard_slabs(torch, K, dev, vsg_h, sched_h, g, age):
+    """Each kernel of the sharded path against its plain version on one
+    shard's real inputs: the engine's slab (shard 0: ``dst_local``,
+    ``dst_off``, out [L]), the compiled schedule's (shard 0: ``dst_lpos``,
+    ``csc_off``, out [L+1]) and the replicate placement's (shard 1: the
+    padded CSC slab and its clipped ``csc_offsets()``, millions of empty
+    rows at slot 0 and at E_s, out [n_pad]); float add within rtol 1e-5 of
+    the float64 sum, int32 min and max exactly; the prefix sum on shard 0's
+    integer Count input (avg_teen_cnt's in-neighbour filter) exactly.
+    """
+    from green_marl_tpu_torch.lang.distribute import (_EDGE_FIELDS,
+                                                      pad_edges_for)
+
+    gp = pad_edges_for(g, SHARDS)
+    e_s = gp.e_pad // SHARDS
+    # shard 1's view, as run_sharded gives it to the lowerer
+    gl = dataclasses.replace(gp, e_base=e_s, **{
+        f: getattr(gp, f)[e_s:2 * e_s] for f in _EDGE_FIELDS})
+    slabs = (
+        ("engine shard 0", vsg_h.dst_local[0].to(dev),
+         vsg_h.dst_off[0].to(dev), vsg_h.L),
+        ("schedule shard 0", sched_h.dst_lpos[0].to(dev),
+         sched_h.csc_off[0].to(dev), sched_h.L + 1),
+        ("replicate shard 1", gl.r_node_idx_dst, gl.csc_offsets(),
+         gl.n_pad))
+    gen = torch.Generator(device=dev).manual_seed(LJ_SEED)
+    for what, ids, off, n_out in slabs:
+        e = ids.numel()
+        empty = int((off.diff() == 0).sum())
+        vals = torch.rand(e, generator=gen, device=dev)
+        got = K.segment_reduce_sorted(vals, ids, off, n_out, op="add")
+        want = K.segment_reduce_sorted_ref(vals.double(), ids, off, n_out,
+                                           "add")
+        err = float((got.double() - want).abs().max())
+        ok = torch.allclose(got.double(), want, rtol=1e-5, atol=0.0)
+        ivals = torch.randint(-2**30, 2**30, (e,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        for op in ("min", "max"):
+            ok = ok and torch.equal(
+                K.segment_reduce_sorted(ivals, ids, off, n_out, op=op),
+                K.segment_reduce_sorted_ref(ivals, ids, off, n_out, op))
+        ms = cuda_ms(torch, lambda: K.segment_reduce_sorted(
+            vals, ids, off, n_out, op="add"))
+        plain = cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
+            vals, ids, off, n_out, "add"))
+        check(ok, f"segment_reduce_sorted on the {what} slab (E_s={e}, "
+              f"{off.numel() - 1} rows, {empty} empty): float32 add within "
+              f"rtol 1e-5 of float64 (max abs err {err:.3g}), int32 min "
+              f"and max exactly; add {ms:.3f} ms, plain {plain:.3f} ms")
+    t = 0
+    a = age.index_select(0, sched_h.src_gid[t].to(dev).long())
+    cnt = (sched_h.emask[t].to(dev) & (a >= 10) & (a < 20)).to(torch.int32)
+    got = K.plain_cumsum(cnt, exclusive=True)
+    want = K.plain_cumsum_ref(cnt, exclusive=True)
+    check(torch.equal(got, want),
+          f"plain_cumsum exclusive on schedule shard {t}'s integer Count "
+          f"input (E_s={cnt.numel()}, {int(want[-1])} ones) == plain "
+          f"exactly")
+
+
+def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
+    """Phase 10: SHARDS shards of one program on the card.  Returns the
+    launches of the sharded runs by name."""
+    import tempfile
+    import warnings
+
+    from green_marl_tpu_torch.lang import distribute as D
+    from green_marl_tpu_torch.lang import lower_vertex as LV
+    from green_marl_tpu_torch.lang.lower import compile_source
+    from green_marl_tpu_torch.models.hop_dist import hop_dist
+    from green_marl_tpu_torch.models.pagerank import pagerank
+    from green_marl_tpu_torch.models.relax import INT32_MAX
+    from green_marl_tpu_torch.models.sssp import sssp
+    from green_marl_tpu_torch.parallel import comm
+    from green_marl_tpu_torch.parallel import vertex_sharded as V
+    from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
+
+    os.environ[comm.VIRTUAL_ENV] = str(SHARDS)
+    mesh = comm.vmesh(SHARDS, kind=dev.type)
+    log(f"  mesh: {SHARDS} shards on {sorted({str(d) for d in mesh.devices})}"
+        f" (card: {smi})")
+    t0 = time.time()
+    vsg_h = V.build_vertex_sharded(g_host, SHARDS)
+    t1 = time.time()
+    sched_h = LV.build_schedule(g_host, SHARDS)
+    log(f"  host builds: build_vertex_sharded {t1 - t0:.1f} s "
+        f"(L={vsg_h.L} E_s={vsg_h.E_s} cap={vsg_h.cap} ghost ids "
+        f"{vsg_h.ghost_total}; {shard_bytes(vsg_h, V._FIELDS + ('dst_off',), SHARDS) / 1e9:.3f} "
+        f"GB a shard), build_schedule {time.time() - t1:.1f} s (Lh="
+        f"{sched_h.Lh} E_s={sched_h.E_s} cap={sched_h.cap} ghost ids "
+        f"{sched_h.ghost_total}; "
+        f"{shard_bytes(sched_h, LV._SCHED_FIELDS, SHARDS) / 1e9:.3f} GB a "
+        "shard)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = g_host.to(dev)
+    n = g.num_nodes
+    vsg = V.place(vsg_h, mesh)
+    sched = LV.place_schedule(sched_h, mesh)
+    w_np = np.zeros(g.e_pad, np.int32)
+    w_np[: g.num_edges] = sssp_edge_lengths(g.num_edges)
+    w = torch.from_numpy(w_np).to(dev)
+    w_slab = comm.place_rows(V.shard_edge_prop(vsg, g_host, w_np), mesh)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        """(result, CUDA-event ms, launches by name)."""
+        before = K.launch_counts()
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        ev1.synchronize()
+        return out, ev0.elapsed_time(ev1), launched_since(K, before)
+
+    total = {name: 0 for name in K.launch_counts()}
+
+    def sharded(fn):
+        """timed(fn) for a sharded run: only its launches join the
+        phase's."""
+        out, ms, launched = timed(fn)
+        for name, k in launched.items():
+            total[name] += k
+        return out, ms, launched
+
+    def seg(launched):
+        return launched.get("segment_reduce_sorted", 0)
+
+    one, one_ms, _ = timed(lambda: pagerank(g))
+    (rank, _, it), ms, launched = sharded(
+        lambda: V.pagerank_vsharded(vsg, mesh))
+    err = float((rank - one.rank[:n]).abs().max())
+    check(it == one.iterations and torch.allclose(rank, one.rank[:n],
+                                                  rtol=1e-5, atol=0.0)
+          and seg(launched) == SHARDS * it,
+          f"pagerank_vsharded S={SHARDS}: {it} supersteps == pagerank's, "
+          f"ranks within rtol 1e-5 (max abs err {err:.3g}), "
+          f"{seg(launched)} segment-reduce launches (one a shard a "
+          f"superstep); {ms:.1f} ms beside pagerank {one_ms:.1f} ms (CUDA "
+          f"events)")
+    del rank, one
+    reach = {}
+    for r in roots:
+        one, one_ms, _ = timed(lambda: hop_dist(g, r))
+        (dist, depth), ms, launched = sharded(
+            lambda: V.hop_dist_vsharded(vsg, mesh, r))
+        reach[r] = one.dist[:n] < INT32_MAX
+        check(torch.equal(dist, one.dist[:n])
+              and seg(launched) == SHARDS * depth,
+              f"hop_dist_vsharded root {r}: == hop_dist bit for bit "
+              f"({depth} levels, {seg(launched)} segment-reduce launches); "
+              f"{ms:.1f} ms beside hop_dist {one_ms:.1f} ms")
+        one, one_ms, _ = timed(lambda: sssp(g, r, w))
+        (dist, it), ms, launched = sharded(
+            lambda: V.sssp_vsharded(vsg, mesh, w_slab, r))
+        check(torch.equal(dist, one.dist[:n])
+              and seg(launched) == SHARDS * it,
+              f"sssp_vsharded root {r}: == sssp bit for bit ({it} "
+              f"supersteps, {seg(launched)} segment-reduce launches); "
+              f"{ms:.1f} ms beside sssp {one_ms:.1f} ms")
+    del dist, one
+    deg = np.diff(g_host.begin.numpy())
+    roots_b = np.concatenate([roots, np.argsort(deg)[::-1][
+        len(roots):MULTI_BFS_B]]).astype(np.int32)
+    (vis, depth), ms, _ = sharded(lambda: V.multi_bfs_vsharded(vsg, mesh,
+                                                                roots_b))
+    same = all(torch.equal(((vis[:, 0] >> b) & 1).bool(), reach[r])
+               for b, r in enumerate(roots))
+    check(same and vis.shape == (n, MULTI_BFS_B // 32),
+          f"multi_bfs_vsharded B={MULTI_BFS_B}: instances 0-3 reach what "
+          f"hop_dist reaches from phase 4's roots ({depth} levels, "
+          f"{ms:.1f} ms; its OR reduction is plain PyTorch)")
+    del vis
+
+    def quiet(text):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return compile_source(text)
+
+    pr, hd, at = quiet(PAGERANK_GM), quiet(HOP_DIST_GM), \
+        quiet(AVG_TEEN_CNT_GM)
+    one, one_ms, _ = timed(lambda: pagerank(g, e=1e-7, d=0.85,
+                                            max_iter=100))
+    for place, run in (("distribute", lambda: LV.run_vertex_sharded(
+            pr, g, mesh=mesh, sched=sched, e=1e-7, d=0.85, max=100)),
+            ("replicate", lambda: D.run_sharded(
+                pr, g, mesh=mesh, e=1e-7, d=0.85, max=100))):
+        out, ms, launched = sharded(run)
+        out = out["pg_rank"][:n]
+        err = float((out - one.rank[:n]).abs().max())
+        check(torch.allclose(out, one.rank[:n], rtol=1e-4, atol=0.0)
+              and seg(launched) > 0,
+              f"compiled pagerank ({place}, S={SHARDS}) e=1e-7: within "
+              f"rtol 1e-4 of pagerank (max abs err {err:.3g}), "
+              f"{seg(launched)} segment-reduce launches; {ms:.1f} ms beside "
+              f"pagerank {one_ms:.1f} ms")
+    del one, out
+    r = roots[0]
+    one, one_ms, _ = timed(lambda: hop_dist(g, r))
+    for place, run in (("distribute", lambda: LV.run_vertex_sharded(
+            hd, g, mesh=mesh, sched=sched, root=r)),
+            ("replicate", lambda: D.run_sharded(hd, g, mesh=mesh, root=r))):
+        out, ms, launched = sharded(run)
+        # distribute keys its `min= ... @ s` by the slab's sorted
+        # destinations (the kernel); replicate scatters, as one device does
+        check(torch.equal(out["dist"][:n], one.dist[:n])
+              and (seg(launched) > 0) == (place == "distribute"),
+              f"compiled hop_dist ({place}, S={SHARDS}) root {r}: == "
+              f"hop_dist bit for bit, {seg(launched)} segment-reduce "
+              f"launches; {ms:.1f} ms beside hop_dist {one_ms:.1f} ms")
+    del one, out
+    age = torch.from_numpy(np.random.default_rng(LJ_SEED).integers(
+        5, 40, g.n_pad).astype(np.int32)).to(dev)
+    one, one_ms, _ = timed(lambda: at(g, age=age, K=15))
+    out, ms, launched = sharded(lambda: LV.run_vertex_sharded(
+        at, g, mesh=mesh, sched=sched, age=age, K=15))
+    cnt = launched.get("plain_cumsum", 0)
+    check(torch.equal(out["teen_cnt"], one["teen_cnt"])
+          and abs(float(out["_return"]) - float(one["_return"]))
+          <= 1e-5 * abs(float(one["_return"])) and cnt == SHARDS,
+          f"compiled avg_teen_cnt (distribute, S={SHARDS}): teen counts == "
+          f"the one-device compiled run's, avg {float(out['_return']):.6f} "
+          f"within rtol 1e-5; the integer Count launches plain_cumsum once "
+          f"a shard ({cnt}); {ms:.1f} ms beside {one_ms:.1f} ms")
+    del one, out
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del w, w_slab, vsg, sched
+    torch.cuda.empty_cache()
+    check_shard_slabs(torch, K, dev, vsg_h, sched_h, g, age)
+    del g, age, vsg_h, sched_h
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        for name, text in (("pagerank", PAGERANK_GM),
+                           ("hop_dist", HOP_DIST_GM), ("sssp", SSSP_GM)):
+            with open(os.path.join(d, f"{name}.gm"), "w") as f:
+                f.write(text)
+        apps.REFERENCE_APPS = d
+        for place in ("distribute", "engine", "replicate"):
+            argv = [f"-GMDevice={dev.type}", f"-GMNumChips={SHARDS}",
+                    f"-GMPlacement={place}", FIXTURE]
+            runs = {}
+            for app in ("hop_dist", "sssp", "pagerank"):
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    runs[app], _, launched = sharded(
+                        lambda: run_cli(apps, [app] + argv))
+                # replicate's hop_dist and sssp relax by scatters
+                want = place != "replicate" or app == "pagerank"
+                check((seg(launched) > 0) == want
+                      and ("ghost exchange" in err.getvalue()
+                           or place == "replicate"),
+                      f"{app} -GMNumChips={SHARDS} -GMPlacement={place}: "
+                      f"{seg(launched)} segment-reduce launches"
+                      + ("" if place == "replicate" else
+                         ", the placement report on stderr"))
+            check(field(runs["hop_dist"], r"^CRC16 dist (\S+)")
+                  == GOLD_HOP_CRC16,
+                  f"hop_dist -GMNumChips={SHARDS} -GMPlacement={place}: "
+                  f"CRC16 dist {GOLD_HOP_CRC16}")
+            dist = [int(field(runs["sssp"], rf"^dist\[{i}\] = (\S+)"))
+                    for i in range(4)]
+            check(field(runs["sssp"], r"^CRC16 dist (\S+)")
+                  == GOLD_SSSP_CRC16 and dist == GOLD_SSSP_DIST,
+                  f"sssp -GMNumChips={SHARDS} -GMPlacement={place}: CRC16 "
+                  f"dist {GOLD_SSSP_CRC16}, dist[0..3] = {GOLD_SSSP_DIST}")
+            rank = [float(field(runs["pagerank"], rf"^rank\[{i}\] = (\S+)"))
+                    for i in range(4)]
+            check(np.allclose(rank, GOLD_RANK, rtol=RANK_RTOL, atol=0.0),
+                  f"pagerank -GMNumChips={SHARDS} -GMPlacement={place}: "
+                  f"rank[0..3] within {RANK_RTOL} of {GOLD_RANK}")
+    torch.cuda.synchronize()
+    log(f"  device memory peak over the full-size runs {peak:.2f} GB")
+    log("  not run on the card: the multi-process path (parallel.multihost, "
+        "torch.distributed): NCCL does not take two ranks on one GPU; its "
+        "gloo form runs on the CPU in tests/test_torch_distribute.py")
     return total
 
 
@@ -2057,13 +2410,26 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.time()
     counts_compiled = compiled_phase(torch, K, dev, apps, g_host, roots, smi)
-    del g_host
     log(f"  compiled programs {time.time() - t0:.1f} s; launches "
         f"{counts_compiled}")
     check(counts_compiled["segment_reduce_sorted"] > 0,
           f"segment_reduce_sorted launched by the compiled programs "
           f"({counts_compiled['segment_reduce_sorted']} times)")
     for name, n in counts_compiled.items():
+        counts[name] += n
+
+    # -- 10. multi-device on one card -------------------------------------
+    log(f"== 10. multi-device on one card: {SHARDS} shards (card: {smi})")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    counts_sharded = sharded_phase(torch, K, dev, apps, g_host, roots, smi)
+    del g_host
+    log(f"  multi-device {time.time() - t0:.1f} s; launches "
+        f"{counts_sharded}")
+    for name in ("segment_reduce_sorted", "plain_cumsum"):
+        check(counts_sharded[name] > 0, f"{name} launched by the sharded "
+              f"runs ({counts_sharded[name]} times)")
+    for name, n in counts_sharded.items():
         counts[name] += n
     log(f"total {time.time() - t_all:.1f} s")
 

@@ -19,6 +19,17 @@ threefry stream with ``PRNGKey(0)``), random_bipartite_matching
 With ``-GMProfile``, pagerank and hop_dist time each superstep.  A path to
 a ``.gm`` file in place of an app compiles it and makes its declared
 schema the command line (``make_custom``).
+
+``-GMNumChips=k`` (k > 1) runs pagerank, hop_dist, sssp, conduct,
+avg_teen_cnt and ``.gm`` files on k shards, as ``-GMPlacement`` says:
+``distribute`` (the default) runs the compiled ``.gm`` program
+vertex-sharded (``lang.lower_vertex``), ``engine`` the hand-written
+vertex-sharded supersteps (``parallel.vertex_sharded``; pagerank, hop_dist,
+sssp), ``replicate`` the compiled program edge-sharded with node state
+replicated (``lang.distribute``).  The named apps compile the reference's
+sources from ``GM_REFERENCE_APPS`` for the compiled placements.
+``-GMPlace=arr:policy`` and ``-GMPlacementFile`` pin arrays of the
+distribute placement.  The placement report goes to stderr.
 """
 
 from __future__ import annotations
@@ -82,6 +93,127 @@ def _profile(ctx: RunContext) -> bool:
     return True
 
 
+def _num_chips(ctx: RunContext) -> int:
+    """-GMNumChips: the shard count of the sharded paths (the
+    -GMNumThreads analog; reference common_main.h:29-230)."""
+    k = ctx.options.get_option("GMNumChips") if ctx.options else None
+    return int(k) if k else 1
+
+
+def _placement(ctx: RunContext) -> str:
+    p = (ctx.options.get_option("GMPlacement")
+         if ctx.options else None) or "distribute"
+    return p.lower()
+
+
+def _placement_overrides(ctx: RunContext) -> Dict[str, str]:
+    """Per-array placement overrides from -GMPlace / -GMPlacementFile
+    (Shoal's local_array_settings.lua, run.sh:218-246)."""
+    ov: Dict[str, str] = {}
+    o = ctx.options
+    if o is None:
+        return ov
+    f = o.get_option("GMPlacementFile")
+    if f:
+        import json
+        try:
+            with open(f) as fh:
+                loaded = json.load(fh)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"-GMPlacementFile={f}: {e}")
+        if not isinstance(loaded, dict):
+            raise SystemExit(
+                f"-GMPlacementFile={f}: expected a JSON object "
+                "{\"arr\": \"policy\"}")
+        ov.update({str(k): str(v) for k, v in loaded.items()})
+    p = o.get_option("GMPlace")
+    if p:
+        for item in p.split(","):
+            if ":" not in item:
+                raise SystemExit(
+                    f"-GMPlace expects arr:policy, got '{item}'")
+            k, v = item.split(":", 1)
+            ov[k.strip()] = v.strip()
+    return ov
+
+
+def _resolve_cp(gm_app):
+    """An app name (compiled from the reference's source) or an already
+    compiled ``CompiledProc`` (a ``.gm`` file's main)."""
+    return _compile_reference(gm_app) if isinstance(gm_app, str) else gm_app
+
+
+def _no_overrides(ctx: RunContext, policy: str) -> None:
+    """Per-array overrides apply only under the distribute policy: exit
+    instead of silently ignoring the flag."""
+    ov = _placement_overrides(ctx)
+    if ov:
+        raise SystemExit(
+            f"-GMPlace/-GMPlacementFile overrides ({', '.join(ov)}) "
+            f"apply only with -GMPlacement=distribute, not "
+            f"'{policy}'")
+
+
+def _mesh(ctx: RunContext, k: int):
+    """A 1-D mesh of k shards on -GMDevice's kind of device; exits when
+    there are fewer devices (nothing runs on fewer shards)."""
+    from ..parallel import comm
+    devs = comm.devices(ctx.graph.device.type)
+    if len(devs) < k:
+        raise SystemExit(
+            f"-GMNumChips={k}: only {len(devs)} devices "
+            f"(set {comm.VIRTUAL_ENV}=<shards per device> for a virtual "
+            "mesh)")
+    return comm.Mesh(devs[:k], ("v",))
+
+
+def _run_replicated(ctx: RunContext, gm_app, k: int, **kw):
+    """-GMPlacement=replicate: the compiled program with the edge arrays
+    sharded over k shards and node state replicated + psum (the round-1
+    scheme, Shoal's baseline config)."""
+    from ..lang import distribute
+    _no_overrides(ctx, "replicate")
+    mesh = _mesh(ctx, k)
+    cp = _resolve_cp(gm_app)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return distribute.run_sharded(cp, ctx.graph, mesh=mesh, **kw)
+
+
+def _vsharded(ctx: RunContext, k: int):
+    """-GMPlacement=engine: the hand-written vertex-sharded engine's
+    placed partition, its report on stderr."""
+    from ..parallel import vertex_sharded as V
+    _no_overrides(ctx, "engine")
+    mesh = _mesh(ctx, k)
+    vsg = V.place(V.build_vertex_sharded(ctx.graph, k), mesh)
+    print(V.placement_report(vsg, mesh), file=sys.stderr)
+    return vsg, mesh
+
+
+def _run_compiled_vsharded(ctx: RunContext, gm_app, k: int, **kw):
+    """-GMPlacement=distribute (default): the COMPILED program executed
+    vertex-sharded (owned [N/S] node slabs + a cut-sized ghost exchange
+    inside the lowerer, ``lang.lower_vertex``), the GPS backend's
+    capability."""
+    from ..lang import lower_vertex as LV
+    from ..lang.lower import LowerError
+    mesh = _mesh(ctx, k)
+    sched = LV.place_schedule(LV.build_schedule(ctx.graph, k), mesh)
+    ov = _placement_overrides(ctx)
+    print(LV.placement_report(sched, placements=ov), file=sys.stderr)
+    cp = _resolve_cp(gm_app)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            return LV.run_vertex_sharded(cp, ctx.graph, mesh=mesh,
+                                         sched=sched, placements=ov, **kw)
+        except LowerError as e:
+            if ov:
+                raise SystemExit(f"placement override error: {e}")
+            raise
+
+
 def make_pagerank() -> UserMain:
     m = UserMain("pagerank", "PageRank power iteration (pagerank.gm)")
     m.declare_scalar("max_iter", bio.GMTYPE_INT, True, False, default=100)
@@ -90,6 +222,22 @@ def make_pagerank() -> UserMain:
     m.declare_property("rank", bio.GMTYPE_DOUBLE, False, True, GM_NODEPROP)
 
     def run(ctx: RunContext) -> Dict:
+        k = _num_chips(ctx)
+        e, d = float(ctx.scalars["e"]), float(ctx.scalars["d"])
+        max_iter = int(ctx.scalars["max_iter"])
+        if k > 1 and _placement(ctx) == "replicate":
+            out = _run_replicated(ctx, "pagerank", k, e=e, d=d, max=max_iter)
+            return {"rank": _host(out["pg_rank"])}
+        if k > 1 and _placement(ctx) == "engine":
+            from ..parallel.vertex_sharded import pagerank_vsharded
+            vsg, mesh = _vsharded(ctx, k)
+            rank, _, _ = pagerank_vsharded(vsg, mesh, e=e, d=d,
+                                           max_iter=max_iter)
+            return {"rank": _host(rank)}
+        if k > 1:
+            out = _run_compiled_vsharded(ctx, "pagerank", k, e=e, d=d,
+                                         max=max_iter)
+            return {"rank": _host(out["pg_rank"])}
         from ..models import pagerank as pr
         fn = pr.pagerank
         if _profile(ctx):
@@ -110,6 +258,19 @@ def make_hop_dist() -> UserMain:
                        dump_count=10)  # hop_dist_main.cc prints dist[0..9]
 
     def run(ctx: RunContext) -> Dict:
+        k = _num_chips(ctx)
+        if k > 1 and _placement(ctx) == "replicate":
+            out = _run_replicated(ctx, "hop_dist", k, root=_root(ctx))
+            return {"dist": _host(out["dist"])}
+        if k > 1 and _placement(ctx) == "engine":
+            from ..parallel.vertex_sharded import hop_dist_vsharded
+            vsg, mesh = _vsharded(ctx, k)
+            dist, _ = hop_dist_vsharded(vsg, mesh, _root(ctx))
+            return {"dist": _host(dist)}
+        if k > 1:
+            out = _run_compiled_vsharded(ctx, "hop_dist", k,
+                                         root=_root(ctx))
+            return {"dist": _host(out["dist"])}
         if _profile(ctx):
             from ..models.relax import min_relax_profiled
             res = min_relax_profiled(ctx.graph, _root(ctx))
@@ -149,8 +310,24 @@ def make_sssp() -> UserMain:
                        dump_count=10)
 
     def run(ctx: RunContext) -> Dict:
+        w = _device_weights(ctx, "len")
+        k = _num_chips(ctx)
+        if k > 1 and _placement(ctx) == "engine":
+            from ..parallel import comm, vertex_sharded as V
+            vsg, mesh = _vsharded(ctx, k)
+            w_slab = comm.place_rows(V.shard_edge_prop(vsg, ctx.graph, w),
+                                     mesh)
+            dist, _ = V.sssp_vsharded(vsg, mesh, w_slab, _root(ctx))
+            return {"dist": _host(dist)}
+        if k > 1 and _placement(ctx) == "replicate":
+            out = _run_replicated(ctx, "sssp", k, len=w, root=_root(ctx))
+            return {"dist": _host(out["dist"])}
+        if k > 1:
+            out = _run_compiled_vsharded(ctx, "sssp", k, len=w,
+                                         root=_root(ctx))
+            return {"dist": _host(out["dist"])}
         from ..models.sssp import sssp
-        res = sssp(ctx.graph, _root(ctx), _device_weights(ctx, "len"))
+        res = sssp(ctx.graph, _root(ctx), w)
         return {"dist": res.dist.cpu().numpy()}
 
     m.set_run(run)
@@ -242,6 +419,13 @@ def make_conduct() -> UserMain:
     def run(ctx: RunContext) -> Dict:
         from ..models.conductance import conductance
         member = _device_member(ctx, "member", ctx.node_props.get("member"))
+        k = _num_chips(ctx)
+        if k > 1:
+            # conduct.gm is a pure reduction program: the compiled
+            # vertex-sharded path covers it
+            out = _run_compiled_vsharded(ctx, "conduct", k, member=member,
+                                         num=int(ctx.scalars["num"]))
+            return {"return": float(out["_return"])}
         return {"return": float(conductance(ctx.graph, member,
                                             int(ctx.scalars["num"])))}
 
@@ -292,8 +476,14 @@ def make_avg_teen_cnt() -> UserMain:
     def run(ctx: RunContext) -> Dict:
         from ..models.analytics import avg_teen_cnt
         g = ctx.graph
-        avg, _ = avg_teen_cnt(g, g.node_prop(10, torch.int32),
-                              int(ctx.scalars["K"]))
+        age = g.node_prop(10, torch.int32)
+        k = _num_chips(ctx)
+        if k > 1:
+            out = _run_compiled_vsharded(ctx, "avg_teen_cnt", k,
+                                         K=int(ctx.scalars["K"]), age=age)
+            avg = float(out["_return"])
+        else:
+            avg, _ = avg_teen_cnt(g, age, int(ctx.scalars["K"]))
         print(f"avg = {float(avg):0.9f}")
         return {"return": float(avg)}
 
@@ -761,7 +951,13 @@ def make_custom(path: str) -> UserMain:
                               a.dtype)
             padded[: a.shape[0]] = a
             kw[nm] = padded
-        out = cp(g, **kw)
+        k = _num_chips(ctx)
+        if k > 1 and _placement(ctx) == "replicate":
+            out = _run_replicated(ctx, cp, k, **kw)
+        elif k > 1:
+            out = _run_compiled_vsharded(ctx, cp, k, **kw)
+        else:
+            out = cp(g, **kw)
         res = {nm: _host(out[nm]) for nm in out_props if nm in out}
         if "_return" in out:
             res["return"] = _host(out["_return"])

@@ -1,7 +1,7 @@
 """Default usermain: graph in, run the procedure, results out.
 
 Counterpart of ``green_marl_tpu/cli/usermain.py`` (the reference's
-``gm_default_usermain.cc``) on one device: BIN, EBIN, EDGE, ADJ and AVRO
+``gm_default_usermain.cc``): BIN, EBIN, EDGE, ADJ and AVRO
 input, local or staged from ``hdfs://`` / ``gs://`` (``graph.fs``); with
 ``-GMDumpGraph=1`` and an ``OutputName`` the graph and the output
 properties are written as ``-GMOutputFormat`` says (BIN, NULL, EBIN, EDGE,
@@ -17,6 +17,10 @@ reads (``scripts/extract_result.py``):
 
 ``-GMDevice`` (default ``cuda``) picks the torch device.  Without CUDA,
 ``-GMDevice=cuda`` exits with an error: it never drops to the CPU.
+``-GMNumChips=k`` runs pagerank, hop_dist, sssp, conduct, avg_teen_cnt and
+``.gm`` files on k shards (``cli.apps``, ``-GMPlacement``): k devices of
+``-GMDevice``'s kind, or fewer with ``GM_TORCH_VIRTUAL_DEVICES`` shards on
+each.
 """
 
 from __future__ import annotations
@@ -50,14 +54,6 @@ _TYPE_NAMES = {
     bio.GMTYPE_FLOAT: float, bio.GMTYPE_DOUBLE: float,
     bio.GMTYPE_NODE: int, bio.GMTYPE_EDGE: int,
 }
-
-# Options of the JAX CLI's multi-device path, not ported yet, with its
-# types and defaults.  Accepted by the parser; refused where they would
-# change the run (see ``_check_not_ported``).
-_NOT_PORTED = (("GMNumChips", int, None),
-               ("GMPlacement", str, "distribute"), ("GMPlace", str, None),
-               ("GMPlacementFile", str, None))
-
 
 @dataclass
 class Schema:
@@ -120,14 +116,33 @@ class UserMain:
                           "ADJ|EDGE|BIN|EBIN|AVRO")
         self.O.add_option("GMOutputFormat", str, "NULL",
                           "BIN|EBIN|EDGE|NODE_PROP|AVRO|NULL")
+        self.O.add_option("GMNumChips", int, None,
+                          "Number of shards (mesh size); more shards than "
+                          "devices need GM_TORCH_VIRTUAL_DEVICES")
+        self.O.add_option("GMPlacement", str, "distribute",
+                          "Sharded-run array placement policy: "
+                          "'distribute' = vertex-sharded O(N/S) owned "
+                          "state + ghost all_to_all; 'replicate' = "
+                          "replicated node state + psum combine (the "
+                          "Shoal -d vs baseline configs, run.sh:66-105); "
+                          "'engine' = the hand-written vertex-sharded "
+                          "supersteps")
+        self.O.add_option("GMPlace", str, None,
+                          "Per-array placement override(s), "
+                          "'arr:policy[,arr:policy...]' with policy "
+                          "replicate|distribute (Shoal "
+                          "local_array_settings.lua analog, "
+                          "run.sh:218-246)")
+        self.O.add_option("GMPlacementFile", str, None,
+                          "JSON file {\"arr\": \"policy\", ...} of "
+                          "per-array placement overrides "
+                          "(generate_settings.py analog)")
         self.O.add_option("GMNumThreads", int, None,
                           "Accepted for reference-CLI compatibility")
         self.O.add_option("GMDumpGraph", int, "0",
                           "1: write output graph/props file")
         self.O.add_option("GMDumpValues", int, "4",
                           "How many leading output values to print")
-        for name, typ, default in _NOT_PORTED:
-            self.O.add_option(name, typ, default, "not yet ported")
         self.O.add_argument("InputName", "Input graph filename")
         self.O.add_argument("OutputName", "[optional] Output filename")
 
@@ -150,24 +165,17 @@ class UserMain:
         self.run_fn = fn
 
     # -- pipeline --------------------------------------------------------
-    def _check_not_ported(self) -> None:
-        """Exit as the JAX CLI does on ``-GMPlace`` or ``-GMPlacementFile``
-        without ``-GMNumChips>1``, and on ``-GMNumChips>1``, whose path is
-        not ported.  ``-GMPlacement`` alone changes nothing on one device,
-        in the JAX CLI too."""
+    def _check_placement(self) -> None:
+        """Per-array overrides act only on the sharded distribute path: a
+        single-device run would silently ignore them, so it exits (as the
+        JAX CLI does).  ``-GMPlacement`` alone changes nothing on one
+        device."""
         opt = self.O.get_option
         if ((opt("GMPlace") or opt("GMPlacementFile"))
                 and int(opt("GMNumChips") or 1) <= 1):
             raise SystemExit(
                 "-GMPlace/-GMPlacementFile require -GMNumChips>1 "
                 "(they pin arrays of the distributed placement)")
-        if (opt("GMNumChips") or 0) > 1:
-            refused = ["GMNumChips"] + [
-                n for n in ("GMPlacement", "GMPlace", "GMPlacementFile")
-                if self.O.given(n)]
-            raise SystemExit(
-                ", ".join(f"-{n}={opt(n)}" for n in refused)
-                + ": not yet ported to green_marl_tpu_torch")
 
     def load(self, device: torch.device) -> RunContext:
         fmt = self.O.get_option("GMInputFormat").upper()
@@ -232,7 +240,7 @@ class UserMain:
         argv = list(sys.argv[1:] if argv is None else argv)
         if not self.O.parse(argv):
             return 1
-        self._check_not_ported()
+        self._check_placement()
         device = resolve_device(self.O.get_option("GMDevice"))
         if self.run_fn is None:
             raise RuntimeError("set_run() not called")

@@ -77,10 +77,6 @@ class UserOpt:
     def has_option(self, name: str) -> bool:
         return name in self._values or self._opts[name].default is not None
 
-    def given(self, name: str) -> bool:
-        """True when ``-name`` stood on the command line."""
-        return name in self._values
-
     def get_arg(self, i: int) -> Optional[str]:
         return self._arg_values[i] if i < len(self._arg_values) else None
 

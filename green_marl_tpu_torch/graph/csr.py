@@ -52,6 +52,13 @@ class Graph:
     num_nodes: int
     num_edges: int
 
+    # Distributed execution (``lang.distribute``): when this Graph is one
+    # shard's edge *slab* of a mesh-sharded graph, ``e_base`` is the global
+    # slot index of local slot 0 and the ``*_idx`` arrays hold only this
+    # shard's slab, while ``begin``/``r_begin`` stay global.  None for an
+    # ordinary graph.
+    e_base: Optional[int] = None
+
     @property
     def n_pad(self) -> int:
         """Padded property length: sentinel id ``num_nodes`` is in range."""
@@ -89,7 +96,24 @@ class Graph:
 
     def edge_mask(self) -> torch.Tensor:
         """[E_pad] bool, True for real edges (CSR and CSC share E)."""
-        return torch.arange(self.e_pad, device=self.device) < self.num_edges
+        slots = torch.arange(self.e_pad, device=self.device)
+        if self.e_base is not None:
+            slots = slots + self.e_base
+        return slots < self.num_edges
+
+    def csr_offsets(self) -> torch.Tensor:
+        """``begin`` clipped to this shard's slab: segment offsets valid for
+        the local ``node_idx``/``node_idx_src`` arrays.  ``begin`` itself on
+        an ordinary graph."""
+        if self.e_base is None:
+            return self.begin
+        return (self.begin - self.e_base).clamp(0, self.e_pad)
+
+    def csc_offsets(self) -> torch.Tensor:
+        """``r_begin`` clipped to this shard's slab (see csr_offsets)."""
+        if self.e_base is None:
+            return self.r_begin
+        return (self.r_begin - self.e_base).clamp(0, self.e_pad)
 
     def out_degree(self) -> torch.Tensor:
         """[N_pad] edge_t; reference ``OutDegree()``."""

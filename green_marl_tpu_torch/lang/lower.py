@@ -583,10 +583,15 @@ class Lowerer:
     # (select_par), fine at test scale, unusable beyond it.
     _EAGER_SCALE_LIMIT = 100_000
 
-    def __init__(self, proc: A.Procedure, g: Graph):
+    def __init__(self, proc: A.Procedure, g: Graph, axis=None):
         self.proc = proc
         self.g = g
         self.dev = g.device
+        # Distributed lowering (lang.distribute, lang.lower_vertex): ``axis``
+        # is the shard's ``parallel.comm.Axis``; edge arrays are local slabs
+        # and every edge-space reduction finishes with a psum/pmin/pmax over
+        # it (the GPS backend's per-superstep message combine).
+        self.axis = axis
         self.graphs: Set[str] = set()
         # collection registry: name -> "NSET"|"NSEQ"|"NORDER"|"MAP"|...
         self.collections: Dict[str, str] = {}
@@ -625,18 +630,48 @@ class Lowerer:
         # so that their ids stay theirs
         self._concrete: Optional[Set[int]] = None
         self._concrete_refs: list = []
+        if axis is not None:
+            # JAX traces the whole procedure under shard_map: every value
+            # of a sharded run counts as traced
+            self._concrete = set()
         self._iota_n = torch.arange(g.n_pad, dtype=_I32, device=self.dev)
         self._iota_e = torch.arange(g.e_pad, dtype=_I32, device=self.dev)
-        # index tensors known to lie in [0, N_pad) and in [0, E_pad)
+        # index tensors known to lie in [0, N_pad) and in [0, E_pad); a
+        # slab's e_rev2idx holds global slots
         self._safe_n = {id(getattr(g, f)) for f in (
-            "node_idx", "node_idx_src", "r_node_idx", "r_node_idx_dst")}
+            "node_idx", "node_idx_src", "r_node_idx", "r_node_idx_dst")
+            if hasattr(g, f)}
         self._safe_n.add(id(self._iota_n))
-        self._safe_e = {id(g.e_rev2idx), id(self._iota_e)}
+        self._safe_e = {id(self._iota_e)}
+        if getattr(g, "e_base", None) is None and hasattr(g, "e_rev2idx"):
+            self._safe_e.add(id(g.e_rev2idx))
 
     # ---- entry ------------------------------------------------------------
     def run(self, env: Dict) -> Dict:
         self.exec_stmt(self.proc.body, env, None)
         return env
+
+    # ---- cross-shard combine (distributed lowering) ------------------------
+    def _pcomb(self, x, sub: str):
+        """Combine per-shard partial edge reductions over the mesh axis."""
+        if self.axis is None:
+            return x
+        f = {"add": self.axis.psum, "min": self.axis.pmin,
+             "max": self.axis.pmax}.get(sub)
+        if f is None:
+            raise LowerError(
+                f"{sub} reduction not supported in distributed lowering")
+        return f(x)
+
+    def _no_random_read(self, what: str):
+        """Random-access reads are infeasible under edge sharding, as the
+        reference's distributed backend rejects them
+        (``gm_gps_new_check_random_read.cc``)."""
+        if self.axis is not None:
+            raise LowerError(
+                f"{what} is a random edge-space read; not supported in "
+                "distributed lowering (the reference GPS backend rejects "
+                "these too)")
 
     # ---- small helpers ------------------------------------------------------
     def _c(self, v, dtype):
@@ -674,7 +709,8 @@ class Lowerer:
         if self._concrete is not None:
             yield
             return
-        refs = [getattr(self.g, f) for f in ARRAY_FIELDS]
+        refs = [getattr(self.g, f) for f in ARRAY_FIELDS
+                if hasattr(self.g, f)]
         refs += [self._iota_n, self._iota_e]
         for k, v in env.items():
             if k not in carried:
@@ -703,6 +739,9 @@ class Lowerer:
         ``uniform(fold_in(fold_in(PRNGKey(0), cnt), site), shape)``.  Every
         call site has a stream id numbered as JAX's trace numbers it, and
         every dynamic draw bumps a counter carried through loops."""
+        if self.axis is not None:
+            raise LowerError("RNG draws not supported in distributed "
+                             "lowering yet")
         cnt = env.get(_RNG)
         if cnt is None:
             cnt = self._c(0, torch.int64)
@@ -758,8 +797,12 @@ class Lowerer:
             raise LowerError(f"unbound symbol {name}")
         v = env[name]
         # parent-node-ctx local vector read from edge ctx: gather at the
-        # outer endpoint
+        # outer endpoint.  A local of the edge ctx itself is already per
+        # slot, even where a slab's slot count equals N_pad (the JAX
+        # package gathers it too, and so runs sssp.gm wrong edge-sharded
+        # 8 ways on a graph of 10,000 nodes and 80,000 edges)
         if (ctx is not None and ctx.kind == "edge"
+                and name not in ctx.locals
                 and isinstance(v, torch.Tensor)
                 and v.dim() == 1 and v.shape[0] == self.g.n_pad):
             return self._take(v, ctx.outer_ids)
@@ -833,6 +876,11 @@ class Lowerer:
             # host-native execution: the text is compiled by g++ and
             # called on concrete values (lang/foreign.py); inside a
             # parallel Foreach the compiled wrapper loops the masked lanes
+            if self.axis is not None:
+                raise LowerError(
+                    "foreign C++ expression inside a sharded "
+                    "context is not lowerable (the reference GPS "
+                    "backend rejects foreign text too)")
             from . import foreign as _foreign
             try:
                 return _foreign.eval_expr(self, e, env, ctx=ctx)
@@ -1020,6 +1068,7 @@ class Lowerer:
         if name == "pickrandomnbr":
             # uniform over the driver's out-neighbor row; callers guard
             # Degree()==0 themselves (random_walk_sampling...gm)
+            self._no_random_read("PickRandomNbr")
             deg = self._take(g.out_degree(), ids)
             u = self._rng_uniform(env, ctx, shape=tuple(self._a(ids).shape))
             off = torch.floor(u * deg).to(_I32)
@@ -1038,9 +1087,12 @@ class Lowerer:
         if name in ("tonode", "to"):
             return self._take(g.node_idx, ids)
         if name == "hasedgeto":
+            self._no_random_read("HasEdgeTo")
             dst = self.eval(e.args[0], env, ctx)
             return _has_edge_to(g, ids, dst)
         if name in ("hasedgefrom", "isnbrfrom"):
+            self._no_random_read("HasEdgeFrom" if name == "hasedgefrom"
+                                 else "IsNbrFrom")
             src = self.eval(e.args[0], env, ctx)
             idv, src = torch.broadcast_tensors(self._a(ids), self._a(src))
             return _has_edge_to(g, src, idv)
@@ -1165,6 +1217,7 @@ class Lowerer:
         membership in y's row — the sorted-intersection iterator
         (``gm_cpp_opt_common_nbr.cc``) as a neighbor context plus a
         binary-search membership test over the semi-sorted CSR rows."""
+        self._no_random_read("CommonNbrs")
         it2 = dataclasses.replace(it, iter_type="NBRS")
         ectx = self._edge_ctx(it2, env, ctx)
         other = self._ident(it.common_with, env,
@@ -1238,31 +1291,33 @@ class Lowerer:
                 raise LowerError("Product over neighbors not lowerable yet")
         if ectx.inner_is_edge or ectx.parent is None:
             # whole-edge-set or scalar-source neighborhood -> scalar
+            _sub = {"SUM": "add", "MIN": "min", "MAX": "max"}
             red = {"SUM": _sum, "MIN": torch.min, "MAX": torch.max}.get(seg) \
                 if seg in ("SUM", "MIN", "MAX") else None
             if red is None:
                 if op == "OR":
-                    out = work.max() > 0
+                    out = self._pcomb(work.max(), "max") > 0
                 else:
-                    out = work.min() > 0
+                    out = self._pcomb(work.min(), "min") > 0
             else:
-                out = red(work)
+                out = self._pcomb(red(work), _sub[seg])
             if e.op == "AVG":
-                cnt = mask.to(_float_dtype()).sum()
+                cnt = self._pcomb(mask.to(_float_dtype()).sum(), "add")
                 out = out.to(_float_dtype()) / cnt.clamp(min=1)
             return None, out
         # per-outer-node segment reduction (sorted by construction)
         g = ectx.g
         sortkey = g.node_idx_src if ectx.layout == "csr" else g.r_node_idx_dst
-        offs = g.begin if ectx.layout == "csr" else g.r_begin
+        offs = g.csr_offsets() if ectx.layout == "csr" else g.csc_offsets()
         segop = {"SUM": "add", "MIN": "min", "MAX": "max"}[seg]
-        per_node = ops.sorted_segment_reduce(work.contiguous(), sortkey,
-                                             offs, g.n_pad, segop)
+        per_node = self._pcomb(ops.sorted_segment_reduce(
+            work.contiguous(), sortkey, offs, g.n_pad, segop), segop)
         if op in ("AND", "OR"):
             per_node = per_node > 0
         if e.op == "AVG":
-            cnt = ops.sorted_segment_reduce(
-                mask.to(_float_dtype()), sortkey, offs, g.n_pad, "add")
+            cnt = self._pcomb(ops.sorted_segment_reduce(
+                mask.to(_float_dtype()), sortkey, offs, g.n_pad, "add"),
+                "add")
             per_node = per_node.to(_float_dtype()) / cnt.clamp(min=1)
         # align to the outer context's vector of the source variable
         if outer_ctx is not None and outer_ctx.kind == "node":
@@ -1332,6 +1387,11 @@ class Lowerer:
         elif isinstance(s, A.CallStmt):
             self._exec_call(s.call, env, ctx)
         elif isinstance(s, A.ForeignStmt):
+            if self.axis is not None:
+                raise LowerError(
+                    "foreign C++ statement inside a sharded "
+                    "context is not lowerable (the reference GPS "
+                    "backend rejects foreign text too)")
             from . import foreign as _foreign
             try:
                 _foreign.exec_stmt(self, s, env, ctx=ctx)
@@ -1666,7 +1726,13 @@ class Lowerer:
     def _det_scatter_set(self, arr, ids_vec, val, mask):
         """Masked scatter-set with duplicate keys resolved to the lowest
         context position (reproducible stand-in for the reference's
-        last-CAS-wins nondeterminism)."""
+        last-CAS-wins nondeterminism).  Rejected under edge sharding, as
+        the reference's distributed backend rejects random writes
+        (gm_gps_new_check_random_write.cc)."""
+        if self.axis is not None:
+            raise LowerError("random scatter write not supported in "
+                             "distributed lowering (the reference GPS "
+                             "backend rejects these too)")
         L = ids_vec.shape[0]
         n_rows = arr.shape[0]
         ids_c = ids_vec.clamp(0, n_rows - 1)
@@ -1745,6 +1811,10 @@ class Lowerer:
                     op, vals, mask,
                     f"{op}= into an enclosing-loop local not lowerable")
                 seg = _seg(sub, work, self._a(key), nseg)
+                if self.axis is not None and ctx.kind == "edge":
+                    # partial per-lane results per edge shard
+                    seg = self._pcomb(seg.to(torch.int8)
+                                      if op in ("AND", "OR") else seg, sub)
                 if op in ("AND", "OR"):
                     seg = seg > 0
                 cur = self._a(env[lhs.name]).expand(seg.shape)
@@ -1752,6 +1822,12 @@ class Lowerer:
                 return
             ident = _identity(op, vals.dtype, self.dev)
             r = _RED[op](torch.where(mask, vals, ident))
+            if self.axis is not None and ctx.kind == "edge":
+                if op in ("AND", "OR"):
+                    r = self._pcomb(r.to(torch.int8),
+                                    "min" if op == "AND" else "max") > 0
+                else:
+                    r = self._pcomb(r, _SEG_OP.get(op, op))
             cur = env[lhs.name]
             self._wr(env, lhs.name, _coerce(_combine(op, cur, r), dt))
             return
@@ -1820,7 +1896,8 @@ class Lowerer:
                 # pull: reduce along the sorted axis
                 sortkey = (g.node_idx_src if ctx.layout == "csr"
                            else g.r_node_idx_dst)
-                offs = g.begin if ctx.layout == "csr" else g.r_begin
+                offs = (g.csr_offsets() if ctx.layout == "csr"
+                        else g.csc_offsets())
                 seg = ops.sorted_segment_reduce(work.contiguous(), sortkey,
                                                 offs, g.n_pad, sub)
                 touch_ids = sortkey
@@ -1832,14 +1909,15 @@ class Lowerer:
             else:
                 raise LowerError(
                     f"reduce into {lhs.driver}.{lhs.prop} from edge ctx")
+            seg = self._pcomb(seg, sub)
             if op in ("AND", "OR"):
                 new = _combine(op, arr, seg > 0)
             else:
                 new = _coerce(_combine(op, arr, seg.to(arr.dtype)), dt)
             # only touch rows that had at least one active slot
-            touched = _seg("max", ctx.mask.to(torch.int8), touch_ids,
-                           g.n_pad, safe=self._in_range(touch_ids,
-                                                        g.n_pad)) > 0
+            touched = self._pcomb(_seg(
+                "max", ctx.mask.to(torch.int8), touch_ids, g.n_pad,
+                safe=self._in_range(touch_ids, g.n_pad)), "max") > 0
             self._wr(env, key, torch.where(touched, new, arr))
             return
         raise LowerError("unsupported reduce-assign placement")
@@ -1896,20 +1974,29 @@ class Lowerer:
         work = torch.where(ctx.mask, val.expand(ctx.mask.shape), ident)
         m = _seg("min" if is_min else "max", work, ctx.inner_ids, g.n_pad,
                  safe=self._in_range(ctx.inner_ids, g.n_pad))
+        m = self._pcomb(m, "min" if is_min else "max")
         improved = (m < old) if is_min else (m > old)
         self._wr(env, key, torch.where(improved, m, old))
         if not s.lhs_extra:
             return
         # payload select: the winning slot is the lowest slot id among
         # the achievers (the reference's winner is whichever thread's CAS
-        # lands; ours is reproducible)
+        # lands; ours is reproducible); under edge sharding the shards
+        # agree on the lowest global slot (pmin), then sum-select its
+        # payload
         extra_vals = [self.eval(r, env, ctx) for r in s.rhs_extra]
         need_slot = any(self._a(v).dim() >= 1 for v in extra_vals)
+        mine = None
         if need_slot:
             win = ctx.mask & (work == self._take(m, ctx.inner_ids))
             cand = torch.where(win, self._iota_e, g.e_pad)
             win_slot = _seg("min", cand, ctx.inner_ids, g.n_pad,
                             safe=self._in_range(ctx.inner_ids, g.n_pad))
+            if self.axis is not None:
+                has_win = win_slot < g.e_pad
+                g_slot = torch.where(has_win, win_slot + (g.e_base or 0),
+                                     _INT32_MAX).to(_I32)
+                mine = has_win & (g_slot == self.axis.pmin(g_slot))
             win_slot = win_slot.clamp(max=g.e_pad - 1)
         for lhs_e, rhs_v in zip(s.lhs_extra, extra_vals):
             if not isinstance(lhs_e, A.Field) or \
@@ -1922,6 +2009,12 @@ class Lowerer:
             rv = self._a(rhs_v)
             if rv.dim() >= 1:
                 payload = take(_coerce(rv, edt), win_slot)
+                if mine is not None:
+                    # exactly one shard owns the winning global slot
+                    wide = payload.to(_float_dtype() if edt.is_floating_point
+                                      else _I32)
+                    wide = self.axis.psum(torch.where(mine, wide, 0))
+                    payload = (wide > 0) if edt == _BOOL else wide.to(edt)
             else:
                 payload = _coerce(rv, edt)
             self._wr(env, ekey, _where(improved, payload, eold))
@@ -2226,7 +2319,10 @@ class Lowerer:
 
         def cond(carry):
             c = self._a(self.eval(s.cond, overlay(carry), None), _BOOL)
-            return bool(c.reshape(()))
+            b = bool(c.reshape(()))
+            # a sharded run reads the predicate on every shard: they must
+            # agree (it comes out of collectives)
+            return self.axis.agree(b) if self.axis is not None else b
 
         with self._trace(env, set(carry_keys)):
             carry = self._fresh(init)
@@ -2293,7 +2389,7 @@ class Lowerer:
             act = act0.clone()
             base = self._rng_site
             end = None
-            while bool(act.any()):
+            while self._any_active(act):
                 self._rng_site = base
                 carry, act = body(carry, act)
                 end = self._rng_site
@@ -2304,6 +2400,14 @@ class Lowerer:
             self._rng_site = end
         for k, v in zip(carry_keys, carry):
             env[k] = v
+
+    def _any_active(self, act) -> bool:
+        """Does any slot of a masked While run on?  Under a mesh axis, on
+        any shard: every shard then runs the pass (its slots masked)."""
+        a = act.any()
+        if self.axis is not None:
+            a = self.axis.pmax(a.to(torch.int8)) > 0
+        return bool(a)
 
     def _exec_while_eager(self, s: A.While, env, max_iters=1_000_000):
         """Host-driven sequential loop for untraceable bodies (InBFS)."""
@@ -2337,6 +2441,10 @@ class Lowerer:
         env[_DONE] = self._c(True, _BOOL)
 
     def _exec_bfs(self, s: A.BFS, env, ctx):
+        if self.axis is not None and not s.is_bfs:
+            # a host DFS needs concrete neighbour walks
+            raise LowerError("InDFS not supported in distributed "
+                             "lowering (inherently sequential)")
         from .lower_bfs import exec_bfs
         exec_bfs(self, s, env, ctx)
 
@@ -2428,9 +2536,9 @@ class CompiledProc:
     def name(self):
         return self.proc.name
 
-    def _bind(self, g: Graph, args, kwargs):
+    def _bind(self, g: Graph, args, kwargs, axis=None):
         env: Dict = {}
-        lw = Lowerer(self.proc, g)
+        lw = Lowerer(self.proc, g, axis=axis)
         dev = g.device
         pos = list(args)
         out_names = []

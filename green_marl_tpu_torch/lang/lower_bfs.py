@@ -15,7 +15,10 @@ compiles a BFS statement into a subclass of the direction-optimizing
 3. the reverse body is replayed from the deepest level back to the root.
 
 The level count is data-dependent: it is read on the host once, and each
-level's expansion reads one flag.
+level's expansion reads one flag.  Under a mesh axis (``lang.distribute``)
+the graph is one shard's edge slab: each level's reach is reduced over the
+slab's endpoints and combined across shards, the flag every shard reads
+comes out of that combine, and the replay is :func:`_replay_traced`.
 """
 
 from __future__ import annotations
@@ -47,16 +50,27 @@ def _levels(lw, root, transpose: bool, allowed=None):
     go = True
     while go:
         fr = (level == d) & mask
-        if transpose:
+        if transpose and lw.axis is None:
             # BFS over G^: v joins when some OUT-neighbor w is in the
             # frontier — Exist(w: v.OutNbrs){fr[w]}
             reach = scan_reduce.out_nbr_count_true(g, fr) > 0
+        elif transpose:
+            # sharded slabs: g.begin is global, the slot arrays are the
+            # shard's, so reduce by the slab's source endpoints
+            vals = fr.index_select(0, g.node_idx).to(torch.int8)
+            reach = segment_max(vals, g.node_idx_src, g.n_pad) > 0
         else:
             vals = fr.index_select(0, g.node_idx_src).to(torch.int8)
             reach = segment_max(vals, g.node_idx, g.n_pad) > 0
+        if lw.axis is not None:
+            # combine the shards' partial reach (the per-superstep message
+            # combine of gm_gps_opt_transform_bfs.cc's level-sync form)
+            reach = lw._pcomb(reach.to(torch.int8), "max") > 0
         newly = reach & (level == INF) & mask
         level = torch.where(newly, d + 1, level).to(torch.int32)
         go = bool(newly.any())
+        if lw.axis is not None:
+            go = lw.axis.agree(go)
         d += 1
     return level, d
 
@@ -68,7 +82,7 @@ def exec_bfs(lw, s: A.BFS, env, ctx):
         raise LowerError("InBFS nested inside a parallel loop")
     if not s.is_bfs:
         return exec_dfs(lw, s, env, ctx)
-    if lw._concrete is not None:
+    if lw._concrete is not None and lw.axis is None:
         raise LowerError("InBFS inside a traced loop is not lowerable")
     g = lw.g
     root = lw._ident(s.root, env, None)
@@ -80,6 +94,9 @@ def exec_bfs(lw, s: A.BFS, env, ctx):
             (g.n_pad,)).to(torch.bool)
     level, depth = _levels(lw, root, s.transpose, allowed)
     env["__bfs_level$" + s.var] = level
+    if lw.axis is not None:
+        _replay_traced(lw, s, env, level, depth)
+        return
     base_mask = g.node_mask()
 
     def level_ctx(d):
@@ -116,6 +133,54 @@ def exec_bfs(lw, s: A.BFS, env, ctx):
                 nctx = nctx.with_mask(nctx.mask &
                                       lw.eval(s.filter_bw, env, nctx))
             replay(s.body_bw, d, nctx)
+
+
+def _replay_traced(lw, s, env, level, depth):
+    """Forward and reverse level replay as JAX's traced ``fori_loop`` s run
+    them: the body's written environment entries are the carry and keep
+    their dtypes, every value counts as traced (an ``If`` runs both
+    branches).  Only sharded runs reach it, and they refuse draws."""
+    from .lower import (LowerError, NodeCtx, _DONE, _RET, declared_keys,
+                        written_keys)
+    g = lw.g
+    base_mask = g.node_mask()
+
+    def run_phase(body, filt, reverse):
+        if body is None:
+            return
+        carry_keys = sorted((written_keys(body) - declared_keys(body))
+                            - {_RET, _DONE})
+        for k in carry_keys:
+            if k not in env:
+                raise LowerError(f"BFS body writes undeclared {k}")
+        dtypes = [env[k].dtype if isinstance(env[k], torch.Tensor)
+                  else None for k in carry_keys]
+        for i in range(depth + 1):
+            d = depth - i if reverse else i
+            e2 = dict(env)
+            m = base_mask & (level == d)
+            nctx = NodeCtx(g=g, var=s.var, ids=lw._iota_n, mask=m)
+            if s.navigator is not None and not reverse:
+                nctx = nctx.with_mask(nctx.mask & lw._a(lw.eval(
+                    s.navigator, e2, nctx)).expand(m.shape))
+            if filt is not None:
+                nctx = nctx.with_mask(nctx.mask & lw._a(lw.eval(
+                    filt, e2, nctx)).expand(m.shape))
+            lw._bfs_ctx = (s.var, level, d)
+            try:
+                lw._defer_stack.append((s.var, []))
+                try:
+                    lw.exec_stmt(body, e2, nctx)
+                finally:
+                    _, pend = lw._defer_stack.pop()
+                lw._apply_pending(e2, pend)
+            finally:
+                lw._bfs_ctx = None
+            for k, dt in zip(carry_keys, dtypes):
+                env[k] = lw._a(e2[k]).to(dt) if dt is not None else e2[k]
+
+    run_phase(s.body_fw, s.filter_fw, False)
+    run_phase(s.body_bw, s.filter_bw, True)
 
 
 def exec_dfs(lw, s: A.BFS, env, ctx):

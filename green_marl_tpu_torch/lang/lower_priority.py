@@ -279,6 +279,8 @@ def try_priority_while(lw, s: A.While, env) -> bool:
     from .lower import (EdgeCtx, NodeCtx, _F, _coerce, _identity, _where)
     from ..runtime.collections import DenseNodeMap
 
+    if lw.axis is not None:
+        return False          # sharded mode rejects maps earlier anyway
     m = _match(lw, s, env)
     if m is None:
         return False
@@ -593,6 +595,8 @@ def try_bidir_while(lw, s: A.While, env) -> bool:
     from .lower import EdgeCtx, _F, _coerce, _identity, _where
     from ..runtime.collections import DenseNodeMap
 
+    if lw.axis is not None:
+        return False
     r = _match_bidir(lw, s, env)
     if r is None:
         return False

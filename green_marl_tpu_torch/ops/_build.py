@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()     # shards of one process may ask at once
 
 
 def _nvcc() -> str:
@@ -88,28 +90,34 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _LIB
-    if _LIB is None:
-        cdll = ctypes.CDLL(build())
-        vp, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        cdll.gm_segment_reduce.restype = cint
-        cdll.gm_segment_reduce.argtypes = [vp, i64, vp, i64, i64, vp, vp,
-                                           cint, cint, vp]
-        cdll.gm_segment_reduce_tile_size.restype = cint
-        cdll.gm_segment_reduce_tile_size.argtypes = []
-        cdll.gm_cumsum.restype = cint
-        cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, cint, vp]
-        cdll.gm_cumsum_tile_size.restype = cint
-        cdll.gm_cumsum_tile_size.argtypes = []
-        cdll.gm_segmented_scan.restype = cint
-        cdll.gm_segmented_scan.argtypes = [vp, vp, vp, vp, i64, cint, cint,
-                                           vp]
-        cdll.gm_segmented_scan_tile_size.restype = cint
-        cdll.gm_segmented_scan_tile_size.argtypes = []
-        cdll.gm_take_along.restype = cint
-        cdll.gm_take_along.argtypes = [vp, vp, vp, i64, cint, cint, i64,
-                                       cint, cint, cint, cint, vp]
-        cdll.gm_row_gather.restype = cint
-        cdll.gm_row_gather.argtypes = [vp, i64, cint, vp, i64, cint, cint,
-                                       vp, vp, vp]
-        _LIB = cdll
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = _load()
     return _LIB
+
+
+def _load() -> ctypes.CDLL:
+    """Load the built library and declare its C entry points."""
+    cdll = ctypes.CDLL(build())
+    vp, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    cdll.gm_segment_reduce.restype = cint
+    cdll.gm_segment_reduce.argtypes = [vp, i64, vp, i64, i64, vp, vp,
+                                       cint, cint, vp]
+    cdll.gm_segment_reduce_tile_size.restype = cint
+    cdll.gm_segment_reduce_tile_size.argtypes = []
+    cdll.gm_cumsum.restype = cint
+    cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, cint, vp]
+    cdll.gm_cumsum_tile_size.restype = cint
+    cdll.gm_cumsum_tile_size.argtypes = []
+    cdll.gm_segmented_scan.restype = cint
+    cdll.gm_segmented_scan.argtypes = [vp, vp, vp, vp, i64, cint, cint,
+                                       vp]
+    cdll.gm_segmented_scan_tile_size.restype = cint
+    cdll.gm_segmented_scan_tile_size.argtypes = []
+    cdll.gm_take_along.restype = cint
+    cdll.gm_take_along.argtypes = [vp, vp, vp, i64, cint, cint, i64,
+                                   cint, cint, cint, cint, vp]
+    cdll.gm_row_gather.restype = cint
+    cdll.gm_row_gather.argtypes = [vp, i64, cint, vp, i64, cint, cint,
+                                   vp, vp, vp]
+    return cdll

@@ -29,6 +29,7 @@ kernel: every empty segment and every row from ``len(offsets) - 1`` up to
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +40,16 @@ OPS = ("add", "min", "max")
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 KERNEL_DTYPES = tuple(_DTYPE_CODE)   # what the segment kernels take
 _SCATTER_REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(fn) -> None:
+    """One more launch of ``fn``'s kernel (the shards of a sharded run
+    launch from threads of their own)."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def identity(op: str, dtype: torch.dtype):
@@ -140,7 +151,7 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
             _DTYPE_CODE[vals.dtype], OPS.index(op), stream)
     if err:
         raise RuntimeError(f"gm_segment_reduce: CUDA error {err}")
-    segment_reduce_sorted.launches += 1
+    _count(segment_reduce_sorted)
     return out
 
 
@@ -192,7 +203,7 @@ def plain_cumsum(vals: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
                             int(exclusive), stream)
     if err:
         raise RuntimeError(f"gm_cumsum: CUDA error {err}")
-    plain_cumsum.launches += 1
+    _count(plain_cumsum)
     return out
 
 
@@ -277,7 +288,7 @@ def segmented_scan(vals: torch.Tensor, ids: torch.Tensor,
             stream)
     if err:
         raise RuntimeError(f"gm_segmented_scan: CUDA error {err}")
-    segmented_scan.launches += 1
+    _count(segmented_scan)
     return out
 
 
@@ -421,7 +432,7 @@ def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
             stream)
     if err:
         raise RuntimeError(f"gm_take_along: CUDA error {err}")
-    take_along_blocks.launches += 1
+    _count(take_along_blocks)
     return out
 
 
@@ -501,7 +512,7 @@ def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
             binned.data_ptr(), stream)
     if err:
         raise RuntimeError(f"gm_row_gather: CUDA error {err}")
-    row_gather_checksum.launches += 1
+    _count(row_gather_checksum)
     return zeroed[0]
 
 

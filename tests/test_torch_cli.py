@@ -87,6 +87,45 @@ def test_cuda_device_without_cuda_exits(capsys):
 PLACE_ALONE = ("-GMPlace/-GMPlacementFile require -GMNumChips>1 "
                "(they pin arrays of the distributed placement)")
 
+# hop_dist.gm with dist an output: the .gm main of the -GMNumChips cases
+HOP_DIST_OUT_GM = """
+Procedure hop_dist(G:Graph, root: Node; dist:N_P<Int>)
+{
+    N_P<Bool> updated;
+    N_P<Bool> updated_nxt;
+    N_P<Int>  dist_nxt;
+    Bool fin = False;
+    G.dist = (G == root) ? 0 : +INF;
+    G.updated = (G == root) ? True: False;
+    G.dist_nxt = G.dist;
+    G.updated_nxt = G.updated;
+    While(!fin) {
+        fin = True;
+        Foreach(n: G.Nodes)(n.updated) {
+            Foreach(s: n.Nbrs) {
+                <s.dist_nxt; s.updated_nxt> min= <n.dist + 1; True>;
+            }
+        }
+        G.dist = G.dist_nxt;
+        G.updated = G.updated_nxt;
+        G.updated_nxt = False;
+        fin = ! Exist(n: G.Nodes){n.updated};
+    }
+}
+"""
+
+
+def _outcome(capsys, main, argv):
+    """("ok", result lines) of a run, or ("exit", its message)."""
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        capsys.readouterr()
+        return "exit", str(e.code)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    return "ok", results(out.splitlines())
+
 
 @pytest.mark.parametrize("opts", [
     ["-GMNumChips=2"],
@@ -96,20 +135,104 @@ PLACE_ALONE = ("-GMPlace/-GMPlacementFile require -GMNumChips>1 "
     ["-GMPlace=dist:replicate"],
     ["-GMPlacementFile=placement.json", "-GMNumChips=1"],
     ["-GMDevice=mps"]])
-def test_unported_options_exit(opts):
-    """What would change the run is refused; placement overrides without
-    -GMNumChips>1 exit as in the JAX CLI, with its message."""
+def test_unported_options_exit(opts, tmp_path, monkeypatch, capsys):
+    """-GMNumChips>1 runs as the JAX CLI runs it (a .gm main: the named
+    apps' compiled placements need the reference's sources): the same
+    lines, or the same exit (an override of an unbound array, a missing
+    placement file).  Placement overrides without -GMNumChips>1 and an
+    unknown device exit; the overrides with the JAX CLI's message."""
+    if opts[0].startswith("-GMNumChips"):
+        gm = str(tmp_path / "hop_dist.gm")
+        with open(gm, "w") as f:
+            f.write(HOP_DIST_OUT_GM)
+        monkeypatch.setenv("GM_TORCH_VIRTUAL_DEVICES", "8")
+        want = _outcome(capsys, japps.main, [gm, "-root=3"] + opts
+                        + [FIXTURE])
+        got = _outcome(capsys, apps.main, [gm, "-GMDevice=cpu", "-root=3"]
+                       + opts + [FIXTURE])
+        assert got == want
+        pinned = any(o.startswith(("-GMPlace=", "-GMPlacementFile="))
+                     for o in opts)
+        assert want[0] == ("exit" if pinned else "ok")
+        if want[0] == "ok":
+            assert "CRC16 dist 0x" in " ".join(got[1])
+        return
     # a later -GMDevice replaces -GMDevice=cpu
     with pytest.raises(SystemExit) as e:
         apps.main(["hop_dist", "-GMDevice=cpu"] + opts + [FIXTURE])
     assert e.value.code not in (0, None)
-    if opts[0].startswith("-GMNumChips"):
-        assert all(o.split("=")[0] in str(e.value.code) for o in opts)
     if opts[0].startswith("-GMPlace"):
         assert e.value.code == PLACE_ALONE
         with pytest.raises(SystemExit) as je:
             japps.main(["hop_dist"] + opts + [FIXTURE])
         assert je.value.code == PLACE_ALONE
+
+
+def _rmat_bin(tmp_path, capsys, n, m, seed=4):
+    from green_marl_tpu.cli import graph_gen
+    binp = str(tmp_path / "g.bin")
+    assert graph_gen.main(["-type=rmat", f"-seed={seed}", str(n), str(m),
+                           binp]) == 0
+    capsys.readouterr()
+    return binp
+
+
+def test_per_array_placement_cli(tmp_path, monkeypatch, capsys):
+    """-GMPlace=arr:policy / -GMPlacementFile (Shoal's
+    local_array_settings.lua): pinning a read-only property to its automatic
+    policy leaves the output unchanged (the single-device CRC, as the JAX
+    CLI's) and shows in the placement report; invalid pins exit with the
+    JAX CLI's messages."""
+    import json
+    from test_torch_lower import SSSP_GM
+    binp = _rmat_bin(tmp_path, capsys, 300, 2400)
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    (ref / "sssp.gm").write_text(SSSP_GM)
+    monkeypatch.setattr(apps, "REFERENCE_APPS", str(ref))
+    monkeypatch.setenv("GM_TORCH_VIRTUAL_DEVICES", "8")
+    crc = [ln for ln in run(capsys, japps.main, ["sssp", binp])
+           if ln.startswith("CRC dist")]
+    assert crc
+    got = run(capsys, apps.main, ["sssp", "-GMDevice=cpu", "-GMNumChips=8",
+                                  "-GMPlace=len:distribute", binp])
+    assert [ln for ln in got if ln.startswith("CRC dist")] == crc
+    pf = tmp_path / "place.json"
+    pf.write_text(json.dumps({"len": "distribute"}))
+    rc = apps.main(["sssp", "-GMDevice=cpu", "-GMNumChips=8",
+                    f"-GMPlacementFile={pf}", binp])
+    assert rc == 0
+    assert "Array[len]:" in capsys.readouterr().err
+    # an edge property cannot be replicated; a malformed flag
+    for flag, frag in (("-GMPlace=len:replicate", "placement override"),
+                       ("-GMPlace=oops", "arr:policy")):
+        with pytest.raises(SystemExit, match=frag):
+            apps.main(["sssp", "-GMDevice=cpu", "-GMNumChips=8", flag,
+                       binp])
+        capsys.readouterr()
+
+
+@pytest.mark.parametrize("argv", [
+    ["sssp", "-GMNumChips=8", "-GMPlacement=engine",
+     "-GMPlace=len:distribute"],
+    ["sssp", "-GMNumChips=8", "-GMPlacement=replicate",
+     "-GMPlace=len:distribute"],
+    ["pagerank", "-GMPlace=rank:distribute"]],
+    ids=["engine", "replicate", "single_device"])
+def test_placement_override_rejections_match_jax_cli(argv, tmp_path,
+                                                     monkeypatch, capsys):
+    """-GMPlace under the engine or replicate policies, or on one device,
+    exits before running, with the JAX CLI's message."""
+    binp = _rmat_bin(tmp_path, capsys, 200, 1600)
+    monkeypatch.setenv("GM_TORCH_VIRTUAL_DEVICES", "8")
+    with pytest.raises(SystemExit) as je:
+        japps.main(argv + [binp])
+    with pytest.raises(SystemExit) as te:
+        apps.main(argv[:1] + ["-GMDevice=cpu"] + argv[1:] + [binp])
+    assert str(te.value.code) == str(je.value.code)
+    assert ("only with" in str(te.value.code)
+            or "GMNumChips" in str(te.value.code))
+    assert "CRC" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("opts", [

@@ -1129,11 +1129,23 @@ def test_make_custom_local_clustering(capsys):
     assert got == want and any(ln.startswith("CRC C ") for ln in got)
 
 
-def test_make_custom_multi_device_not_ported():
+def test_make_custom_multi_device_not_ported(monkeypatch, capsys):
+    """make_custom -GMNumChips=2 (the vertex-sharded lowering) as the JAX
+    CLI runs it: the same lines, or, where the program is infeasible
+    sharded (local_clustering's two-hop body), the same LowerError."""
+    from green_marl_tpu.cli import apps as japps
     from green_marl_tpu_torch.cli import apps
+    monkeypatch.setenv("GM_TORCH_VIRTUAL_DEVICES", "2")
     gm = os.path.join(REPO, "doc", "examples", "local_clustering.gm")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        apps.main([gm, "-GMDevice=cpu", "-GMNumChips=2", PARITY10K])
+    outcomes = []
+    for main, dev in ((japps.main, []), (apps.main, ["-GMDevice=cpu"])):
+        try:
+            outcomes.append(("ok", _cli(capsys, main, [gm] + dev + [
+                "-GMNumChips=2", PARITY10K])))
+        except (JL.LowerError, TL.LowerError) as e:
+            capsys.readouterr()
+            outcomes.append(("LowerError", str(e)))
+    assert outcomes[1] == outcomes[0]
 
 
 def test_make_custom_ebin_input_property(tmp_path, capsys):
