@@ -22,7 +22,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    its goldens;
 4. the same three apps through the CLI on a BIN file of an RMAT graph of
    1/16 of bench.py's LiveJournal-scale size (``running time=``, CRCs, the
-   in-process output equal to the CLI's); then the apps in process on the
+   in-process output equal to the CLI's), and on the same graph stored with
+   8-byte ``edge_t`` (the same lines); then the apps in process on the
    RMAT graph of the full size (N=4.8M, E=69M, seed 42), built in memory
    (its edges are drawn on a host thread while phases 1-3 run) and timed
    over the region the CLI times (a warm-up run, then the host clock from
@@ -122,17 +123,32 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    shard a superstep) and the memory peak; the segment reduce and the
    prefix sum against their plain versions on the shards' own slabs (the
    engine's, the compiled schedule's, and the replicate placement's with
-   its clipped offsets); then pagerank, hop_dist and sssp through the CLI
-   with ``-GMNumChips=4`` under the distribute, engine and replicate
-   placements on parity10k, against the goldens.  The multi-process path
-   (``parallel.multihost``) is not run: NCCL does not take two ranks on
-   one GPU.
+   its clipped offsets), each no slower than its plain version; the
+   multi-process path (``parallel.multihost``) on NCCL with one rank of 4
+   shards on the card, pagerank_vsharded and hop_dist_vsharded against the
+   same runs as threads (two ranks need a second card); then pagerank,
+   hop_dist and sssp through the CLI with ``-GMNumChips=4`` under the
+   distribute, engine and replicate placements on parity10k, against the
+   goldens.
+
+11. graphs past 2^24 nodes (``green_marl_tpu_torch.probes.scale``, the
+   port of ``scripts/probe_vsharded_scale.py``): N = 2^25 RMAT nodes and
+   120M edges (the probe's 250M cut to keep the run's time), seed 77,
+   drawn and frozen on a host thread from the start of the run; on one
+   device pagerank, hop_dist, the bit BFS at B=256 and pagerank.gm, then 4
+   shards on the card (hop_dist_vsharded, multi_bfs_vsharded, hop_dist.gm
+   and pagerank.gm vertex-sharded): BFS levels bit for bit against scipy,
+   the reached sets of three roots, ranks within 1e-3 of float64, sharded
+   == one device; each run's launches; the segment reduce against its
+   plain version on the runs' slabs (the one-device CSC, the engine's and
+   the schedule's shard 0); host seconds, device ms and the memory peak.
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
 kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
 the component and path models and the sampling family counted on their own
-too), phase 8, phase 9 (each compiled call on its own) and phase 10.
+too), phase 8, phase 9 (each compiled call on its own), phase 10 and
+phase 11.
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
@@ -274,6 +290,11 @@ def run_cli(apps, argv):
     if rc != 0:
         raise AssertionError(f"chip_smoke: CLI {argv} returned {rc}")
     return out
+
+
+def result_lines(out):
+    """A CLI run's lines without its timings."""
+    return [ln for ln in out.splitlines() if "time=" not in ln]
 
 
 def host_graph(native, from_edges, n, e, seed):
@@ -1161,6 +1182,12 @@ Procedure avg_teen_cnt(G: Graph, age, teen_cnt: N_P<Int>, K: Int) : Float {
 }
 """
 
+# phase 11: the graph of scripts/probe_vsharded_scale.py:50-53, N = 2^25,
+# with E cut from 250M to 120M: the serial native generator and CSR build
+# take 205 s and 82 s at 250M, more than phases 1-10 together
+# (``python -m green_marl_tpu_torch.probes.scale`` runs the full size)
+SCALE_N, SCALE_E, SCALE_B = 1 << 25, 120_000_000, 256
+
 SHARDS = 4                # phase 10: shards of one program on the card
 MULTI_BFS_B = 64          # phase 10: instances of the sharded bit BFS
 
@@ -1544,10 +1571,12 @@ def check_shard_slabs(torch, K, dev, vsg_h, sched_h, g, age):
             vals, ids, off, n_out, op="add"))
         plain = cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
             vals, ids, off, n_out, "add"))
-        check(ok, f"segment_reduce_sorted on the {what} slab (E_s={e}, "
+        check(ok and ms <= plain,
+              f"segment_reduce_sorted on the {what} slab (E_s={e}, "
               f"{off.numel() - 1} rows, {empty} empty): float32 add within "
               f"rtol 1e-5 of float64 (max abs err {err:.3g}), int32 min "
-              f"and max exactly; add {ms:.3f} ms, plain {plain:.3f} ms")
+              f"and max exactly; add: kernel {ms:.3f} ms <= plain "
+              f"{plain:.3f} ms")
     t = 0
     a = age.index_select(0, sched_h.src_gid[t].to(dev).long())
     cnt = (sched_h.emask[t].to(dev) & (a >= 10) & (a < 20)).to(torch.int32)
@@ -1557,6 +1586,54 @@ def check_shard_slabs(torch, K, dev, vsg_h, sched_h, g, age):
           f"plain_cumsum exclusive on schedule shard {t}'s integer Count "
           f"input (E_s={cnt.numel()}, {int(want[-1])} ones) == plain "
           f"exactly")
+
+
+def nccl_one_rank(torch, K, dev, vsg_h, root, threads, sharded, seg):
+    """The multi-process path (``parallel.multihost``) on NCCL with one
+    rank that runs SHARDS shards on the card: pagerank_vsharded and
+    hop_dist_vsharded from ``root`` against the same runs as threads of
+    one process (``threads``), integers bit for bit, ranks within rtol
+    1e-5; the collectives go through ``torch.distributed``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from green_marl_tpu_torch.parallel import comm, multihost as mh
+    from green_marl_tpu_torch.parallel import vertex_sharded as V
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mh.init(f"localhost:{port}", 1, 0,
+            local_device_ids=[dev.index or 0] * SHARDS)
+    try:
+        # NCCL sets its communicator up at the first collective: not a run's
+        dist.barrier(device_ids=[dev.index or 0])
+        mesh = mh.global_mesh()
+        vsg = mh.place_multihost(vsg_h, mesh)
+        comm.reset_counts()
+        (rank, _, it), pr_ms, pr_launched = sharded(
+            lambda: V.pagerank_vsharded(vsg, mesh))
+        (dist, depth), hd_ms, hd_launched = sharded(
+            lambda: V.hop_dist_vsharded(vsg, mesh, root))
+        colls = dict(comm.COUNTS)
+    finally:
+        mh.shutdown()
+    err = float((rank - threads["rank"]).abs().max())
+    check(it == threads["iterations"]
+          and torch.allclose(rank, threads["rank"], rtol=1e-5, atol=0.0)
+          and seg(pr_launched) == SHARDS * it,
+          f"pagerank_vsharded on NCCL, one rank of {SHARDS} shards: {it} "
+          f"supersteps and ranks within rtol 1e-5 of the {SHARDS} threads' "
+          f"(max abs err {err:.3g}), {seg(pr_launched)} segment-reduce "
+          f"launches; {pr_ms:.1f} ms")
+    check(depth == threads["depth"] and torch.equal(dist, threads["dist"])
+          and seg(hd_launched) == SHARDS * depth,
+          f"hop_dist_vsharded on NCCL root {root}: == the threads' bit for "
+          f"bit ({depth} levels, {seg(hd_launched)} segment-reduce "
+          f"launches); {hd_ms:.1f} ms")
+    check(colls["all_to_all"] == it + depth and colls["psum"] == it + depth,
+          f"the NCCL runs' collectives through torch.distributed: {colls}")
 
 
 def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
@@ -1640,12 +1717,15 @@ def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
           f"{seg(launched)} segment-reduce launches (one a shard a "
           f"superstep); {ms:.1f} ms beside pagerank {one_ms:.1f} ms (CUDA "
           f"events)")
+    threads = {"rank": rank, "iterations": it}
     del rank, one
     reach = {}
     for r in roots:
         one, one_ms, _ = timed(lambda: hop_dist(g, r))
         (dist, depth), ms, launched = sharded(
             lambda: V.hop_dist_vsharded(vsg, mesh, r))
+        if r == roots[0]:
+            threads.update(dist=dist, depth=depth)
         reach[r] = one.dist[:n] < INT32_MAX
         check(torch.equal(dist, one.dist[:n])
               and seg(launched) == SHARDS * depth,
@@ -1661,6 +1741,8 @@ def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
               f"supersteps, {seg(launched)} segment-reduce launches); "
               f"{ms:.1f} ms beside sssp {one_ms:.1f} ms")
     del dist, one
+    nccl_one_rank(torch, K, dev, vsg_h, roots[0], threads, sharded, seg)
+    del threads
     deg = np.diff(g_host.begin.numpy())
     roots_b = np.concatenate([roots, np.argsort(deg)[::-1][
         len(roots):MULTI_BFS_B]]).astype(np.int32)
@@ -1774,10 +1856,74 @@ def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
                   f"rank[0..3] within {RANK_RTOL} of {GOLD_RANK}")
     torch.cuda.synchronize()
     log(f"  device memory peak over the full-size runs {peak:.2f} GB")
-    log("  not run on the card: the multi-process path (parallel.multihost, "
-        "torch.distributed): NCCL does not take two ranks on one GPU; its "
-        "gloo form runs on the CPU in tests/test_torch_distribute.py")
+    log("  not run on the card: the multi-process path with two ranks "
+        "(NCCL takes one rank a card); its gloo form runs on the CPU in "
+        "tests/test_torch_distribute.py")
     return total
+
+
+def scale_phase(torch, K, dev, scale, g_host, times):
+    """Phase 11: ``probes.scale``'s witness on the graph past 2^24 nodes;
+    each of its checks, each run's launches, the segment reduce against
+    its plain version on the slabs the runs gave it, its times and the
+    device memory peak.  Returns the runs' kernel launches (not the slab
+    checks')."""
+    K.reset_launch_counts()
+    rec = scale.run(SCALE_N, SCALE_E, SCALE_B, dev, g_host=g_host,
+                    times=times)
+    torch.cuda.synchronize()
+    log(f"  footprint of {scale.SHARDS} shards: {rec['footprint']}; levels "
+        f"{rec['levels']}; bit BFS edges traversed "
+        f"{rec['bit_bfs_edges_traversed']}")
+    log("  host seconds: " + ", ".join(
+        f"{k[2:-2]} {v}" for k, v in rec.items() if k.startswith("t_")))
+    log("  device ms (CUDA events): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["device_ms"].items()))
+    c = rec["checks"]
+    for name in ("hop_dist_exact", "hop_dist_vsharded_exact",
+                 "hop_dist_gm_vsharded_exact"):
+        check(c[name], f"{name[:-len('_exact')]} from root "
+              f"{rec['roots'][0]}: BFS levels == the scipy oracle bit for "
+              f"bit ({rec['levels']['hop_dist']} levels)")
+    for b in scale.sample(SCALE_B):
+        check(c[f"bit_bfs_reach_b{b}"]
+              and c[f"multi_bfs_vsharded_reach_b{b}"],
+              f"bit BFS and multi_bfs_vsharded B={SCALE_B}, instance {b} "
+              f"(root {rec['roots'][b]}): reached set == the scipy oracle's")
+    check(c["pagerank_ok"] and c["pagerank_gm_vsharded_ok"],
+          f"pagerank and pagerank.gm ({scale.SHARDS} shards), "
+          f"{scale.PR_ITERS} supersteps: max relative error "
+          f"{c['pagerank_max_rel_err']:.3g} and "
+          f"{c['pagerank_gm_vsharded_max_rel_err']:.3g} against float64 "
+          f"(< {scale.PR_REL_ERR})")
+    check(c["pagerank_gm_sharded_eq_one_device"],
+          f"pagerank.gm on {scale.SHARDS} shards within rtol 1e-5 of one "
+          "device")
+    for name, r in rec["slabs"].items():
+        check(c[f"slab {name}"] and r["ms"] <= r["plain_ms"],
+              f"segment_reduce_sorted on the {name} slab ({r['slots']} "
+              f"slots, {r['rows']} rows, {r['empty_rows']} empty): float32 "
+              f"add within rtol 1e-5 of float64 (max abs err "
+              f"{r['add_max_abs_err']:.3g}), int32 min and max exactly; "
+              f"add: kernel {r['ms']:.3f} ms <= plain {r['plain_ms']:.3f} ms")
+    # each run's launches, read around it alone: one segment reduce a
+    # superstep (a level), a shard; the bit BFSs' OR is plain PyTorch
+    levels, S = rec["levels"]["hop_dist"], scale.SHARDS
+    want = {"pagerank": scale.PR_ITERS, "hop_dist": levels,
+            "pagerank.gm": scale.PR_ITERS, "bit_bfs": 0,
+            "hop_dist_vsharded": S * rec["levels"]["hop_dist_vsharded"],
+            "multi_bfs_vsharded": 0, "hop_dist.gm_vsharded": S * levels,
+            "pagerank.gm_vsharded": S * scale.PR_ITERS}
+    for run, k in want.items():
+        got = rec["launches"][run]
+        check(got == ({"segment_reduce_sorted": k} if k else {}),
+              f"{run}: launches {got}, {k} segment reduces expected")
+    check(c["ok"], "every check of the witness")
+    launched = {name: sum(r.get(name, 0) for r in rec["launches"].values())
+                for name in K.launch_counts()}
+    log(f"  device memory peak {rec['max_memory_allocated_gb']:.2f} GB "
+        f"(card: {rec['card']})")
+    return launched
 
 
 def main():
@@ -1801,6 +1947,7 @@ def main():
     from green_marl_tpu_torch.ops import (_build, binned, kernels as K,
                                           scan_reduce, segment)
     from green_marl_tpu_torch.probes import gather as probes
+    from green_marl_tpu_torch.probes import scale
     from green_marl_tpu_torch.utils.crc import array_checksum_hex
     from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
 
@@ -1823,8 +1970,10 @@ def main():
     # phase 4's graph: drawn and frozen by the serial host library on a
     # thread of its own (the calls release the interpreter) while phases
     # 1-3 keep the card busy
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     lj_host = pool.submit(host_graph, native, from_edges, LJ_N, LJ_E, LJ_SEED)
+    # phase 11's graph past 2^24 nodes, drawn and frozen beside phases 2-10
+    scale_host = pool.submit(scale.host_graph, SCALE_N, SCALE_E)
     pool.shutdown(wait=False)
     t0 = time.time()
     so = _build.build()
@@ -1976,6 +2125,7 @@ def main():
         return torch.from_numpy(w).to(dev)
 
     w16 = edge_weights(g16)
+    cli_lines = {}
     for app, name, fn in (
             ("pagerank", "rank", lambda: pagerank(g16).rank),
             ("hop_dist", "dist", lambda: hop_dist(g16, 0).dist),
@@ -1983,6 +2133,7 @@ def main():
         t0 = time.time()
         out = run_cli(apps, [app, "-GMMeasureTime=1", "-GMDevice=cuda",
                              path])
+        cli_lines[app] = result_lines(out)
         crc = field(out, rf"^CRC {name} (\S+)")
         cli_ms = float(field(out, r"^running time=(\S+)"))
         check(array_checksum_hex(fn()[:SMALL_N].cpu().numpy()) == crc,
@@ -1990,6 +2141,19 @@ def main():
               f"{crc}); CLI running time {cli_ms:.1f} ms, whole CLI call "
               f"{time.time() - t0:.1f} s")
     del w16
+    # the same graph stored with 8-byte edge_t (the reference's EDGE_SIZE=64
+    # build): the device arrays are int32 again, and the lines the same
+    path8 = path[:-len(".bin")] + "_edge8.bin"
+    binary_io.store_binary(path8, g16_host.begin.numpy(),
+                           g16_host.node_idx.numpy()[:SMALL_E],
+                           edge_bytes=8)
+    for app in cli_lines:
+        out = run_cli(apps, [app, "-GMMeasureTime=1", "-GMDevice=cuda",
+                             path8])
+        check(result_lines(out) == cli_lines[app],
+              f"{app} on the 1/16-size graph stored with 8-byte edge_t: the "
+              f"lines of the 4-byte file")
+    os.remove(path8)
 
     t0 = time.time()
     src, dst, g_host, gen_s, freeze_s = lj_host.result()
@@ -2430,6 +2594,25 @@ def main():
         check(counts_sharded[name] > 0, f"{name} launched by the sharded "
               f"runs ({counts_sharded[name]} times)")
     for name, n in counts_sharded.items():
+        counts[name] += n
+
+    # -- 11. graphs past 2^24 nodes ----------------------------------------
+    log(f"== 11. graphs past 2^24 nodes: N={SCALE_N} E={SCALE_E} RMAT seed "
+        f"{scale.SEED}, one device and {scale.SHARDS} shards (card: {smi})")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    g_scale, scale_times = scale_host.result()
+    log(f"  edges drawn in {scale_times['t_gen_s']:.1f} s and frozen in "
+        f"{scale_times['t_freeze_s']:.1f} s on the host thread (waited "
+        f"{time.time() - t0:.1f} s for it)")
+    counts_scale = scale_phase(torch, K, dev, scale, g_scale, scale_times)
+    del g_scale
+    log(f"  graphs past 2^24 nodes {time.time() - t0:.1f} s; launches "
+        f"{counts_scale}")
+    check(counts_scale["segment_reduce_sorted"] > 0,
+          f"segment_reduce_sorted launched by the runs past 2^24 nodes "
+          f"({counts_scale['segment_reduce_sorted']} times)")
+    for name, n in counts_scale.items():
         counts[name] += n
     log(f"total {time.time() - t_all:.1f} s")
 

@@ -23,6 +23,7 @@ import torch
 from . import native
 
 LANE = 128  # padded axes are multiples of this
+INT32_MAX = 2**31 - 1
 
 ARRAY_FIELDS = ("begin", "node_idx", "node_idx_src", "r_begin",
                 "r_node_idx", "r_node_idx_dst", "e_rev2idx")
@@ -186,27 +187,41 @@ def from_edges(src: np.ndarray, dst: np.ndarray,
     ``make_reverse_edges()`` + ``prepare_edge_source()`` in one pass.
     Returns ``(graph, csr_perm)``; ``csr_perm[i]`` is the input index of
     the edge in CSR slot ``i`` (to permute edge properties given in input
-    order).
+    order), in ``edge_dtype``.
+
+    ``node_dtype`` and ``edge_dtype`` are the host's id spaces (an 8-byte
+    ``node_t``/``edge_t`` file gives int64).  The graph's arrays are int32
+    whatever they are, as the JAX package's device arrays are without x64:
+    a graph holds fewer than 2^31 edge slots (``ValueError`` otherwise) and
+    fewer than 2^31 - 1 nodes.
     """
     src = np.asarray(src)
     dst = np.asarray(dst)
     if src.shape != dst.shape or src.ndim != 1:
         raise ValueError("src/dst must be equal-length 1-D arrays")
     E = int(src.shape[0])
+    e_pad = round_up(max(E, 1))
+    if e_pad > INT32_MAX:
+        raise ValueError(f"{E} edges pad to {e_pad} edge slots: a Graph "
+                         f"holds at most 2^31 - 1 (its edge arrays are "
+                         f"int32)")
     if num_nodes is None:
         num_nodes = int(max(src.max(initial=-1), dst.max(initial=-1)) + 1)
     N = int(num_nodes)
+    if N >= INT32_MAX:
+        raise ValueError(f"{N} nodes: a Graph holds fewer than 2^31 - 1 "
+                         f"(its node ids and the sentinel N are int32)")
     src = src.astype(node_dtype, copy=False)
     dst = dst.astype(node_dtype, copy=False)
     if E and (src.min() < 0 or dst.min() < 0 or src.max() >= N
               or dst.max() >= N):
         raise ValueError("edge endpoint out of range")
-    e_pad = round_up(max(E, 1))
 
-    if (E and np.dtype(node_dtype) == np.int32
-            and np.dtype(edge_dtype) == np.int32 and native.available()):
+    if E and native.available():
         (begin, csr_dst, csr_src, csr_perm, r_begin, csc_src, csc_dst,
-         e_rev2idx) = native.build_csr(src, dst, N)
+         e_rev2idx) = native.build_csr(src.astype(np.int32, copy=False),
+                                       dst.astype(np.int32, copy=False), N)
+        csr_perm = csr_perm.astype(edge_dtype, copy=False)
     else:
         # CSR: sort by (src, dst), which semi-sorts every row.
         csr_perm = np.lexsort((dst, src)).astype(edge_dtype)
@@ -226,21 +241,19 @@ def from_edges(src: np.ndarray, dst: np.ndarray,
         input_to_csr[csr_perm] = np.arange(E, dtype=edge_dtype)
         e_rev2idx = input_to_csr[csc_of_input]
 
-    sent = np.dtype(node_dtype).type(N)
-
     def padded(a, fill):
-        out = np.full(e_pad, fill, dtype=a.dtype)
+        out = np.full(e_pad, fill, dtype=np.int32)
         out[:E] = a
         return out
 
     g = graph_from_arrays(dict(
-        begin=begin,
-        node_idx=padded(csr_dst, sent),
-        node_idx_src=padded(csr_src, sent),
-        r_begin=r_begin,
-        r_node_idx=padded(csc_src, sent),
-        r_node_idx_dst=padded(csc_dst, sent),
-        e_rev2idx=padded(e_rev2idx, np.dtype(edge_dtype).type(0)),
+        begin=begin.astype(np.int32, copy=False),
+        node_idx=padded(csr_dst, N),
+        node_idx_src=padded(csr_src, N),
+        r_begin=r_begin.astype(np.int32, copy=False),
+        r_node_idx=padded(csc_src, N),
+        r_node_idx_dst=padded(csc_dst, N),
+        e_rev2idx=padded(e_rev2idx, 0),
     ), N, E)
     return g, csr_perm
 

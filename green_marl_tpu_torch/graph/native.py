@@ -114,6 +114,9 @@ def build_csr(src: np.ndarray, dst: np.ndarray, n: int):
     ``csr.from_edges``'s numpy form does."""
     native = lib()
     e = src.shape[0]
+    if e >= 2**31 or n >= 2**31:
+        raise ValueError(f"build_csr takes int32 edge slots and node ids: "
+                         f"E={e}, N={n}")
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
     begin = np.empty(n + 1, np.int32)

@@ -105,6 +105,8 @@ def _load() -> ctypes.CDLL:
                                        cint, cint, vp]
     cdll.gm_segment_reduce_tile_size.restype = cint
     cdll.gm_segment_reduce_tile_size.argtypes = []
+    cdll.gm_segment_reduce_row_chunk.restype = cint
+    cdll.gm_segment_reduce_row_chunk.argtypes = []
     cdll.gm_cumsum.restype = cint
     cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, cint, vp]
     cdll.gm_cumsum_tile_size.restype = cint

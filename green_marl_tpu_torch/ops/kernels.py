@@ -140,9 +140,11 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     lib = _build.lib()
     out = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
     # per tile of edge slots a status word and a row bound (and one more
-    # bound); the C entry clears what must start at 0
+    # bound), per chunk of rows the end of a run of empty rows; the C entry
+    # clears what must start at 0
     n_tiles = max(1, -(-vals.numel() // lib.gm_segment_reduce_tile_size()))
-    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int64,
+    n_chunks = -(-(offsets.numel() - 1) // lib.gm_segment_reduce_row_chunk())
+    scratch = torch.empty(2 * n_tiles + 1 + n_chunks, dtype=torch.int64,
                           device=vals.device)
     with torch.cuda.device(vals.device):
         err = lib.gm_segment_reduce(

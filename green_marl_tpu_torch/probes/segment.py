@@ -5,9 +5,12 @@ Times ``kernels.segment_reduce_sorted`` (float32 add and int32 min) and
 bench.py's LiveJournal-scale sizes (N=4.8M, E=69M, seed 42, edges from
 ``native/gm_io.cc``), beside a ``clone()`` of the values and, for the
 float32 sum, ``torch.segment_reduce`` (a yardstick only: the port never
-calls it).  Each kernel is first held against its plain version.  Times
-are CUDA events, per call: back-to-back launches in groups, the median
-group and the range over the groups.
+calls it).  Then the segment reduce on the edge slab of the second of 4
+shards with its offsets clipped to the slab, as the replicate placement
+gives them (``Graph.csc_offsets``: millions of empty rows at slot 0 and at
+the slab's end), beside its plain version.  Each kernel is first held
+against its plain version.  Times are CUDA events, per call: back-to-back
+launches in groups, the median group and the range over the groups.
 
 Run on a machine with an NVIDIA GPU, from the root of a checkout::
 
@@ -15,7 +18,9 @@ Run on a machine with an NVIDIA GPU, from the root of a checkout::
 
 ``--root DIR`` takes the package from another checkout (``DIR`` holds
 ``green_marl_tpu_torch/``), so two commits can be timed in turns within one
-run on one card: both keep the wrappers' Python signatures.  The graph's
+run on one card: both keep the wrappers' Python signatures.  ``--parts``
+adds the segment reduce's device time launch by launch (``torch.profiler``:
+the scratch clear, the row bounds, the tiles) at both shapes.  The graph's
 CSC offsets are kept in ``--cache`` between runs.  Prints one JSON object
 per line.
 """
@@ -87,6 +92,59 @@ def time_all(args, K, record, vals_f, vals_i, ids, offs, n_pad, e_pad):
                bound_ms=nbytes / HBM_BYTES_PER_MS)
 
 
+def parts(K, record, what, vals, offs, n_out, calls=20):
+    """Device time of each launch inside one segment reduce, mean over
+    ``calls`` calls (``torch.profiler``)."""
+    from green_marl_tpu_torch.probes.gather import kernel_name
+    from green_marl_tpu_torch.probes.profile_apps import device_times
+    K.segment_reduce_sorted(vals, vals, offs, n_out, "add")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            K.segment_reduce_sorted(vals, vals, offs, n_out, "add")
+        torch.cuda.synchronize()
+    ms = {}
+    for name, t in device_times(prof).items():
+        ms[kernel_name(name)] = ms.get(kernel_name(name), 0.0) + t / calls
+    record(what=f"{what}: launches", parts=ms)
+
+
+def clipped_slab(args, K, record, vals_f, vals_i, offs, n_pad, e_pad):
+    """The segment reduce on shard 1 of 4's slab with clipped offsets:
+    checked against its plain version, then timed beside it."""
+    e_s = -(-e_pad // 4)
+    e_s = -(-e_s // 128) * 128                       # pad_edges_for's slab
+    off = (offs - e_s).clamp(0, e_s)
+    vf, vi = vals_f[:e_s], vals_i[:e_s]
+    ids = vi                                         # shape only
+    got = K.segment_reduce_sorted(vf, ids, off, n_pad, "add")
+    want = K.segment_reduce_sorted_ref(vf.double(), ids, off, n_pad, "add")
+    assert torch.allclose(got.double(), want, rtol=1e-5, atol=0.0)
+    for op in ("min", "max"):
+        assert torch.equal(K.segment_reduce_sorted(vi, ids, off, n_pad, op),
+                           K.segment_reduce_sorted_ref(vi, ids, off, n_pad,
+                                                       op))
+    deg = off.diff()
+    record(what="clipped slab", e_s=e_s, n_seg=off.numel() - 1,
+           empty_rows=int((deg == 0).sum()), ok=True)
+    nbytes = 4 * e_s + 4 * off.numel() + 4 * n_pad
+    for what, fn in (
+            ("clipped slab: segment_reduce_sorted float32 add",
+             lambda: K.segment_reduce_sorted(vf, ids, off, n_pad, "add")),
+            ("clipped slab: segment_reduce_sorted int32 min",
+             lambda: K.segment_reduce_sorted(vi, ids, off, n_pad, "min")),
+            ("clipped slab: plain float32 add",
+             lambda: K.segment_reduce_sorted_ref(vf, ids, off, n_pad,
+                                                 "add"))):
+        med, lo, hi = timed(fn, args.calls, args.groups)
+        record(what=what, ms=med, ms_min=lo, ms_max=hi,
+               bound_ms=nbytes / HBM_BYTES_PER_MS)
+    if args.parts:
+        parts(K, record, "clipped slab float32 add", vf, off, n_pad)
+
+
 def main(argv=None):
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -95,6 +153,8 @@ def main(argv=None):
         "build", "green_marl_tpu_torch", f"rmat_lj_seed{LJ_SEED}_csc.npy"))
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--groups", type=int, default=7)
+    ap.add_argument("--parts", action="store_true",
+                    help="device time of each launch (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probes/segment.py: needs an NVIDIA GPU")
@@ -151,6 +211,9 @@ def main(argv=None):
     del want, scan, tails, nonempty, got, again, got_i
 
     time_all(args, K, record, vals_f, vals_i, ids, offs, n_pad, e_pad)
+    if args.parts:
+        parts(K, record, "float32 add", vals_f, offs, n_pad)
+    clipped_slab(args, K, record, vals_f, vals_i, offs, n_pad, e_pad)
 
 
 if __name__ == "__main__":

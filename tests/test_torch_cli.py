@@ -353,6 +353,75 @@ def test_new_apps_match_jax_cli(app, small, must_have, small_rmat, capsys):
     assert any(ln.startswith(must_have) for ln in got)
 
 
+@pytest.fixture(scope="module")
+def edge8_files(tmp_path_factory):
+    """parity10k and a 300-node RMAT stored with 8-byte ``edge_t`` (the
+    reference's EDGE_SIZE=64 build, as twitter_rv is stored)."""
+    from green_marl_tpu.graph import generate as jgen
+    d = tmp_path_factory.mktemp("edge8")
+    raw = jbio.load_binary(FIXTURE)
+    src, dst = jgen.rmat_edges(300, 1200, seed=13)
+    order = np.lexsort((dst, src))
+    begin = np.zeros(301, np.int64)
+    np.cumsum(np.bincount(src, minlength=300), out=begin[1:])
+    files = {}
+    for name, (b, idx) in (("parity10k", (raw.begin, raw.node_idx)),
+                           ("rmat300", (begin, dst[order]))):
+        for nbytes in (4, 8):
+            files[name, nbytes] = str(d / f"{name}_e{nbytes}.bin")
+            jbio.store_binary(files[name, nbytes], b, idx,
+                              edge_bytes=nbytes)
+    return files
+
+
+def _same_lines(got, want, rtol=1e-5):
+    """Line by line: equal, or equal but for numbers that are floats in
+    both and agree within ``rtol`` (float sums differ in their last bits
+    between the two packages).  The CRCs of PageRank's float ranks hash
+    those bits and are not compared."""
+    assert len(got) == len(want), (got, want)
+    for g, w in zip(got, want):
+        if g == w or g.startswith(("CRC rank ", "CRC16 rank ")):
+            continue
+        gt, wt = g.split(), w.split()
+        assert len(gt) == len(wt), (g, w)
+        for a, b in zip(gt, wt):
+            if a != b:
+                assert "." in a + b, (g, w)        # integers are exact
+                np.testing.assert_allclose(float(a.rstrip(",")),
+                                           float(b.rstrip(",")),
+                                           rtol=rtol, err_msg=f"{g} / {w}")
+
+
+EDGE8_APPS = ("pagerank", "hop_dist", "sssp", "weak_cc", "kosaraju",
+              "tarjan_scc", "bc", "sssp_path", "communities", "multi_bfs",
+              "triangle_counting", "conduct", "avg_teen_cnt", "v_cover",
+              "random_node_sampling", "potential_friends")
+
+
+@pytest.mark.parametrize("graph", ["rmat300", "parity10k"])
+@pytest.mark.parametrize("app", EDGE8_APPS)
+def test_edge8_bin_matches_jax_cli(app, graph, edge8_files, capsys):
+    """Every app that takes a plain graph, on a BIN file with 8-byte
+    ``edge_t``: the port's lines are the JAX CLI's (integers and CRCs bit
+    for bit, float values within rtol 1e-5) and, bit for bit, the port's
+    own on the same graph stored with 4-byte ``edge_t``.  v_cover (a host
+    sync a step) and potential_friends (a dense N x N product) run on the
+    RMAT only."""
+    if graph == "parity10k" and app in ("v_cover", "potential_friends"):
+        pytest.skip("v_cover and potential_friends want a few hundred nodes")
+    def lines(main, argv):
+        # multi_bfs's line ends in its host-clock GTEPS
+        return [ln.split(" aggregate=")[0]
+                for ln in results(run(capsys, main, argv))]
+
+    want = lines(japps.main, [app, edge8_files[graph, 8]])
+    got = lines(apps.main, [app, "-GMDevice=cpu", edge8_files[graph, 8]])
+    _same_lines(got, want)
+    assert got == lines(apps.main, [app, "-GMDevice=cpu",
+                                    edge8_files[graph, 4]])
+
+
 def test_conduct_reads_membership_from_ebin(tmp_path, capsys):
     raw = jbio.load_binary(FIXTURE)
     member = np.random.default_rng(5).integers(0, 3, raw.num_nodes) \

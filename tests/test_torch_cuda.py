@@ -458,6 +458,93 @@ def test_segment_reduce_no_slots(dev):
     assert K.segmented_scan(empty, empty.int()).numel() == 0
 
 
+def _median_ms(fn, reps=10):
+    """Median device time of ``fn`` in ms over ``reps`` launches, each
+    between its own CUDA events, after one warm-up launch."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "add"),
+                                      (torch.int32, "min"),
+                                      (torch.int32, "max")])
+def test_segment_reduce_runs_of_empty_rows(dev, dtype, op):
+    """1.2M empty rows at slot 0 and 1.1M at the end, a body of short rows
+    and one hub between (the shape of a shard's clipped offsets): float add
+    within rtol 1e-5 of float64, int32 min and max exactly, the same bits on
+    a second launch, and the kernel no slower than its plain version
+    (median of 10 launches each)."""
+    rng = np.random.default_rng(11)
+    body = rng.choice([0, 1, 1, 2, 3, 8, 30], size=600_000)
+    body[300_000] = 1 << 20
+    lens = np.concatenate([np.zeros(1_200_000, np.int64), body,
+                           np.zeros(1_100_003, np.int64)])
+    off = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    e = int(off[-1])
+    offsets = torch.from_numpy(off.astype(np.int32)).to(dev)
+    n_out = lens.size + 300
+    if dtype == torch.float32:
+        vals = torch.from_numpy(rng.random(e).astype(np.float32)).to(dev)
+    else:
+        vals = torch.from_numpy(_vals(rng, e, dtype)).to(dev)
+    got = K.segment_reduce_sorted(vals, vals, offsets, n_out, op)
+    again = K.segment_reduce_sorted(vals, vals, offsets, n_out, op)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        want = K.segment_reduce_sorted_ref(vals.double(), vals, offsets,
+                                           n_out, op)
+        assert torch.allclose(got.double(), want, rtol=1e-5, atol=0.0)
+    else:
+        assert torch.equal(got, K.segment_reduce_sorted_ref(
+            vals, vals, offsets, n_out, op))
+    ms = _median_ms(lambda: K.segment_reduce_sorted(vals, vals, offsets,
+                                                    n_out, op))
+    plain = _median_ms(lambda: K.segment_reduce_sorted_ref(
+        vals, vals, offsets, n_out, op))
+    assert ms <= plain, (ms, plain)
+
+
+def test_kernels_launch_on_an_edge8_bin_graph(dev, tmp_path):
+    """A graph read from a BIN file with 8-byte ``edge_t`` holds int32
+    arrays on the card: pagerank launches the segment reduce and a pull BFS
+    the prefix sum, with the results of the same graph stored with 4-byte
+    ``edge_t``."""
+    from green_marl_tpu_torch.graph import binary_io
+    from green_marl_tpu_torch.models.bfs import bfs
+    from green_marl_tpu_torch.models.pagerank import pagerank
+    g4 = _card_graph(torch.device("cpu"))
+    path = str(tmp_path / "edge8.bin")
+    binary_io.store_binary(path, g4.begin.numpy(),
+                           g4.node_idx.numpy()[:g4.num_edges], edge_bytes=8)
+    raw = binary_io.load_binary(path)
+    assert raw.begin.dtype == np.int64
+    g8 = raw.freeze()[0].to(dev)
+    assert g8.edge_dtype == torch.int32
+    root = int(np.argmax(np.diff(g4.begin.numpy())))
+    K.reset_launch_counts()
+    pr = pagerank(g8)
+    lv = bfs(g8, root, direction="pull")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["segment_reduce_sorted"] >= pr.iterations > 0
+    assert counts["plain_cumsum"] > 0
+    g4 = g4.to(dev)
+    assert torch.equal(pr.rank, pagerank(g4).rank)
+    assert torch.equal(lv.level, bfs(g4, root, direction="pull").level)
+
+
 TAKE = [("axis0", 8, 8, False, False), ("axis0", 256, 256, False, False),
         ("axis0", 1024, 1024, False, False), ("axis1", 64, 64, False, False),
         ("row", 1024, 1024, False, False), ("row", 256, 1024, False, True),
@@ -1161,3 +1248,40 @@ def test_run_vertex_sharded_on_the_card(dev, mesh4):
         assert counts["segment_reduce_sorted"] > 0
         if text is _PULL_GM:
             assert counts["plain_cumsum"] > 0          # integer Sum(...)
+
+
+def test_nccl_one_rank_four_shards(dev, mesh4):
+    """``multihost.init`` with one process and four shards on the card
+    (NCCL): pagerank_vsharded and hop_dist_vsharded equal the four-thread
+    run on the same card (integers bit for bit, ranks within rtol 1e-5),
+    and the NCCL path ran its collectives."""
+    import socket
+
+    from green_marl_tpu_torch.parallel import comm, multihost as mh
+    from green_marl_tpu_torch.parallel import vertex_sharded as V
+    g = _card_graph(dev)
+    vsg_h = V.build_vertex_sharded(g, 4)
+    vsg = V.place(vsg_h, mesh4)
+    rank_t, _, it_t = V.pagerank_vsharded(vsg, mesh4, e=1e-7, max_iter=50)
+    dist_t, depth_t = V.hop_dist_vsharded(vsg, mesh4, 7)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    mh.init(f"localhost:{port}", 1, 0,
+            local_device_ids=[dev.index or 0] * 4)
+    try:
+        mesh = mh.global_mesh()
+        assert mesh.dist is not None and mesh.size == 4
+        vsg_d = mh.place_multihost(vsg_h, mesh)
+        comm.reset_counts()
+        rank, _, it = V.pagerank_vsharded(vsg_d, mesh, e=1e-7, max_iter=50)
+        dist, depth = V.hop_dist_vsharded(vsg_d, mesh, 7)
+        torch.cuda.synchronize()
+        counts = dict(comm.COUNTS)
+    finally:
+        mh.shutdown()
+    assert it == it_t and depth == depth_t
+    torch.testing.assert_close(rank, rank_t, rtol=1e-5, atol=0.0)
+    assert torch.equal(dist, dist_t)
+    assert counts["all_to_all"] == it + depth and counts["psum"] > 0
