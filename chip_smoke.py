@@ -141,14 +141,27 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    the reached sets of three roots, ranks within 1e-3 of float64, sharded
    == one device; each run's launches; the segment reduce against its
    plain version on the runs' slabs (the one-device CSC, the engine's and
-   the schedule's shard 0); host seconds, device ms and the memory peak.
+   the schedule's shard 0); host seconds, device ms and the memory peak;
+12. compiled programs in lockstep (``CompiledProc.batch``) on phase 4's
+   graph, 16 lanes each: pagerank.gm over damping values in [0.70, 0.92],
+   hop_dist.gm and sssp.gm from the 16 highest-out-degree roots, and
+   avg_teen_cnt.gm with its band's lower bound as an argument over 16
+   bounds; each batched run's launches (the lane-batched kernels' on their
+   own), time (and again, warm) beside its 16 single runs and device peak;
+   each lane against its single run; pagerank.gm's pulls == its slowest
+   lane's iterations; ``torch.profiler`` groups of a batched pagerank.gm
+   and hop_dist.gm;
+   then the lane-batched segment reduce and prefix sum against their plain
+   versions on the [16, E_pad] values the runs gave them, each lane against
+   the 1-D kernel, and their times beside plain, 16 x the 1-D kernel, the
+   bound and one PyTorch call.
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
 kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
 the component and path models and the sampling family counted on their own
-too), phase 8, phase 9 (each compiled call on its own), phase 10 and
-phase 11.
+too), phase 8, phase 9 (each compiled call on its own), phase 10,
+phase 11 and phase 12 (each batched and single run on its own).
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
@@ -1188,6 +1201,255 @@ Procedure avg_teen_cnt(G: Graph, age, teen_cnt: N_P<Int>, K: Int) : Float {
 # (``python -m green_marl_tpu_torch.probes.scale`` runs the full size)
 SCALE_N, SCALE_E, SCALE_B = 1 << 25, 120_000_000, 256
 
+# phase 12: compiled programs in lockstep (CompiledProc.batch) at the
+# LiveJournal scale, BATCH_B lanes each: pagerank.gm over damping values,
+# hop_dist.gm and sssp.gm over roots, and avg_teen_cnt.gm with its band's
+# lower bound as an argument, over bounds
+BATCH_B = 16
+BAND_CNT_GM = """
+Procedure band_cnt(G: Graph, age, teen_cnt: N_P<Int>, lo: Int,
+                   K: Int) : Float {
+    Foreach(n: G.Nodes) {
+        n.teen_cnt = Count(t: n.InNbrs)(t.age >= lo && t.age < lo + 10);
+    }
+    Float avg = (Float) Avg(n: G.Nodes)(n.age > K){ n.teen_cnt };
+    Return avg;
+}
+"""
+LANE_KERNELS = ("segment_reduce_sorted", "plain_cumsum")
+
+
+@contextlib.contextmanager
+def first_lane_calls(K):
+    """Record the first lane-batched call of each lane kernel's wrapper
+    while the block runs: name -> (a clone of its [B, E] values, the other
+    arguments, the keywords)."""
+    seen = {}
+    reals = {name: getattr(K, name) for name in LANE_KERNELS}
+
+    def recorder(name, real):
+        def call(vals, *args, **kw):
+            if vals.dim() == 2 and name not in seen:
+                seen[name] = (vals.clone(), args, kw)
+            return real(vals, *args, **kw)
+        return call
+
+    for name, real in reals.items():
+        setattr(K, name, recorder(name, real))
+    try:
+        yield seen
+    finally:
+        for name, real in reals.items():
+            setattr(K, name, real)
+
+
+def lane_kernel_records(torch, K, inputs, b, smi):
+    """Each lane-batched kernel against its plain version on the [B, E]
+    values a batched program gave it, every lane against the 1-D kernel on
+    its row, then its time beside the plain version's, B times the 1-D
+    kernel's on one row, its bound and one PyTorch call.  Returns
+    name -> record."""
+    recs = {}
+    prog, v2, args, kw = inputs["segment_reduce_sorted"]
+    ids, offs, n_out = args
+    op = kw.get("op", "add")
+    got = K.segment_reduce_sorted(v2, ids, offs, n_out, op)
+    want = K.segment_reduce_sorted_ref(v2, ids, offs, n_out, op)
+    rows_equal = all(torch.equal(got[r], K.segment_reduce_sorted(
+        v2[r].contiguous(), ids, offs, n_out, op)) for r in range(b))
+    err = float((got - want).abs().max())
+    check(rows_equal and torch.allclose(got, want, rtol=1e-5, atol=0.0),
+          f"segment_reduce_sorted[lanes] {v2.dtype} {op} on {prog}'s "
+          f"{list(v2.shape)} values: each lane the bits of the 1-D kernel "
+          f"on its row; within rtol 1e-5 of plain (max abs err {err:.3g})")
+    del got, want
+    row = v2[0].contiguous()
+    in_range = int(offs[-1]) - int(offs[0])
+    lib = None
+    try:
+        col = v2.t().contiguous()       # [E, B]: the library's layout
+        lib = cuda_ms(torch, lambda: torch.segment_reduce(
+            col, "sum", offsets=offs.long(), axis=0))
+        del col
+    except (RuntimeError, TypeError) as e:
+        log(f"  torch.segment_reduce on the [E, {b}] transpose: refused "
+            f"({str(e).splitlines()[0][:120]})")
+    recs["segment_reduce_sorted[lanes]"] = dict(
+        err=err, ms=cuda_ms(torch, lambda: K.segment_reduce_sorted(
+            v2, ids, offs, n_out, op)),
+        plain_ms=cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
+            v2, ids, offs, n_out, op), reps=3),
+        one_ms=b * cuda_ms(torch, lambda: K.segment_reduce_sorted(
+            row, ids, offs, n_out, op)),
+        bytes=b * (4 * in_range + 4 * n_out) + 4 * offs.numel(),
+        library_ms=lib)
+    del v2, row
+    prog, v2, args, kw = inputs["plain_cumsum"]
+    excl = bool(kw.get("exclusive", False))
+    got = K.plain_cumsum(v2, exclusive=excl)
+    rows_equal = all(torch.equal(got[r], K.plain_cumsum(
+        v2[r].contiguous(), exclusive=excl)) for r in range(b))
+    check(rows_equal and torch.equal(got, K.plain_cumsum_ref(
+        v2, exclusive=excl)), f"plain_cumsum[lanes] {v2.dtype} "
+          f"exclusive={excl} on {prog}'s {list(v2.shape)} values == plain "
+          "and each lane == the 1-D kernel, bit for bit")
+    del got
+    row = v2[0].contiguous()
+    e = v2.shape[1]
+    recs["plain_cumsum[lanes]"] = dict(
+        err=0.0, ms=cuda_ms(torch, lambda: K.plain_cumsum(
+            v2, exclusive=excl)),
+        plain_ms=cuda_ms(torch, lambda: K.plain_cumsum_ref(
+            v2, exclusive=excl)),
+        one_ms=b * cuda_ms(torch, lambda: K.plain_cumsum(
+            row, exclusive=excl)),
+        bytes=b * (4 * e + 4 * (e + excl)),
+        library_ms=cuda_ms(torch, lambda: torch.cumsum(
+            v2, 1, dtype=torch.int32)))
+    del v2, row
+    for name, r in recs.items():
+        bound = r["bytes"] / HBM_BYTES_PER_MS
+        log(f"  {name} at [{b}, E]: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, {b} x the 1-D kernel on one row "
+            f"{r['one_ms']:.3f} ms, bound {bound:.3f} ms ({r['bytes'] / 1e6:.1f}"
+            f" MB at 3.35 TB/s; {bound / r['ms']:.0%} of it), one PyTorch "
+            "call " + ("none" if r["library_ms"] is None
+                       else f"{r['library_ms']:.3f} ms") + f" (card: {smi})")
+    return recs
+
+
+def batch_phase(torch, K, dev, g_host, smi):
+    """Phase 12: compiled programs in lockstep at the full size, BATCH_B
+    lanes each.  Each batched run on its own: its launches (the lane
+    kernels' too), time and device peak; each lane against its own single
+    run (integers bit for bit, floats within rtol 1e-6, their differing
+    values counted); the pulls of pagerank.gm == its slowest lane's
+    iterations.  Then each lane kernel against its plain version on the
+    values a batched run gave it.  Returns (launches by name, records)."""
+    import warnings
+
+    from green_marl_tpu_torch.lang.lower import compile_source
+    from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
+
+    def quiet(text):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return compile_source(text)
+
+    def counts():
+        return {**K.launch_counts(), **K.lane_launch_counts()}
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        """(result, CUDA-event ms, host ms, launches by name)."""
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        ev1.synchronize()
+        host = 1e3 * (time.time() - t0)
+        after = counts()
+        return out, ev0.elapsed_time(ev1), host, {
+            k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    b = BATCH_B
+    g = g_host.to(dev)
+    n = g.num_nodes
+    deg = np.diff(g_host.begin.numpy()[: n + 1])
+    roots = np.argsort(deg)[::-1][:b].astype(np.int32)  # as bench.py:431
+    w_np = np.zeros(g.e_pad, np.int32)
+    w_np[: g.num_edges] = sssp_edge_lengths(g.num_edges)
+    age = torch.from_numpy(np.random.default_rng(LJ_SEED).integers(
+        0, 90, g.n_pad).astype(np.int32)).to(dev)
+    programs = (
+        ("pagerank.gm", PAGERANK_GM, "d",
+         np.linspace(0.70, 0.92, b).astype(np.float32),
+         dict(e=1e-7, max=100)),
+        ("hop_dist.gm", HOP_DIST_GM, "root", roots, {}),
+        ("sssp.gm", SSSP_GM, "root", roots,
+         {"len": torch.from_numpy(w_np).to(dev)}),
+        ("band_cnt.gm", BAND_CNT_GM, "lo",
+         np.arange(0, 5 * b, 5, dtype=np.int32), {"age": age, "K": 15}))
+    log(f"  {b} lanes; roots (highest out-degree first) {roots.tolist()}")
+    total = {k: 0 for k in counts()}
+    inputs = {}
+    for name, text, arg, vals, fixed in programs:
+        cp = quiet(text)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with first_lane_calls(K) as seen:
+            out, ms, host, launched = timed(
+                lambda: cp.batch(g, over={arg: vals}, **fixed))
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launched.items():
+            total[k] += v
+        for k, v in seen.items():
+            inputs.setdefault(k, (name,) + v)
+        del seen
+        # the same batched run again, warm (the first one takes the
+        # allocator's growth and the first launches)
+        _, warm_ms, warm_host, _ = timed(
+            lambda: cp.batch(g, over={arg: vals}, **fixed))
+        one_ms = one_host = 0.0
+        iters, ok, differ = [], True, {}
+        for i in range(b):
+            lane = vals[i].item()
+            one, ms_i, host_i, launched_i = timed(
+                lambda: cp(g, **{arg: lane}, **fixed))
+            one_ms += ms_i
+            one_host += host_i
+            iters.append(launched_i.get("segment_reduce_sorted", 0))
+            for k, v in one.items():
+                got = out[k][i]
+                ok &= got.shape == v.shape and got.dtype == v.dtype
+                if v.dtype.is_floating_point:
+                    differ[k] = differ.get(k, 0) + int((got != v).sum())
+                    ok &= bool(torch.isfinite(got).all()) and \
+                        torch.allclose(got, v, rtol=1e-6, atol=0.0)
+                else:
+                    ok &= torch.equal(got, v)
+            del one
+        check(ok and all(v.shape[0] == b for v in out.values()),
+              f"{name} batched over {b} values of {arg} at N={n} E="
+              f"{g.num_edges}: each lane == its single run (integers bit "
+              f"for bit, floats within rtol 1e-6; float values that differ "
+              f"in bits: {differ or 'none'}); batched {ms:.1f} ms CUDA "
+              f"events, {host:.1f} ms host (again, warm: {warm_ms:.1f} ms, "
+              f"{warm_host:.1f} ms host); {b} single runs {one_ms:.1f} "
+              f"ms, {one_host:.1f} ms host ({one_ms / warm_ms:.2f}x the "
+              f"warm batched run); device "
+              f"peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
+              f"above the {base / 1e9:.2f} GB before); launches {launched} "
+              f"(card: {smi})")
+        pulls = launched.get("segment_reduce_sorted", 0) + \
+            launched.get("segment_reduce_sorted[lanes]", 0)
+        if name == "pagerank.gm":
+            check(pulls == max(iters) and
+                  launched.get("segment_reduce_sorted[lanes]", 0) > 0,
+                  f"pagerank.gm batched: {pulls} segment reduces (lanes "
+                  f"{launched.get('segment_reduce_sorted[lanes]', 0)}) == "
+                  f"its slowest lane's {max(iters)} iterations, not their "
+                  f"sum {sum(iters)} (lanes: {iters})")
+        elif name == "band_cnt.gm":
+            check(launched.get("plain_cumsum[lanes]", 0) == 1,
+                  "band_cnt.gm batched: one lane-batched prefix sum for "
+                  f"its lane-dependent Count (launches {launched})")
+        del out
+        if name in ("pagerank.gm", "hop_dist.gm"):
+            profile_one(torch, f"{name} batched, {b} lanes", lambda: cp.batch(
+                g, over={arg: vals}, **fixed))
+    del g
+    torch.cuda.empty_cache()
+    recs = lane_kernel_records(torch, K, inputs, b, smi)
+    return total, recs
+
+
 SHARDS = 4                # phase 10: shards of one program on the card
 MULTI_BFS_B = 64          # phase 10: instances of the sharded bit BFS
 
@@ -1366,23 +1628,32 @@ def small_program_record(name, out, g):
     return rec
 
 
-def profile_pair(torch, name, model, compiled):
+def profile_one(torch, label, fn):
     """Device time by kernel group (``probes.profile_apps``) of one run of
-    the hand-written model and one of the compiled program, each under
-    ``torch.profiler`` after the timed runs."""
+    ``fn`` under ``torch.profiler``, beside the host clock of the run (the
+    device's idle share: 1 - device / host)."""
     from green_marl_tpu_torch.probes.profile_apps import (
         by_group, device_times, shared_kernel_by_op)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.time() - t0)
+    times = device_times(prof)
+    groups = by_group(times, shared_kernel_by_op(prof))
+    dev_ms = sum(times.values())
+    log(f"  {label} under torch.profiler: device {dev_ms:.2f} ms, host "
+        f"{host:.2f} ms ({1 - dev_ms / host:.0%} idle); by group (ms) "
+        + json.dumps({k: round(v, 3) for k, v in groups.items()}))
+
+
+def profile_pair(torch, name, model, compiled):
+    """``profile_one`` of one run of the hand-written model and one of the
+    compiled program, after the timed runs."""
     for label, fn in (("model", model), ("compiled", compiled)):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        times = device_times(prof)
-        groups = by_group(times, shared_kernel_by_op(prof))
-        log(f"  {name} {label} under torch.profiler: device "
-            f"{sum(times.values()):.2f} ms; by group (ms) "
-            + json.dumps({k: round(v, 3) for k, v in groups.items()}))
+        profile_one(torch, f"{name} {label}", fn)
 
 
 def compiled_phase(torch, K, dev, apps, g_host, roots, smi):
@@ -2587,7 +2858,6 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.time()
     counts_sharded = sharded_phase(torch, K, dev, apps, g_host, roots, smi)
-    del g_host
     log(f"  multi-device {time.time() - t0:.1f} s; launches "
         f"{counts_sharded}")
     for name in ("segment_reduce_sorted", "plain_cumsum"):
@@ -2614,6 +2884,22 @@ def main():
           f"({counts_scale['segment_reduce_sorted']} times)")
     for name, n in counts_scale.items():
         counts[name] += n
+
+    # -- 12. compiled programs in lockstep ---------------------------------
+    log(f"== 12. compiled programs in lockstep (CompiledProc.batch): "
+        f"{BATCH_B} lanes at N={LJ_N} E={LJ_E} (card: {smi})")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    counts_batch, lane_recs = batch_phase(torch, K, dev, g_host, smi)
+    del g_host
+    log(f"  lockstep programs {time.time() - t0:.1f} s; launches "
+        f"{counts_batch}")
+    for name in LANE_KERNELS:
+        check(counts_batch[f"{name}[lanes]"] > 0,
+              f"{name}[lanes] launched by the batched runs "
+              f"({counts_batch[name + '[lanes]']} times)")
+    for name in counts:
+        counts[name] += counts_batch[name]
     log(f"total {time.time() - t_all:.1f} s")
 
     errs = {"segment_reduce_sorted": seg_err, "plain_cumsum": float(cs_err),
@@ -2625,7 +2911,17 @@ def main():
          "plain_ms": times[name][1],
          "bound_ms": bound_bytes[name] / HBM_BYTES_PER_MS,
          "bound_by": "bytes", "library_ms": library_ms[name]}
-        for name in SOURCES]}))
+        for name in SOURCES] + [
+        {"name": f"{name}[lanes]", "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name] + " (under jax.vmap)",
+         "launches": counts_batch[f"{name}[lanes]"],
+         "max_abs_err": lane_recs[f"{name}[lanes]"]["err"],
+         "ms": lane_recs[f"{name}[lanes]"]["ms"],
+         "plain_ms": lane_recs[f"{name}[lanes]"]["plain_ms"],
+         "bound_ms": lane_recs[f"{name}[lanes]"]["bytes"] / HBM_BYTES_PER_MS,
+         "bound_by": "bytes",
+         "library_ms": lane_recs[f"{name}[lanes]"]["library_ms"]}
+        for name in LANE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,6 +31,15 @@
 // out[n] from the last tile), so its stores stay aligned like the input's.
 // An input or output that is not 16-byte aligned (a view such as x[1:])
 // takes the same kernel with 4-byte loads and stores.
+//
+// Lanes: one launch scans B rows at once, in [B, n] to out rows ld_out
+// elements apart (the JAX package's `vmap` over the TPU kernel, which adds a
+// grid axis over the lanes).  The tile counter runs over (lane, tile), lane
+// by lane, with a status word each; a tile's look-back stops at its lane's
+// first tile, which stands on an inclusive 0 as tile 0 does.  The exclusive
+// form's rows of n + 1 values are laid out ld_out = n + 1 rounded up to a
+// multiple of 4 apart by the wrapper, so that every row stays 16-byte
+// aligned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,15 +83,17 @@ __device__ __forceinline__ T warp_sum(T x) {
   return x;
 }
 
-// Warp 0 of tile `tile` > 0: the sum of every element before the tile,
-// from the status words of its predecessors.
+// Warp 0 of tile `tile` > first: the sum of every element of its row
+// before the tile, from the status words of its predecessors (the row's
+// tiles start at status word `first`).
 template <typename T>
-__device__ T look_back(const uint64_t* status, int64_t tile, int lane) {
+__device__ T look_back(const uint64_t* status, int64_t tile, int64_t first,
+                       int lane) {
   T prefix = T(0);
   for (int64_t end = tile - 1;; end -= 32) {
     const int64_t j = end - lane;            // lane 0: the nearest predecessor
-    uint64_t w = kInclusive;                 // before tile 0: an inclusive 0
-    if (j >= 0) {
+    uint64_t w = kInclusive;                 // before the row: an inclusive 0
+    if (j >= first) {
       do {
         w = load_status(status + j);
       } while ((w >> 32) == 0);
@@ -97,14 +108,21 @@ __device__ T look_back(const uint64_t* status, int64_t tile, int lane) {
 template <typename T, bool kExclusive, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
-            uint64_t* __restrict__ status, unsigned* __restrict__ counter) {
+            int64_t n_tiles, int64_t ld_out, uint64_t* __restrict__ status,
+            unsigned* __restrict__ counter) {
   __shared__ unsigned s_tile;
   __shared__ T s_warp[kCombine];    // warp totals, then their exclusive sums
   __shared__ T s_prefix;            // the sum of every element before the tile
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  const int64_t tile = gm::take_tile(counter, &s_tile);
+  // the counter's number g is tile g % n_tiles of row g / n_tiles
+  const int64_t g = gm::take_tile(counter, &s_tile);
+  const int64_t row = g / n_tiles;
+  const int64_t first = g - g % n_tiles;     // the row's first status word
+  const int64_t tile = g - first;
+  in += row * n;
+  out += row * ld_out;
   const int64_t base = tile * kTile;
   const bool full = base + kTile <= n;
 
@@ -153,7 +171,7 @@ scan_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
     if (lane == 0) run = T(0);
     // publish the aggregate before waiting on anyone (tile 0: its prefix)
     if (lane == 0)
-      store_status(status + tile,
+      store_status(status + g,
                    (tile == 0 ? kInclusive : kAggregate) | to_bits(agg));
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -162,9 +180,9 @@ scan_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
     }
     T prefix = T(0);
     if (tile > 0) {
-      prefix = look_back<T>(status, tile, lane);
+      prefix = look_back<T>(status, g, first, lane);
       if (lane == 0)
-        store_status(status + tile, kInclusive | to_bits(prefix + agg));
+        store_status(status + g, kInclusive | to_bits(prefix + agg));
     }
     if (lane == 0) {
       s_prefix = prefix;
@@ -202,47 +220,59 @@ scan_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t n,
 }
 
 template <typename T, bool kExclusive>
-int run(const void* in, void* out, void* scratch, int64_t n, cudaStream_t s) {
+int run(const void* in, void* out, void* scratch, int64_t n_lanes, int64_t n,
+        int64_t ld_out, cudaStream_t s) {
   const int64_t n_tiles = (n + kTile - 1) / kTile;
+  const int64_t items = n_lanes * n_tiles;
   uint64_t* status = (uint64_t*)scratch;
-  unsigned* counter = (unsigned*)(status + n_tiles);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(n_tiles + 1) * 8, s);
+  unsigned* counter = (unsigned*)(status + items);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(items + 1) * 8, s);
   if (e != cudaSuccess) return (int)e;
-  const bool vec = ((uintptr_t)in % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  // 16-byte loads and stores need every row aligned
+  const bool vec = ((uintptr_t)in % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
+                   (n_lanes == 1 || (n % 4 == 0 && ld_out % 4 == 0));
   if (vec)
-    scan_kernel<T, kExclusive, true><<<(unsigned)n_tiles, kThreads, 0, s>>>(
-        (const T*)in, (T*)out, n, status, counter);
+    scan_kernel<T, kExclusive, true><<<(unsigned)items, kThreads, 0, s>>>(
+        (const T*)in, (T*)out, n, n_tiles, ld_out, status, counter);
   else
-    scan_kernel<T, kExclusive, false><<<(unsigned)n_tiles, kThreads, 0, s>>>(
-        (const T*)in, (T*)out, n, status, counter);
+    scan_kernel<T, kExclusive, false><<<(unsigned)items, kThreads, 0, s>>>(
+        (const T*)in, (T*)out, n, n_tiles, ld_out, status, counter);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* in, void* out, void* scratch, int64_t n,
-             int exclusive, cudaStream_t s) {
-  return exclusive ? run<T, true>(in, out, scratch, n, s)
-                   : run<T, false>(in, out, scratch, n, s);
+int dispatch(const void* in, void* out, void* scratch, int64_t n_lanes,
+             int64_t n, int64_t ld_out, int exclusive, cudaStream_t s) {
+  return exclusive ? run<T, true>(in, out, scratch, n_lanes, n, ld_out, s)
+                   : run<T, false>(in, out, scratch, n_lanes, n, ld_out, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Elements per tile: the wrapper allocates ceil(n / tile) + 1 uint64 words
-// of scratch (one status word per tile and the tile counter).
+// Elements per tile: for B rows of n the wrapper allocates B * ceil(n /
+// tile) + 1 uint64 words of scratch (one status word per row and tile, and
+// the tile counter).
 int gm_cumsum_tile_size(void) { return kTile; }
 
 // dtype: 0 = int32 (added as uint32, wraps mod 2^32), 1 = float32.
-// exclusive: 0 writes n values out[i] = sum(in[:i+1]); 1 writes n + 1 values
-// out[i] = sum(in[:i]).  n == 0 writes nothing.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unknown dtype).
-int gm_cumsum(const void* in, void* out, void* scratch, int64_t n, int dtype,
-              int exclusive, void* stream) {
+// in holds n_lanes rows of n values, one after another; row r of out starts
+// at out + r * ld_out.  exclusive: 0 writes n values out[i] = sum(in[:i+1])
+// a row; 1 writes n + 1 values out[i] = sum(in[:i]).  n == 0 writes
+// nothing.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unknown dtype).
+int gm_cumsum(const void* in, void* out, void* scratch, int64_t n_lanes,
+              int64_t n, int64_t ld_out, int dtype, int exclusive,
+              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 0) return (int)cudaGetLastError();
-  if (dtype == 0) return dispatch<uint32_t>(in, out, scratch, n, exclusive, s);
-  if (dtype == 1) return dispatch<float>(in, out, scratch, n, exclusive, s);
+  if (n <= 0 || n_lanes <= 0) return (int)cudaGetLastError();
+  if (dtype == 0)
+    return dispatch<uint32_t>(in, out, scratch, n_lanes, n, ld_out,
+                              exclusive, s);
+  if (dtype == 1)
+    return dispatch<float>(in, out, scratch, n_lanes, n, ld_out, exclusive,
+                           s);
   return (int)cudaErrorInvalidValue;
 }
 

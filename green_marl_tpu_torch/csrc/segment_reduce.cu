@@ -98,6 +98,18 @@
 // result on its own 0.05 (each timed by leaving it out).  With the carry put
 // off by a tile and the results leaving together: 0.186-0.190.
 //
+// Lanes: the same launch reduces B rows of values at once, vals [B, n_vals]
+// and out [B, n_out] with one offsets array for all of them (the JAX
+// package's `vmap` over the TPU kernel, which adds a grid axis over the
+// lanes).  The row bounds and the map of empty chunks depend on the offsets
+// alone, so the first launch finds them once for every lane.  The tile
+// kernel walks (lane, tile) work items, lane-major, with one status word
+// each: the work of a lane is that of the one-row launch on its row, tile
+// for tile, so float32 add gives each lane the bits the one-row launch
+// gives it.  The lane enters only where an item starts (its row of vals,
+// out and status), never the slot walk.  A look-back never leaves its
+// lane: tile 0 of every lane publishes state 2.
+//
 // Empty segments and rows v >= n_seg get the op's identity: 0, INT32_MAX,
 // INT32_MIN for int32 and 0, +inf, -inf for float32.  Slots outside
 // [offsets[0], offsets[n_seg]) count as the identity.  Integer add wraps mod
@@ -180,14 +192,16 @@ warp_upper_bound(const int32_t* __restrict__ offsets, int64_t lo, int64_t hi,
 // ends after slot t * kTile, so tile t owns rows [rows[t], rows[t + 1]).
 // The warps after those test the chunks of kRowChunk rows, 32 chunks a
 // warp, one a lane (the searches and the tests run side by side): an empty
-// chunk gets the identity in every row, and run_end[j] is 0 unless chunk j
-// is the first empty chunk of a run, where it is the row after the run's
-// last empty chunk (n_seg if the run reaches the end).
+// chunk gets the identity in every row of each of the n_lanes rows of out,
+// and run_end[j] is 0 unless chunk j is the first empty chunk of a run,
+// where it is the row after the run's last empty chunk (n_seg if the run
+// reaches the end).
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
 tile_rows_kernel(const int32_t* __restrict__ offsets, int64_t n_seg,
                  int64_t n_tiles, int64_t* __restrict__ rows,
-                 int64_t* __restrict__ run_end, T* __restrict__ out) {
+                 int64_t* __restrict__ run_end, T* __restrict__ out,
+                 int64_t n_out, int64_t n_lanes) {
   const int lane = threadIdx.x & 31;
   const int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (t <= n_tiles) {                            // whole warps
@@ -212,7 +226,9 @@ tile_rows_kernel(const int32_t* __restrict__ offsets, int64_t n_seg,
   for (unsigned m = __ballot_sync(kFull, empty); m; m &= m - 1) {
     const int64_t a = (c0 + __ffs(m) - 1) * kRowChunk;
     const int64_t b = a + kRowChunk < n_seg ? a + kRowChunk : n_seg;
-    for (int64_t v = a + lane; v < b; v += 32) out[v] = Red<T, OP>::ident();
+    for (int64_t l = 0; l < n_lanes; ++l)
+      for (int64_t v = a + lane; v < b; v += 32)
+        out[l * n_out + v] = Red<T, OP>::ident();
   }
   for (unsigned m = __ballot_sync(kFull, first); m; m &= m - 1) {
     const int k = __ffs(m) - 1;
@@ -240,7 +256,9 @@ constexpr int kOffBuf = kRowChunk + 1;
 constexpr size_t kSmemBytes =
     (size_t)(2 * kTile + kTile + 2 * kOffBuf + kRowChunk + kTile / 32) * 4;
 
-template <typename T, int OP, bool kVec>
+// Work item `item` is tile item % n_tiles of lane item / n_tiles (with
+// kLanes false there is one lane and the item is the tile).
+template <typename T, int OP, bool kVec, bool kLanes>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
                       const int32_t* __restrict__ offsets, int64_t n_seg,
@@ -248,7 +266,7 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
                       uint64_t* __restrict__ status,
                       const int64_t* __restrict__ tile_rows,
                       const int64_t* __restrict__ run_end,
-                      int64_t n_tiles) {
+                      int64_t n_tiles, int64_t n_lanes) {
   typedef Red<T, OP> R;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const s_vals = reinterpret_cast<T*>(smem);  // [2][kTile], phys_vec order
@@ -264,32 +282,44 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
   const int lane = t & 31;
   const int warp = t >> 5;
 
-  // rows n_seg..n_out-1: the identity, shared out over the blocks
-  for (int64_t v = n_seg + (int64_t)blockIdx.x * kThreads + t; v < n_out;
-       v += (int64_t)gridDim.x * kThreads)
-    out[v] = R::ident();
+  // rows n_seg..n_out-1 of every lane: the identity, shared out over the
+  // blocks
+  const int64_t pad = n_out - n_seg;
+  for (int64_t k = (int64_t)blockIdx.x * kThreads + t; k < pad * n_lanes;
+       k += (int64_t)gridDim.x * kThreads)
+    out[kLanes ? k / pad * n_out + n_seg + k % pad : n_seg + k] = R::ident();
+  const int64_t n_items = kLanes ? n_tiles * n_lanes : n_tiles;
+  // the tile of a work item within its lane, and where its lane's row of
+  // out starts
+  auto tile_of = [&](int64_t item) -> int64_t {
+    return kLanes ? item % n_tiles : item;
+  };
+  auto out_row = [&](int64_t item) -> int64_t {
+    return kLanes ? item / n_tiles * n_out : 0;
+  };
 
   if (t < kTile / 32) s_ends[t] = 0;
   // the slots that belong to any row at all: [lo, hi)
   const int64_t lo = offsets[0];
   const int64_t hi = offsets[n_seg];
 
-  // Requests tile `tile`'s values and the offsets of its first kRowChunk
-  // rows [r0, r1) into buffer b; returns where the row that is still open at
-  // the tile's end starts (the tile's end if there is none).
-  auto request = [&](int64_t tile, int64_t r0, int64_t r1, int b) -> int64_t {
-    const int64_t ts = tile * kTile;
+  // Requests work item `item`'s values and the offsets of its first
+  // kRowChunk rows [r0, r1) into buffer b; returns where the row that is
+  // still open at the tile's end starts (the tile's end if there is none).
+  auto request = [&](int64_t item, int64_t r0, int64_t r1, int b) -> int64_t {
+    const int64_t ts = tile_of(item) * kTile;
+    const T* const lv = kLanes ? vals + item / n_tiles * n_vals : vals;
 #pragma unroll
     for (int r = 0; r < kVecs; ++r) {
       const int vec = r * kThreads + t;          // coalesced over the threads
       const int64_t i = ts + 4 * vec;
       T* dst = s_vals + b * kTile + 4 * phys_vec(vec / kVecs, vec % kVecs);
       if (kVec && i + 4 <= n_vals) {
-        cp_async16(dst, vals + i);
+        cp_async16(dst, lv + i);
       } else {
 #pragma unroll
         for (int m = 0; m < 4; ++m)
-          if (i + m < n_vals) dst[m] = vals[i + m];
+          if (i + m < n_vals) dst[m] = lv[i + m];
       }
     }
     const int rows0 = (int)(r1 - r0 < kRowChunk ? r1 - r0 : kRowChunk);
@@ -298,41 +328,44 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     return r1 < n_seg ? (int64_t)offsets[r1] : ts + kTile;
   };
 
-  // Block b takes tiles b, b + G, b + 2G, ... of a grid of G blocks.  While
-  // it works on one, the next one's values and offsets are on their way into
-  // the other buffer and the row bounds of the one after are being read, so
-  // that no tile starts with a chain of dependent loads.
+  // Block b takes work items b, b + G, b + 2G, ... of a grid of G blocks
+  // (`tile` below counts items).  While it works on one, the next one's
+  // values and offsets are on their way into the other buffer and the row
+  // bounds of the one after are being read, so that no tile starts with a
+  // chain of dependent loads.
   const int64_t stride = gridDim.x;
   int64_t tile = blockIdx.x, next = tile + stride;
   int64_t r0 = 0, r1 = 0, r0n = 0, r1n = 0, open_at = 0;
-  if (tile < n_tiles) {
-    r0 = tile_rows[tile];
-    r1 = tile_rows[tile + 1];
+  if (tile < n_items) {
+    r0 = tile_rows[tile_of(tile)];
+    r1 = tile_rows[tile_of(tile) + 1];
     open_at = request(tile, r0, r1, 0);
   }
   cp_async_commit();
-  if (next < n_tiles) {
-    r0n = tile_rows[next];
-    r1n = tile_rows[next + 1];
+  if (next < n_items) {
+    r0n = tile_rows[tile_of(next)];
+    r1n = tile_rows[tile_of(next) + 1];
   }
   // The cut first row of a tile waits for its carry until the block has done
   // its next tile: by then the tiles before it have published, and their
   // status words, read at that tile's start, have long arrived.
   int64_t cut_tile = -1, cut_row = 0;
-  for (unsigned k = 0; tile < n_tiles; ++k) {
+  for (unsigned k = 0; tile < n_items; ++k) {
     const int b = k & 1;
     const int64_t after = next + stride;
     int64_t r0a = 0, r1a = 0, open_n = 0;
-    if (after < n_tiles) {
-      r0a = tile_rows[after];
-      r1a = tile_rows[after + 1];
+    if (after < n_items) {
+      r0a = tile_rows[tile_of(after)];
+      r1a = tile_rows[tile_of(after) + 1];
     }
-    if (next < n_tiles) open_n = request(next, r0n, r1n, b ^ 1);
+    if (next < n_items) open_n = request(next, r0n, r1n, b ^ 1);
     cp_async_commit();
     cp_async_wait<1>();                          // this tile's requests
     __syncthreads();
 
-    const int64_t ts = tile * kTile;             // the tile's slots: [ts, te)
+    const int64_t ts = tile_of(tile) * kTile;    // the tile's slots: [ts, te)
+    const int64_t row0 = out_row(tile);          // the lane's row of out
+    T* const out_l = out + row0;
     const T* const v_tile = s_vals + b * kTile;
     int32_t* const off = s_off + b * kOffBuf;
     // the row cut by the tile's start (it ends here, so r0 < r1)
@@ -340,7 +373,7 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     // few rows (the rule): their results meet in shared memory and leave
     // together, coalesced; else each goes to memory on its own
     const bool few = r1 - r0 <= kRowChunk;
-    T* const dst = few ? s_out : out + r0;
+    T* const dst = few ? s_out : out_l + r0;
     T cut_part = R::ident();
     uint64_t cut_word = 0;
     if (warp == 1 && cut_tile >= 0) {
@@ -478,14 +511,14 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
       __syncthreads();
       const int rows = (int)(r1 - r0);
       for (int i = t + (head ? 1 : 0); i < rows; i += kThreads)
-        out[r0 + i] = s_out[i];
+        out_l[r0 + i] = s_out[i];
     }
     if (warp == 1 && cut_tile >= 0) {
       const T carry = gm::look_back<R>(status, cut_tile, lane, cut_word);
       if (lane == 0) out[cut_row] = R::apply(carry, cut_part);
     }
     cut_tile = head ? tile : -1;
-    cut_row = r0;
+    cut_row = row0 + r0;
     tile = next;
     r0 = r0n;
     r1 = r1n;
@@ -502,13 +535,13 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
   }
 }
 
-template <typename T, int OP, bool kVec>
+template <typename T, int OP, bool kVec, bool kLanes>
 cudaError_t launch_tiles(const T* vals, int64_t n_vals,
                          const int32_t* offsets, int64_t n_seg, int64_t n_out,
                          T* out, uint64_t* status, const int64_t* rows,
                          const int64_t* run_end, int64_t n_tiles,
-                         cudaStream_t stream) {
-  auto kernel = segment_reduce_kernel<T, OP, kVec>;
+                         int64_t n_lanes, cudaStream_t stream) {
+  auto kernel = segment_reduce_kernel<T, OP, kVec, kLanes>;
   static int resident = 0;         // blocks the card holds at once
   if (resident == 0) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -526,39 +559,55 @@ cudaError_t launch_tiles(const T* vals, int64_t n_vals,
   // A cooperative launch: the runtime starts the grid only when all of its
   // blocks fit on the card together, or refuses it.  A block that waits for
   // a tile's status word thus never waits for a block that is not running.
-  const int64_t blocks = n_tiles < resident ? n_tiles : resident;
-  void* args[] = {&vals, &n_vals, &offsets, &n_seg,    &n_out,
-                  &out,  &status, &rows,    &run_end, &n_tiles};
+  const int64_t items = n_tiles * n_lanes;
+  const int64_t blocks = items < resident ? items : resident;
+  void* args[] = {&vals,    &n_vals,  &offsets, &n_seg,   &n_out,  &out,
+                  &status,  &rows,    &run_end, &n_tiles, &n_lanes};
   return cudaLaunchCooperativeKernel((const void*)kernel,
                                      dim3((unsigned)blocks), dim3(kThreads),
                                      args, kSmemBytes, stream);
 }
 
 template <typename T, int OP>
-int launch(const void* vals, int64_t n_vals, const int32_t* offsets,
-           int64_t n_seg, int64_t n_out, void* out, void* scratch,
-           int64_t n_tiles, cudaStream_t stream) {
+int launch(const void* vals, int64_t n_lanes, int64_t n_vals,
+           const int32_t* offsets, int64_t n_seg, int64_t n_out, void* out,
+           void* scratch, int64_t n_tiles, cudaStream_t stream) {
   uint64_t* status = (uint64_t*)scratch;
-  int64_t* rows = (int64_t*)(status + n_tiles);
+  int64_t* rows = (int64_t*)(status + n_lanes * n_tiles);
   int64_t* run_end = rows + n_tiles + 1;
-  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)n_tiles * 8, stream);
+  cudaError_t e =
+      cudaMemsetAsync(scratch, 0, (size_t)(n_lanes * n_tiles) * 8, stream);
   if (e != cudaSuccess) return (int)e;
   // a warp for each of the n_tiles + 1 row bounds, then one for 32 chunks
   const int64_t warps = n_tiles + 1 + (n_seg + 32 * kRowChunk - 1) /
                                           (32 * kRowChunk);
   tile_rows_kernel<T, OP><<<(unsigned)((warps + kWarps - 1) / kWarps),
                             kThreads, 0, stream>>>(offsets, n_seg, n_tiles,
-                                                   rows, run_end, (T*)out);
+                                                   rows, run_end, (T*)out,
+                                                   n_out, n_lanes);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if ((uintptr_t)vals % 16 == 0)
-    e = launch_tiles<T, OP, true>((const T*)vals, n_vals, offsets, n_seg,
-                                  n_out, (T*)out, status, rows, run_end,
-                                  n_tiles, stream);
+  // 16-byte loads need every lane's row aligned
+  const bool vec =
+      (uintptr_t)vals % 16 == 0 && (n_lanes == 1 || n_vals % 4 == 0);
+  const T* v = (const T*)vals;
+  T* o = (T*)out;
+  if (n_lanes == 1)
+    e = vec ? launch_tiles<T, OP, true, false>(v, n_vals, offsets, n_seg,
+                                               n_out, o, status, rows,
+                                               run_end, n_tiles, 1, stream)
+            : launch_tiles<T, OP, false, false>(v, n_vals, offsets, n_seg,
+                                                n_out, o, status, rows,
+                                                run_end, n_tiles, 1, stream);
   else
-    e = launch_tiles<T, OP, false>((const T*)vals, n_vals, offsets, n_seg,
-                                   n_out, (T*)out, status, rows, run_end,
-                                   n_tiles, stream);
+    e = vec ? launch_tiles<T, OP, true, true>(v, n_vals, offsets, n_seg,
+                                              n_out, o, status, rows,
+                                              run_end, n_tiles, n_lanes,
+                                              stream)
+            : launch_tiles<T, OP, false, true>(v, n_vals, offsets, n_seg,
+                                               n_out, o, status, rows,
+                                               run_end, n_tiles, n_lanes,
+                                               stream);
   return (int)e;
 }
 
@@ -567,29 +616,32 @@ int launch(const void* vals, int64_t n_vals, const int32_t* offsets,
 extern "C" {
 
 // Edge slots per tile and rows per chunk: with T = max(1, ceil(n_vals /
-// tile)) tiles and C = ceil(n_seg / chunk) chunks the wrapper allocates
-// 2 * T + 1 + C uint64 words of scratch (a status word per tile, T + 1 row
-// bounds and a run bound per chunk).
+// tile)) tiles, C = ceil(n_seg / chunk) chunks and B lanes the wrapper
+// allocates B * T + T + 1 + C uint64 words of scratch (a status word per
+// lane and tile, T + 1 row bounds and a run bound per chunk).
 int gm_segment_reduce_tile_size(void) { return kTile; }
 int gm_segment_reduce_row_chunk(void) { return kRowChunk; }
 
 // dtype: 0 = int32, 1 = float32.  op: 0 = add, 1 = min, 2 = max.
-// vals holds n_vals slots; offsets holds n_seg + 1 sorted entries within
-// [0, n_vals]; out holds n_out >= n_seg entries.  Returns cudaGetLastError()
+// vals holds n_lanes rows of n_vals slots, one after another; offsets holds
+// n_seg + 1 sorted entries within [0, n_vals], shared by the lanes; out
+// holds n_lanes rows of n_out >= n_seg entries.  Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for an unknown dtype or op).
-int gm_segment_reduce(const void* vals, int64_t n_vals, const int32_t* offsets,
-                      int64_t n_seg, int64_t n_out, void* out, void* scratch,
-                      int dtype, int op, void* stream) {
+int gm_segment_reduce(const void* vals, int64_t n_lanes, int64_t n_vals,
+                      const int32_t* offsets, int64_t n_seg, int64_t n_out,
+                      void* out, void* scratch, int dtype, int op,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_out <= 0) return (int)cudaGetLastError();
+  if (n_out <= 0 || n_lanes <= 0) return (int)cudaGetLastError();
   const int64_t t = n_vals > 0 ? (n_vals + kTile - 1) / kTile : 1;
+  const int64_t b = n_lanes;
   switch (dtype * 3 + op) {
-    case 0: return launch<int32_t, gm::OP_ADD>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
-    case 1: return launch<int32_t, gm::OP_MIN>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
-    case 2: return launch<int32_t, gm::OP_MAX>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
-    case 3: return launch<float, gm::OP_ADD>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
-    case 4: return launch<float, gm::OP_MIN>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
-    case 5: return launch<float, gm::OP_MAX>(vals, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 0: return launch<int32_t, gm::OP_ADD>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 1: return launch<int32_t, gm::OP_MIN>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 2: return launch<int32_t, gm::OP_MAX>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 3: return launch<float, gm::OP_ADD>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 4: return launch<float, gm::OP_MIN>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    case 5: return launch<float, gm::OP_MAX>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,6 +31,14 @@ rules: inside such a region every tensor the region computes counts as
 traced (``Lowerer._traced``), and each pass of the body reuses the draw
 sites of the first.
 
+``CompiledProc.batch`` runs many instances in lockstep, as the JAX
+package's ``vmap`` does: what depends on a batched argument is a lane value
+(``runtime.lanes.Lanes``, lane axis leading) and counts as traced, the rest
+is computed once.  A ``While`` whose predicate depends on the lanes runs
+while any lane's holds, one pass for all of them, and a lane whose
+predicate is false keeps its carry; a pull over ``[B, E_pad]`` values is one
+launch of the lane-batched kernels.
+
 dtypes: INT/LONG/NODE/EDGE -> int32, FLOAT/DOUBLE -> ``torch.
 get_default_dtype()`` (float32, or float64 where the caller set it, as JAX's
 x64 flag does), BOOL -> bool.  ``INF`` saturates to the integer extrema
@@ -53,9 +61,10 @@ from . import gm_ast as A
 from .typecheck import typecheck
 from ..graph.csr import ARRAY_FIELDS, Graph, round_up
 from ..ops import segment as ops
+from ..runtime import lanes as LN
 from ..runtime import rng as R
 from ..runtime.collections import (DenseNodeMap, NodeOrder, NodeSeq,
-                                   NodeSet, is_tree, put, put2, take,
+                                   NodeSet, put, put2, take,
                                    tree_leaves, tree_map)
 
 _I32 = torch.int32
@@ -197,20 +206,17 @@ def _where(c, a, b):
 
 def _sum(x):
     """``jnp.sum``: bool and small integers accumulate in int32, int32
-    stays int32."""
-    if x.dtype.is_floating_point:
-        return x.sum()
-    return x.sum(dtype=_I32)
+    stays int32; per lane for a lane value."""
+    return LN.reduce("sum", x)
 
 
-def _prod(x):
-    if x.dtype.is_floating_point:
-        return x.prod()
-    return x.prod(dtype=_I32)
+def _red(op: str):
+    name = {"SUM": "sum", "MULT": "prod", "MIN": "min", "MAX": "max",
+            "AND": "all", "OR": "any"}[op]
+    return lambda x: LN.reduce(name, x)
 
 
-_RED = {"SUM": _sum, "MULT": _prod, "MIN": torch.min, "MAX": torch.max,
-        "AND": torch.all, "OR": torch.any}
+_RED = {op: _red(op) for op in ("SUM", "MULT", "MIN", "MAX", "AND", "OR")}
 
 _SEG_OP = {"SUM": "add", "COUNT": "add", "AVG": "add",
            "MIN": "min", "MAX": "max"}
@@ -221,6 +227,10 @@ def _seg(op: str, vals, ids, n: int, safe: bool = False):
     get the identity, ids outside ``[0, n)`` are dropped."""
     f = {"add": ops.segment_sum, "min": ops.segment_min,
          "max": ops.segment_max}[op]
+    if LN.is_lanes(vals) or LN.is_lanes(ids):
+        ids = ids.long()
+        ids = torch.where((ids >= 0) & (ids < n), ids, n)
+        return LN.seg(vals, ids, n, f)[:, :n]
     if safe:
         return f(vals, ids, n)
     ids = ids.long()
@@ -228,10 +238,19 @@ def _seg(op: str, vals, ids, n: int, safe: bool = False):
     return f(vals, ids, n + 1)[:n]
 
 
+def _sorted_reduce(vals, ids, offsets, n: int, op: str):
+    """``ops.sorted_segment_reduce``; lane values ([B, E]) go to the
+    kernels in one launch and come back [B, n] lane values."""
+    out = ops.sorted_segment_reduce(vals.contiguous(), ids, offsets, n, op)
+    return LN.mark(out) if LN.is_lanes(vals) else out
+
+
 def _scatter_or(n: int, idx, mask):
     """``zeros(n, bool).at[idx].max(mask)``."""
     i = idx.long()
     i = torch.where(i < 0, i + n, i)
+    if LN.is_lanes(i) or LN.is_lanes(mask):
+        return _seg("max", mask.to(torch.uint8), i, n) > 0
     i = torch.where((i >= 0) & (i < n), i, n).reshape(-1)
     out = torch.zeros(n + 1, dtype=torch.uint8, device=mask.device)
     out.scatter_reduce_(0, i, mask.to(torch.uint8).reshape(-1), "amax")
@@ -262,7 +281,10 @@ class _CtxMapHist:
     recorded in edge space are reduced on demand into per-outer-node
     (max count, arg-max key, count-of-key) vectors by a composite-key sort
     and run-length encoding.  Ties pick the smallest key; an empty
-    histogram reports HasMaxValue=True."""
+    histogram reports HasMaxValue=True.  With lane values among the
+    increments each lane's histogram is reduced on its own (the sort's
+    length does not depend on the lanes) and the vectors come back
+    ``[B, ...]`` lane values."""
 
     def __init__(self, n_pad: int):
         self.n_pad = n_pad
@@ -274,9 +296,21 @@ class _CtxMapHist:
             return self.cache
         if not self.entries:
             raise LowerError("per-node map read before any increment")
+        b = max(LN.lanes_of(x) for e in self.entries for x in e)
+        if not b:
+            self.cache = self._runs_of(self.entries)
+            return self.cache
+        lanes = [self._runs_of([tuple(LN.plain(x)[i] if LN.is_lanes(x)
+                                      else x for x in e)
+                                for e in self.entries])
+                 for i in range(b)]
+        self.cache = tuple(LN.mark(torch.stack(f)) for f in zip(*lanes))
+        return self.cache
+
+    def _runs_of(self, entries):
         n_pad = self.n_pad
         xs, labs, ws = [], [], []
-        for k, v, mask, outer in self.entries:
+        for k, v, mask, outer in entries:
             xs.append(torch.where(mask, outer.to(_I32), n_pad).to(_I32))
             labs.append(torch.where(mask, k.to(_I32), n_pad).to(_I32))
             ws.append(torch.where(mask, v.to(_I32), 0).to(_I32))
@@ -304,8 +338,7 @@ class _CtxMapHist:
         is_best = valid & (counts == take(maxc, run_x.clamp(max=n_pad - 1)))
         maxkey = _seg("min", torch.where(is_best, run_lab, _INT32_MAX),
                       seg, n_pad + 1)[:n_pad]
-        self.cache = (seg, run_lab, counts, valid, maxc, maxkey)
-        return self.cache
+        return seg, run_lab, counts, valid, maxc, maxkey
 
     def max_count(self):
         return self._runs()[4]
@@ -321,7 +354,7 @@ class _CtxMapHist:
         kv = _asarray(kvec, seg.device)
         hit = valid & (run_lab == take(kv, seg.clamp(max=n_pad - 1)))
         return _seg("max", torch.where(hit, counts, 0), seg,
-                    n_pad + 1)[:n_pad]
+                    n_pad + 1)[..., :n_pad]
 
     def has_max_value(self, kvec):
         maxc = self.max_count()
@@ -681,14 +714,19 @@ class Lowerer:
         return _asarray(x, self.dev, dtype)
 
     def _take(self, arr, ids):
-        """``arr[ids]`` with JAX's clamping (skipped for graph arrays)."""
-        if self._in_range(ids, arr.shape[0]):
+        """``arr[ids]`` with JAX's clamping (skipped for graph arrays); a
+        lane value ``arr`` ([B, n]) is read along its second axis."""
+        if LN.is_lanes(arr):
+            if self._in_range(ids, arr.shape[-1]):
+                return arr.index_select(1, ids)
+        elif self._in_range(ids, arr.shape[0]):
             return arr.index_select(0, ids)
         return take(arr, self._a(ids))
 
     def _in_range(self, ids, n: int) -> bool:
         """Is ``ids`` a graph array whose values lie in ``[0, n)``?"""
-        if not isinstance(ids, torch.Tensor) or ids.dim() != 1:
+        if not isinstance(ids, torch.Tensor) or ids.dim() != 1 or \
+                LN.is_lanes(ids):
             return False
         return ((id(ids) in self._safe_n and n >= self.g.n_pad)
                 or (id(ids) in self._safe_e and n >= self.g.e_pad))
@@ -697,7 +735,12 @@ class Lowerer:
     def _traced(self, x) -> bool:
         """Would JAX hold ``x`` as a tracer here?  Inside a traced region
         every tensor the region computed is one; what it found in the
-        environment and did not carry is not."""
+        environment and did not carry is not.  In a batched run every lane
+        value is one."""
+        if LN.is_lanes(x):
+            # a value of a batched run that depends on its lanes: JAX holds
+            # it as a BatchTracer
+            return True
         return (self._concrete is not None and isinstance(x, torch.Tensor)
                 and id(x) not in self._concrete)
 
@@ -746,14 +789,25 @@ class Lowerer:
         if cnt is None:
             cnt = self._c(0, torch.int64)
         self._rng_site += 1
-        key = R.fold_in(R.fold_in(R.PRNGKey(0, self.dev), int(cnt)),
-                        self._rng_site)
         env[_RNG] = (cnt + 1) & R.MASK
         if ctx is not None:
-            shape = tuple(ctx.mask.shape)
-        if _float_dtype() == torch.float64:
-            return R.uniform64(key, shape)
-        return R.uniform(key, shape).to(_float_dtype())
+            shape = LN.lshape(ctx.mask)
+
+        def draw(c):
+            key = R.fold_in(R.fold_in(R.PRNGKey(0, self.dev), c),
+                            self._rng_site)
+            if _float_dtype() == torch.float64:
+                return R.uniform64(key, shape)
+            return R.uniform(key, shape).to(_float_dtype())
+
+        if not LN.is_lanes(cnt):
+            return draw(int(cnt))
+        # lanes that ran different numbers of passes count different draws
+        # (JAX's key is then per lane too): one draw per distinct count
+        counts = LN.plain(cnt).reshape(-1).tolist()
+        drawn = {c: draw(c) for c in set(counts)}
+        out = torch.stack([drawn[c] for c in counts])
+        return LN.mark(out.reshape(len(counts), -1) if not shape else out)
 
     # ---- env write with return-guard --------------------------------------
     def _wr(self, env, key, val):
@@ -781,9 +835,9 @@ class Lowerer:
                 if name == ctx.outer_var:
                     return ctx.outer_ids
                 v = self._ident(name, env, ctx.parent)
-                if isinstance(v, torch.Tensor) and v.dim() >= 1 and \
-                        v.shape[0] == ctx.parent_len:
-                    return v[ctx.sel.long()]
+                if isinstance(v, torch.Tensor) and \
+                        LN.lshape(v)[:1] == (ctx.parent_len,):
+                    return take(v, ctx.sel)
                 return v
             else:
                 if name == ctx.inner_var:
@@ -804,7 +858,7 @@ class Lowerer:
         if (ctx is not None and ctx.kind == "edge"
                 and name not in ctx.locals
                 and isinstance(v, torch.Tensor)
-                and v.dim() == 1 and v.shape[0] == self.g.n_pad):
+                and LN.lshape(v) == (self.g.n_pad,)):
             return self._take(v, ctx.outer_ids)
         return v
 
@@ -1043,7 +1097,7 @@ class Lowerer:
                 if name == "size":
                     return self._a(coll.count, _I32)
                 if name == "front":
-                    return coll.items()[0]
+                    return take(coll.items(), self._c(0, _I32))
                 if name == "back":
                     return take(coll.items(), coll.count - 1)
                 if name == "has" and kind == "NORDER":
@@ -1070,7 +1124,7 @@ class Lowerer:
             # Degree()==0 themselves (random_walk_sampling...gm)
             self._no_random_read("PickRandomNbr")
             deg = self._take(g.out_degree(), ids)
-            u = self._rng_uniform(env, ctx, shape=tuple(self._a(ids).shape))
+            u = self._rng_uniform(env, ctx, shape=LN.lshape(self._a(ids)))
             off = torch.floor(u * deg).to(_I32)
             off = torch.minimum(off.clamp(min=0), (deg - 1).clamp(min=0))
             slot = self._take(g.begin, ids) + off
@@ -1115,10 +1169,10 @@ class Lowerer:
             if it.iter_type == "UP_NBRS":
                 layout, outer, inner = ("csc", g.r_node_idx_dst,
                                         g.r_node_idx)
-                level_filter = level.index_select(0, inner) == (d - 1)
+                level_filter = self._take(level, inner) == (d - 1)
             else:
                 layout, outer, inner = "csr", g.node_idx_src, g.node_idx
-                level_filter = level.index_select(0, inner) == (d + 1)
+                level_filter = self._take(level, inner) == (d + 1)
         elif it.iter_type == "EDGES":
             return EdgeCtx(g=g, layout="csr", outer_var="",
                            inner_var=it.var, outer_ids=g.node_idx_src,
@@ -1132,7 +1186,7 @@ class Lowerer:
         src_name = it.source
         if ctx is not None and ctx.kind == "node" and (
                 src_name == ctx.var or src_name in ctx.aliases):
-            mask = mask & ctx.mask.index_select(0, outer)
+            mask = mask & self._take(ctx.mask, outer)
             parent = ctx
         elif ctx is None or ctx.kind == "node":
             # neighborhood of a scalar node variable (e.g. root.Nbrs)
@@ -1223,10 +1277,10 @@ class Lowerer:
         other = self._ident(it.common_with, env,
                             getattr(ectx, "parent", ctx) or ctx)
         ov = self._a(other)
-        if ov.dim() >= 1 and hasattr(ectx, "sel") and \
-                ov.shape[0] == ectx.parent_len:
-            ov = ov[ectx.sel.long()]               # wedge space alignment
-        ov = ov.expand(ectx.mask.shape)
+        if hasattr(ectx, "sel") and \
+                LN.lshape(ov)[:1] == (ectx.parent_len,):
+            ov = take(ov, ectx.sel)                # wedge space alignment
+        ov = LN.expand_like(ov, ectx.mask)
         member = _has_edge_to(self.g, ov, ectx.inner_ids)
         return ectx.with_mask(ectx.mask & member)
 
@@ -1244,7 +1298,7 @@ class Lowerer:
             elif e.op in ("EXIST", "ALL", "AND", "OR"):
                 vals = self._a(body)
             else:
-                vals = self._a(body).expand(mask.shape)
+                vals = LN.expand_like(self._a(body), mask)
         op = {"COUNT": "SUM", "EXIST": "OR", "ALL": "AND",
               "AVG": "SUM"}.get(e.op, e.op)
         dt = vals.dtype
@@ -1255,7 +1309,7 @@ class Lowerer:
         vals = torch.where(mask, vals, ident)
         out = _RED[op](vals)
         if e.op == "AVG":
-            cnt = mask.to(_float_dtype()).sum()
+            cnt = _sum(mask.to(_float_dtype()))
             out = out.to(_float_dtype()) / cnt.clamp(min=1)
         return out
 
@@ -1273,7 +1327,7 @@ class Lowerer:
             if e.op == "COUNT":
                 vals = (mask & body).to(_I32)
             else:
-                vals = self._a(body).expand(mask.shape)
+                vals = LN.expand_like(self._a(body), mask)
         if ectx.kind == "wedge":
             return self._finish_wedge_reduce(e, vals, mask, ectx), None
         op = {"COUNT": "SUM", "EXIST": "OR", "ALL": "AND"}.get(e.op, e.op)
@@ -1292,17 +1346,15 @@ class Lowerer:
         if ectx.inner_is_edge or ectx.parent is None:
             # whole-edge-set or scalar-source neighborhood -> scalar
             _sub = {"SUM": "add", "MIN": "min", "MAX": "max"}
-            red = {"SUM": _sum, "MIN": torch.min, "MAX": torch.max}.get(seg) \
-                if seg in ("SUM", "MIN", "MAX") else None
-            if red is None:
+            if seg not in _sub:
                 if op == "OR":
-                    out = self._pcomb(work.max(), "max") > 0
+                    out = self._pcomb(LN.reduce("max", work), "max") > 0
                 else:
-                    out = self._pcomb(work.min(), "min") > 0
+                    out = self._pcomb(LN.reduce("min", work), "min") > 0
             else:
-                out = self._pcomb(red(work), _sub[seg])
+                out = self._pcomb(_RED[seg](work), _sub[seg])
             if e.op == "AVG":
-                cnt = self._pcomb(mask.to(_float_dtype()).sum(), "add")
+                cnt = self._pcomb(_sum(mask.to(_float_dtype())), "add")
                 out = out.to(_float_dtype()) / cnt.clamp(min=1)
             return None, out
         # per-outer-node segment reduction (sorted by construction)
@@ -1310,12 +1362,12 @@ class Lowerer:
         sortkey = g.node_idx_src if ectx.layout == "csr" else g.r_node_idx_dst
         offs = g.csr_offsets() if ectx.layout == "csr" else g.csc_offsets()
         segop = {"SUM": "add", "MIN": "min", "MAX": "max"}[seg]
-        per_node = self._pcomb(ops.sorted_segment_reduce(
-            work.contiguous(), sortkey, offs, g.n_pad, segop), segop)
+        per_node = self._pcomb(_sorted_reduce(
+            work, sortkey, offs, g.n_pad, segop), segop)
         if op in ("AND", "OR"):
             per_node = per_node > 0
         if e.op == "AVG":
-            cnt = self._pcomb(ops.sorted_segment_reduce(
+            cnt = self._pcomb(_sorted_reduce(
                 mask.to(_float_dtype()), sortkey, offs, g.n_pad, "add"),
                 "add")
             per_node = per_node.to(_float_dtype()) / cnt.clamp(min=1)
@@ -1351,12 +1403,11 @@ class Lowerer:
         offs = torch.from_numpy(
             wctx.parent_offsets.astype(np.int32)).to(self.dev)
         ids = wctx.sel
-        out = ops.sorted_segment_reduce(work.contiguous(), ids, offs,
-                                        wctx.parent_len, sub)
+        out = _sorted_reduce(work, ids, offs, wctx.parent_len, sub)
         if op in ("AND", "OR"):
             out = out > 0
         if e.op == "AVG":
-            cnt = ops.sorted_segment_reduce(
+            cnt = _sorted_reduce(
                 mask.to(_float_dtype()), ids, offs, wctx.parent_len, "add")
             out = out / cnt.clamp(min=1)
         return out
@@ -1413,14 +1464,14 @@ class Lowerer:
                 # set-valued node property (N_P<Node_Set>): bit-matrix
                 # update v.potFriend.Add(w)
                 arr = env[_F + f.prop]
-                n_pad = arr.shape[0]
+                n_pad = arr.shape[-1]
                 rows = self._a(self._ident(f.driver, env, ctx))
                 if name in ("add", "remove"):
                     cols = self._a(self.eval(b.args[0], env, ctx))
                     if ctx is not None:
                         mask = ctx.mask
-                        rows = rows.expand(mask.shape)
-                        cols = torch.where(mask, cols.expand(mask.shape),
+                        rows = LN.expand_like(rows, mask)
+                        cols = torch.where(mask, cols,
                                            n_pad)  # out of range: dropped
                     new = put2(arr, rows, cols, name == "add")
                     self._wr(env, _F + f.prop, new)
@@ -1440,7 +1491,7 @@ class Lowerer:
                     return
                 if name == "clear":
                     self._wr(env, b.driver, DenseNodeMap.empty(
-                        cur.val.shape[0], cur.val.dtype, self.dev))
+                        cur.val.shape[-1], cur.val.dtype, self.dev))
                     return
                 raise LowerError(
                     f"map method {b.name} not lowerable yet")
@@ -1450,7 +1501,7 @@ class Lowerer:
                     if ctx is None:
                         self._wr(env, b.driver, put(cur, v, True))
                     else:
-                        upd = _scatter_or(cur.shape[0], v, ctx.mask)
+                        upd = _scatter_or(cur.shape[-1], v, ctx.mask)
                         self._wr(env, b.driver, cur | upd)
                     return
                 if name == "remove":
@@ -1458,7 +1509,7 @@ class Lowerer:
                     if ctx is None:
                         self._wr(env, b.driver, put(cur, v, False))
                     else:
-                        upd = _scatter_or(cur.shape[0], v, ctx.mask)
+                        upd = _scatter_or(cur.shape[-1], v, ctx.mask)
                         self._wr(env, b.driver, cur & ~upd)
                     return
                 if name == "clear":
@@ -1571,8 +1622,8 @@ class Lowerer:
                 raise LowerError("per-node map += nested too deeply")
         else:
             owner = ctx.outer_ids
-        hist.entries.append((k.expand(mask.shape), v.expand(mask.shape),
-                             mask, self._a(owner).expand(mask.shape)))
+        hist.entries.append(torch.broadcast_tensors(k, v, mask,
+                                                    self._a(owner)))
         hist.cache = None
 
     def _exec_map_assign(self, s, env, ctx, op=None):
@@ -1585,7 +1636,7 @@ class Lowerer:
             raise LowerError(f"unbound map {lhs.map_name}")
         k = self._a(self.eval(lhs.key, env, ctx))
         v = _coerce(self.eval(s.rhs, env, ctx), m.val.dtype)
-        if ctx is None and k.dim() == 0:
+        if ctx is None and LN.lshape(k) == ():
             if op is None:
                 self._wr(env, lhs.map_name, m.set(k, v))
             elif op == "SUM":
@@ -1595,10 +1646,10 @@ class Lowerer:
             return
         # vector keys under a parallel context
         mask = (ctx.mask if ctx is not None
-                else torch.ones(k.shape, dtype=_BOOL, device=self.dev))
-        kv = k.expand(mask.shape)
-        vv = v.expand(mask.shape)
-        n_pad = m.val.shape[0]
+                else torch.ones(LN.lshape(k), dtype=_BOOL, device=self.dev))
+        kv = LN.expand_like(k, mask)
+        vv = LN.expand_like(v, kv)
+        n_pad = m.val.shape[-1]
         drop_ids = torch.where(mask, kv, n_pad)   # out of range: dropped
         if op is None:
             # duplicate keys: deterministic lowest-slot winner (same
@@ -1606,7 +1657,7 @@ class Lowerer:
             val = self._det_scatter_set(m.val, kv, vv, mask)
         elif op == "SUM":
             sums = _seg("add", torch.where(mask, vv, 0),
-                        drop_ids.clamp(max=n_pad), n_pad + 1)[:n_pad]
+                        drop_ids.clamp(max=n_pad), n_pad + 1)[..., :n_pad]
             base = torch.where(m.present, m.val, 0)
             val = base + sums
         else:
@@ -1626,18 +1677,19 @@ class Lowerer:
             if ctx is not None and lhs.name not in ctx.locals and \
                     lhs.name in env and not (
                         isinstance(env[lhs.name], torch.Tensor)
-                        and env[lhs.name].dim() >= 1):
+                        and LN.lshape(env[lhs.name]) != ()):
                 # Scalar WW race: the reference's check2 reports a
                 # warning and proceeds with last-store-wins.
                 # Deterministic valid instance here: lowest-active-slot
                 # winner.
                 vv = self._a(val)
                 cur = _coerce(env[lhs.name], vv.dtype)
-                if vv.dim() == 0:
+                if LN.lshape(vv) == ():
                     win = vv
                 else:
-                    win = vv[torch.argmax(ctx.mask.to(torch.uint8))]
-                self._wr(env, lhs.name, _where(ctx.mask.any(), win, cur))
+                    win = take(vv, LN.arg("max", ctx.mask.to(torch.uint8)))
+                self._wr(env, lhs.name, _where(LN.reduce("any", ctx.mask),
+                                               win, cur))
                 return
             self._wr(env, lhs.name, val)
             return
@@ -1657,8 +1709,7 @@ class Lowerer:
                 nctx = NodeCtx(g=g, var="", ids=self._iota_n,
                                mask=g.node_mask(), aliases=(lhs.driver,))
                 val = _coerce(self.eval(rhs, env, nctx), dt)
-                self._wr(env, key, torch.where(
-                    nctx.mask, val.expand(arr.shape), arr))
+                self._wr(env, key, torch.where(nctx.mask, val, arr))
             else:
                 mask = g.edge_mask()
                 ectx = EdgeCtx(g=g, layout="csr", outer_var="",
@@ -1666,13 +1717,11 @@ class Lowerer:
                                inner_ids=self._iota_e, mask=mask,
                                parent=None, inner_is_edge=True)
                 val = _coerce(self.eval(rhs, env, ectx), dt)
-                self._wr(env, key, torch.where(mask, val.expand(arr.shape),
-                                               arr))
+                self._wr(env, key, torch.where(mask, val, arr))
             return
         if ctx is not None and ctx.kind == "node" and lhs.driver == ctx.var:
             val = _coerce(self.eval(rhs, env, ctx), dt)
-            self._wr(env, key, torch.where(ctx.mask, val.expand(arr.shape),
-                                           arr))
+            self._wr(env, key, torch.where(ctx.mask, val, arr))
             return
         if ctx is not None and ctx.kind == "edge":
             # per-slot edge-property write (each slot unique -> race-free);
@@ -1680,8 +1729,7 @@ class Lowerer:
             if loc == "E" and ctx.inner_is_edge and lhs.driver == \
                     ctx.inner_var:
                 val = _coerce(self.eval(rhs, env, ctx), dt)
-                self._wr(env, key, torch.where(
-                    ctx.mask, val.expand(arr.shape), arr))
+                self._wr(env, key, torch.where(ctx.mask, val, arr))
                 return
             if lhs.driver == ctx.inner_var:
                 # intended write-write conflict ("only one will take
@@ -1712,7 +1760,8 @@ class Lowerer:
             self._wr(env, key, put(arr, ids, val))
             return
         idv = self._a(ids)
-        if idv.dim() == 1 and idv.shape == ctx.mask.shape:
+        if len(LN.lshape(idv)) == 1 and \
+                LN.lshape(idv) == LN.lshape(ctx.mask):
             # write keyed by a per-slot local node vector (e.g.
             # ``Node t = n.Suitor; t.Match = n``): deterministic
             # lowest-position-winner scatter
@@ -1733,17 +1782,17 @@ class Lowerer:
             raise LowerError("random scatter write not supported in "
                              "distributed lowering (the reference GPS "
                              "backend rejects these too)")
-        L = ids_vec.shape[0]
-        n_rows = arr.shape[0]
+        n = LN.lshape(ids_vec)[0]
+        n_rows = LN.lshape(arr)[0]
         ids_c = ids_vec.clamp(0, n_rows - 1)
-        pos = torch.arange(L, dtype=_I32, device=self.dev)
-        cand = torch.where(mask & (ids_vec >= 0), pos, L)
+        pos = torch.arange(n, dtype=_I32, device=self.dev)
+        cand = torch.where(mask & (ids_vec >= 0), pos, n)
         win = _seg("min", cand, ids_c, n_rows, safe=True)
-        touched = win < L
-        winc = win.clamp(max=L - 1)
+        touched = win < n
+        winc = win.clamp(max=n - 1)
         v = self._a(val)
-        vals_b = v.expand((L,)) if v.dim() <= 1 else v
-        picked = vals_b[winc.long()].to(arr.dtype)
+        vals_b = LN.expand_like(v, pos) if LN.lshape(v) == () else v
+        picked = take(vals_b, winc).to(arr.dtype)
         return torch.where(touched, picked, arr)
 
     def _owner_lane_key(self, ctx, owner):
@@ -1793,7 +1842,7 @@ class Lowerer:
                 self._wr(env, lhs.name, _coerce(_combine(op, cur, val), dt))
                 return
             mask = ctx.mask
-            vals = self._a(val).expand(mask.shape)
+            vals = LN.expand_like(self._a(val), mask)
             # A scalar LOCAL of an enclosing vectorized context reduced
             # from a deeper loop is a PER-LANE accumulator (the reference
             # privatizes it per outer iteration): segment-reduce keyed by
@@ -1817,7 +1866,7 @@ class Lowerer:
                                       if op in ("AND", "OR") else seg, sub)
                 if op in ("AND", "OR"):
                     seg = seg > 0
-                cur = self._a(env[lhs.name]).expand(seg.shape)
+                cur = LN.expand_like(self._a(env[lhs.name]), seg)
                 self._wr(env, lhs.name, _coerce(_combine(op, cur, seg), dt))
                 return
             ident = _identity(op, vals.dtype, self.dev)
@@ -1844,7 +1893,7 @@ class Lowerer:
                                                      dt)))
             return
         if ctx.kind == "node" and lhs.driver == ctx.var:
-            val = self._a(self.eval(s.rhs, env, ctx)).expand(arr.shape)
+            val = self._a(self.eval(s.rhs, env, ctx))
             new = _coerce(_combine(op, arr, val), dt)
             self._wr(env, key, torch.where(ctx.mask, new, arr))
             return
@@ -1854,9 +1903,10 @@ class Lowerer:
             # segment reduction over arbitrary ids — the reference emits
             # an atomic add here (gm_cpp_gen.cc:1526-1561)
             idv = self._a(self._ident(lhs.driver, env, ctx))
-            if idv.dim() == 1 and idv.shape == ctx.mask.shape:
+            if len(LN.lshape(idv)) == 1 and \
+                    LN.lshape(idv) == LN.lshape(ctx.mask):
                 val = self.eval(s.rhs, env, ctx)
-                vals = self._a(val).expand(ctx.mask.shape)
+                vals = LN.expand_like(self._a(val), ctx.mask)
                 work, sub = self._seg_work(
                     op, vals, ctx.mask,
                     f"{op}= with random target not lowerable")
@@ -1867,7 +1917,7 @@ class Lowerer:
                 return
         if ctx.kind == "wedge":
             val = self.eval(s.rhs, env, ctx)
-            vals = self._a(val).expand(ctx.mask.shape)
+            vals = LN.expand_like(self._a(val), ctx.mask)
             work, sub = self._seg_work(op, vals, ctx.mask,
                                        f"{op}= in a wedge context")
             if loc != "N":
@@ -1886,7 +1936,7 @@ class Lowerer:
             return
         if ctx.kind == "edge":
             val = self.eval(s.rhs, env, ctx)
-            vals = self._a(val).expand(ctx.mask.shape)
+            vals = LN.expand_like(self._a(val), ctx.mask)
             work, sub = self._seg_work(
                 op, vals, ctx.mask, f"{op}= over neighbors not lowerable")
             if lhs.driver == ctx.outer_var or (
@@ -1898,8 +1948,7 @@ class Lowerer:
                            else g.r_node_idx_dst)
                 offs = (g.csr_offsets() if ctx.layout == "csr"
                         else g.csc_offsets())
-                seg = ops.sorted_segment_reduce(work.contiguous(), sortkey,
-                                                offs, g.n_pad, sub)
+                seg = _sorted_reduce(work, sortkey, offs, g.n_pad, sub)
                 touch_ids = sortkey
             elif lhs.driver == ctx.inner_var:
                 # push: unsorted scatter-reduce keyed by the neighbor
@@ -1934,7 +1983,7 @@ class Lowerer:
         key = _F + s.lhs.prop
         val = _coerce(self.eval(s.rhs, env, ctx), dt)
         if ctx.kind == "node" and s.lhs.driver == ctx.var:
-            pend = (key, ctx.mask, val.expand(env[key].shape))
+            pend = (key, ctx.mask, LN.expand_like(val, env[key]))
         else:
             raise LowerError("deferred write outside its bound node loop "
                              "not lowerable yet")
@@ -1971,7 +2020,7 @@ class Lowerer:
         old = env[key]
         val = _coerce(self.eval(s.rhs, env, ctx), dt)
         ident = _identity("MIN" if is_min else "MAX", dt, self.dev)
-        work = torch.where(ctx.mask, val.expand(ctx.mask.shape), ident)
+        work = torch.where(ctx.mask, val, ident)
         m = _seg("min" if is_min else "max", work, ctx.inner_ids, g.n_pad,
                  safe=self._in_range(ctx.inner_ids, g.n_pad))
         m = self._pcomb(m, "min" if is_min else "max")
@@ -1985,7 +2034,7 @@ class Lowerer:
         # agree on the lowest global slot (pmin), then sum-select its
         # payload
         extra_vals = [self.eval(r, env, ctx) for r in s.rhs_extra]
-        need_slot = any(self._a(v).dim() >= 1 for v in extra_vals)
+        need_slot = any(LN.lshape(self._a(v)) != () for v in extra_vals)
         mine = None
         if need_slot:
             win = ctx.mask & (work == self._take(m, ctx.inner_ids))
@@ -2007,7 +2056,7 @@ class Lowerer:
             ekey = _F + lhs_e.prop
             eold = env[ekey]
             rv = self._a(rhs_v)
-            if rv.dim() >= 1:
+            if LN.lshape(rv) != ():
                 payload = take(_coerce(rv, edt), win_slot)
                 if mine is not None:
                     # exactly one shard owns the winning global slot
@@ -2028,9 +2077,9 @@ class Lowerer:
         dt = self._target_dtype(s.lhs, env)
         val = _coerce(self.eval(s.rhs, env, ctx), dt)
         ident = _identity("MIN" if is_min else "MAX", dt, self.dev)
-        work = torch.where(ctx.mask, val.expand(ctx.mask.shape), ident)
-        best = work.min() if is_min else work.max()
-        idx = torch.argmin(work) if is_min else torch.argmax(work)
+        work = LN.expand_like(torch.where(ctx.mask, val, ident), ctx.mask)
+        best = LN.reduce("min" if is_min else "max", work)
+        idx = LN.arg("min" if is_min else "max", work)
         cur = env[s.lhs.name]
         improved = (best < cur) if is_min else (best > cur)
         self._wr(env, s.lhs.name, _where(improved, best, self._a(cur)))
@@ -2038,7 +2087,7 @@ class Lowerer:
             if not isinstance(lhs_e, A.Ident):
                 raise LowerError("scalar argminmax payload must be ident")
             pv = self._a(self.eval(rhs_e, env, ctx))
-            pick = pv[idx] if pv.dim() >= 1 else pv
+            pick = take(pv, idx) if LN.lshape(pv) != () else pv
             edt = self._target_dtype(lhs_e, env)
             if edt is not None:
                 pick = _coerce(pick, edt)
@@ -2184,7 +2233,7 @@ class Lowerer:
     def _exec_if(self, s: A.If, env, ctx):
         cond = self.eval(s.cond, env, ctx)
         if ctx is not None:
-            c = self._a(cond).expand(ctx.mask.shape)
+            c = LN.expand_like(self._a(cond), ctx.mask)
             self.exec_stmt(s.then, env, ctx.with_mask(ctx.mask & c))
             if s.els is not None:
                 self.exec_stmt(s.els, env, ctx.with_mask(ctx.mask & ~c))
@@ -2273,13 +2322,14 @@ class Lowerer:
         init = tuple(self._a(env[k]) if isinstance(
             env[k], (torch.Tensor, np.ndarray, int, float, bool))
             else env[k] for k in keys)
-        shapes = [(tuple(v.shape), v.dtype)
+        shapes = [(LN.lshape(v), v.dtype)
                   if isinstance(v, torch.Tensor) else None for v in init]
         return init, shapes
 
     def _carry_out(self, e2, keys, shapes):
         """The body's values of the carried keys, cast back to their carry
-        dtypes (a loop carry keeps its type)."""
+        dtypes (a loop carry keeps its type and, lane for lane, its
+        shape)."""
         out = []
         for k, sd in zip(keys, shapes):
             if sd is None:
@@ -2287,10 +2337,10 @@ class Lowerer:
                 continue
             shape, dt = sd
             v = self._a(e2[k])
-            if tuple(v.shape) != shape:
+            if LN.lshape(v) != shape:
                 raise LowerError(
                     f"loop-carried {k} changes shape {shape}->"
-                    f"{tuple(v.shape)}")
+                    f"{LN.lshape(v)}")
             out.append(v.to(dt))
         return tuple(out)
 
@@ -2301,11 +2351,39 @@ class Lowerer:
         return tuple(tree_map(lambda x: x.clone() if isinstance(
             x, torch.Tensor) else x, v) for v in carry)
 
+    @staticmethod
+    def _spread(carry, b: int):
+        """Every carry entry per lane: JAX's ``while_loop`` batching rule
+        once the predicate is a lane value."""
+        return tuple(tree_map(lambda x: LN.spread(x, b) if isinstance(
+            x, torch.Tensor) and not LN.is_lanes(x) else x, v) for v in carry)
+
+    @staticmethod
+    def _keep(go, new, old):
+        """The carry after a pass: the lanes whose predicate ``go`` ([B, 1])
+        was false keep their old one (JAX's ``select`` in the batched
+        ``while_loop``)."""
+        def sel(n, o):
+            if not isinstance(n, torch.Tensor):
+                return n
+            g = go.reshape((go.shape[0],) + (1,) * (max(n.dim(),
+                                                         o.dim()) - 1))
+            return torch.where(g, n, o)
+        return tuple(tree_map(sel, n, o) for n, o in zip(new, old))
+
+    @staticmethod
+    def _runs(go) -> bool:
+        """Does a pass run: the host predicate, or any lane's."""
+        return bool(LN.plain(go).any()) if LN.is_lanes(go) else go
+
     def _exec_while_traced(self, s: A.While, env):
         """The ``lax.while_loop`` lowering: the body runs once per pass in
         a traced region, and its draw sites keep the numbers of the first
         pass (JAX traces the condition once, then the body once, even
-        when the loop never runs)."""
+        when the loop never runs).  A predicate that depends on the lanes
+        of a batched run is read once a pass as ``any`` over them; every
+        carry entry is then per lane and a lane whose predicate is false
+        keeps its carry."""
         carry_keys = self._carry_keys(
             s, env, "Return inside While not lowerable yet")
         if s.do_while:
@@ -2319,6 +2397,8 @@ class Lowerer:
 
         def cond(carry):
             c = self._a(self.eval(s.cond, overlay(carry), None), _BOOL)
+            if LN.is_lanes(c):
+                return c
             b = bool(c.reshape(()))
             # a sharded run reads the predicate on every shard: they must
             # agree (it comes out of collectives)
@@ -2330,19 +2410,29 @@ class Lowerer:
             go = cond(carry)
             body_base = self._rng_site
             body_end = None
-            while go:      # each condition pass ends at body_base
+            while self._runs(go):  # each condition pass ends at body_base
+                if LN.is_lanes(go):
+                    carry = self._spread(carry, go.shape[0])
                 e2 = overlay(carry)
                 self.exec_stmt(s.body, e2, None)
                 body_end = self._rng_site
-                carry = self._carry_out(e2, carry_keys, shapes)
+                new = self._carry_out(e2, carry_keys, shapes)
+                carry = self._keep(go, new, carry) if LN.is_lanes(go) \
+                    else new
                 self._rng_site = cond_base
                 go = cond(carry)
             if body_end is None:
                 self._rng_site = body_base
                 e2 = overlay(carry)
                 self.exec_stmt(s.body, e2, None)
-                self._carry_out(e2, carry_keys, shapes)
+                dry = self._carry_out(e2, carry_keys, shapes)
                 body_end = self._rng_site
+                # what the body makes a lane value stays one
+                carry = tuple(
+                    self._spread((c,), LN.lanes_of(d))[0]
+                    if LN.lanes_of(d) else c for c, d in zip(carry, dry))
+            if LN.is_lanes(go):
+                carry = self._spread(carry, go.shape[0])
             self._rng_site = body_end
         for k, v in zip(carry_keys, carry):
             env[k] = v
@@ -2352,7 +2442,9 @@ class Lowerer:
         (``While (n.Token > 0)`` in parallel_random_walk_jump_sampling):
         the body runs with the mask narrowed to the still-active slots —
         each slot exits its own loop independently, like each OpenMP
-        thread exiting its private while in the reference's code."""
+        thread exiting its private while in the reference's code.  With
+        lane values in the mask, a pass runs while any slot of any lane is
+        active, and a lane with none keeps its carry."""
         if ctx.kind != "node":
             raise LowerError("while-loop inside a non-node parallel "
                              "context not lowerable")
@@ -2366,8 +2458,8 @@ class Lowerer:
             return e2
 
         def cond_of(e2):
-            return self._a(self.eval(s.cond, e2, ctx)).expand(
-                ctx.mask.shape)
+            return LN.expand_like(self._a(self.eval(s.cond, e2, ctx)),
+                                  ctx.mask)
 
         def body(carry, act):
             e2 = overlay(carry)
@@ -2391,20 +2483,29 @@ class Lowerer:
             end = None
             while self._any_active(act):
                 self._rng_site = base
-                carry, act = body(carry, act)
+                if LN.is_lanes(act):
+                    go = LN.reduce("any", act)
+                    carry = self._spread(carry, go.shape[0])
+                    new, act = body(carry, act)
+                    carry = self._keep(go, new, carry)
+                else:
+                    carry, act = body(carry, act)
                 end = self._rng_site
             if end is None:
                 self._rng_site = base
                 body(carry, act)
                 end = self._rng_site
+            if LN.is_lanes(act):
+                carry = self._spread(carry, act.shape[0])
             self._rng_site = end
         for k, v in zip(carry_keys, carry):
             env[k] = v
 
     def _any_active(self, act) -> bool:
         """Does any slot of a masked While run on?  Under a mesh axis, on
-        any shard: every shard then runs the pass (its slots masked)."""
-        a = act.any()
+        any shard: every shard then runs the pass (its slots masked); in a
+        batched run, in any lane."""
+        a = LN.plain(act).any()
         if self.axis is not None:
             a = self.axis.pmax(a.to(torch.int8)) > 0
         return bool(a)
@@ -2488,13 +2589,23 @@ def _bind_collection(kind: str, val, g: Graph):
 
 def _host_eager_constructs(proc: A.Procedure) -> List[str]:
     """The constructs that run on the host one element at a time: a DFS,
-    a While driven by a map, a loop over collection items."""
+    a While driven by a map, a loop over collection items.  A map declared
+    inside a parallel loop is a per-node histogram on the device
+    (communities.gm) and drives nothing on the host."""
     maps = set()
 
     def decl(n):
         if isinstance(n, A.VarDecl) and n.type.kind == "MAP":
             maps.update(n.names)
-    _walk_ast(proc.body, decl)
+        elif isinstance(n, A.Foreach) and n.iterator.iter_type != "ITEMS":
+            return          # the maps of its body are histograms
+        for f in dataclasses.fields(n) if dataclasses.is_dataclass(n) \
+                else ():
+            v = getattr(n, f.name)
+            for x in (v if isinstance(v, (list, tuple)) else [v]):
+                if dataclasses.is_dataclass(x) and not isinstance(x, type):
+                    decl(x)
+    decl(proc.body)
     found = []
 
     def scan(n):
@@ -2511,11 +2622,14 @@ def _host_eager_constructs(proc: A.Procedure) -> List[str]:
     return found
 
 
-def _stack(vals):
-    v0 = vals[0]
-    if is_tree(v0):
-        return tree_map(lambda *xs: torch.stack(xs), *vals)
-    return torch.stack([_asarray(v) for v in vals])
+def _lane_leading(x, b: int) -> torch.Tensor:
+    """An output of a batched run with its lane axis leading, as
+    ``vmap``'s ``out_axes=0`` gives it: a lane scalar [B, 1] becomes [B], an
+    unbatched value is repeated for every lane."""
+    if LN.is_lanes(x):
+        return LN.plain(x).reshape(b) if LN.lshape(x) == () else LN.plain(x)
+    x = _asarray(x)
+    return x.unsqueeze(0).expand((b,) + tuple(x.shape)).contiguous()
 
 
 class CompiledProc:
@@ -2600,13 +2714,20 @@ class CompiledProc:
 
     def batch(self, g: Graph, over: Dict[str, object], **fixed):
         """Batched-instance execution of the compiled procedure: one
-        instance per entry of ``over``, run one after another, their
-        outputs stacked (the JAX package advances them in lockstep under
-        ``vmap``; each lane equals its single run either way).
+        instance (lane) per entry of ``over``, all advanced in lockstep, as
+        the JAX package's ``vmap`` advances them.
 
-        ``over`` maps scalar argument names to equal-length arrays; all
-        other arguments are shared.  Returns the usual output dict with a
-        leading batch axis.  Programs with host-eager constructs (DFS,
+        ``over`` maps argument names to arrays with one leading entry per
+        lane; all other arguments are shared.  What depends on ``over`` is
+        a lane value (``runtime.lanes``); everything else is computed once.
+        One pass of a ``While`` body serves every lane, and a pull
+        reduction over ``[B, E_pad]`` values is one launch of the
+        lane-batched kernels.  A predicate that depends on the lanes
+        counts as traced: an ``If`` on it runs both branches, a ``While``
+        on it runs while any lane's holds (a lane whose predicate is false
+        keeps its state), a host read of it raises ``LowerError``, as JAX
+        refuses it.  Returns the usual output dict, every value with a
+        leading lane axis.  Programs with host-eager constructs (DFS,
         map-driven While loops, collection Items loops) cannot batch.
 
         Example::
@@ -2616,19 +2737,21 @@ class CompiledProc:
             out["dist"]          # [1024, N_pad]
         """
         names = sorted(over)
-        vals = [_asarray(over[n]) for n in names]
-        if not vals or any(v.shape[0] != vals[0].shape[0] for v in vals):
+        vals = [_asarray(over[n], g.device) for n in names]
+        if not vals or any(v.dim() == 0 or v.shape[0] != vals[0].shape[0]
+                           for v in vals):
             raise ValueError("over= arrays must share a leading dim")
         eager = _host_eager_constructs(self.proc)
         if eager:
             raise LowerError(f"{eager[0]} runs on the host and cannot "
                              "batch")
-        outs = []
-        for i in range(int(vals[0].shape[0])):
-            kw = dict(fixed)
-            kw.update({n: v[i] for n, v in zip(names, vals)})
-            outs.append(self(g, **kw))
-        return {k: _stack([o[k] for o in outs]) for k in outs[0]}
+        b = int(vals[0].shape[0])
+        kw = dict(fixed)
+        kw.update({n: LN.mark(v.reshape(b, 1) if v.dim() == 1 else v)
+                   for n, v in zip(names, vals)})
+        out = self(g, **kw)
+        return {k: tree_map(lambda x: _lane_leading(x, b), v)
+                for k, v in out.items()}
 
     def jit(self):
         """The whole-procedure call.  The JAX package compiles the program

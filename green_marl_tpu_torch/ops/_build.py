@@ -101,14 +101,14 @@ def _load() -> ctypes.CDLL:
     cdll = ctypes.CDLL(build())
     vp, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     cdll.gm_segment_reduce.restype = cint
-    cdll.gm_segment_reduce.argtypes = [vp, i64, vp, i64, i64, vp, vp,
+    cdll.gm_segment_reduce.argtypes = [vp, i64, i64, vp, i64, i64, vp, vp,
                                        cint, cint, vp]
     cdll.gm_segment_reduce_tile_size.restype = cint
     cdll.gm_segment_reduce_tile_size.argtypes = []
     cdll.gm_segment_reduce_row_chunk.restype = cint
     cdll.gm_segment_reduce_row_chunk.argtypes = []
     cdll.gm_cumsum.restype = cint
-    cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, cint, cint, vp]
+    cdll.gm_cumsum.argtypes = [vp, vp, vp, i64, i64, i64, cint, cint, vp]
     cdll.gm_cumsum_tile_size.restype = cint
     cdll.gm_cumsum_tile_size.argtypes = []
     cdll.gm_segmented_scan.restype = cint

@@ -5,7 +5,7 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
 
 * ``segment_reduce_sorted`` -- ``out[v] = op-reduce(vals[offsets[v]:offsets[v+1]])``
   for op add, min or max on int32 or float32 (``csrc/segment_reduce.cu``);
-* ``plain_cumsum`` -- inclusive or exclusive prefix sum of a 1-D int32 or
+* ``plain_cumsum`` -- inclusive or exclusive prefix sum of an int32 or
   float32 tensor, int32 exact mod 2^32 (``csrc/cumsum.cu``);
 * ``segmented_scan`` -- globally segmented inclusive scan, add/min/max on
   int32 or float32, segments = runs of equal ids (``csrc/segmented_scan.cu``);
@@ -14,11 +14,17 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
 * ``row_gather_checksum`` -- the probes' K-in-flight row gather, returning
   ``sweeps * sum(table[idx, 0])`` mod 2^32 (``csrc/gather_probe.cu``).
 
+The first two also take lanes, as the TPU kernels take them under
+``jax.vmap`` (a batched compiled program, ``lang.lower.CompiledProc.batch``):
+``[B, n]`` values give ``[B, n_out]`` results, each row what the 1-D call
+gives on it, with the offsets shared by the rows.
+
 Each wrapper checks its arguments, then dispatches on the tensor's device:
 a CPU tensor takes the plain version (``*_ref``), a CUDA tensor launches the
 kernel on the current stream or raises.  Nothing falls back.  Each wrapper
-counts its kernel launches in its ``launches`` attribute, so that a run can
-show that its main path went through the kernels.
+counts its kernel launches in its ``launches`` attribute (the lane-batched
+launches of the first two in ``lane_launches``), so that a run can show
+that its main path went through the kernels.
 
 Unlike the JAX CPU path (``jax.ops.segment_*``, which lets padded slots
 collect into the sentinel row ``N``), both versions here follow the TPU
@@ -45,11 +51,18 @@ _SCATTER_REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(fn) -> None:
-    """One more launch of ``fn``'s kernel (the shards of a sharded run
-    launch from threads of their own)."""
+def _count(name: str, lanes: bool = False) -> None:
+    """One more launch of wrapper ``name``'s kernel, or of its lane-batched
+    form (the shards of a sharded run launch from threads of their own).
+    The wrapper is looked up among ``_WRAPPERS``, not in the module, so a
+    caller that wraps a module attribute to watch its calls does not take
+    the count."""
+    fn = next(f for f in _WRAPPERS if f.__name__ == name)
     with _COUNT_LOCK:
-        fn.launches += 1
+        if lanes:
+            fn.lane_launches += 1
+        else:
+            fn.launches += 1
 
 
 def identity(op: str, dtype: torch.dtype):
@@ -62,11 +75,12 @@ def identity(op: str, dtype: torch.dtype):
     return info.max if op == "min" else info.min
 
 
-def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:
+def _check_1d(name: str, t: torch.Tensor, dtypes, dims=(1,)) -> None:
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {tuple(dtypes)}")
-    if t.dim() != 1:
-        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
+    if t.dim() not in dims:
+        raise ValueError(f"{name}: expected a {' or '.join(map(str, dims))}"
+                         f"-D tensor, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor is not contiguous")
 
@@ -85,14 +99,17 @@ def segment_reduce_sorted_ref(vals: torch.Tensor, ids: torch.Tensor,
                               offsets: torch.Tensor, n_out: int,
                               op: str = "add") -> torch.Tensor:
     """Plain version of :func:`segment_reduce_sorted` (scatter-reduce over
-    segment numbers expanded from ``offsets``; ``ids`` is not read)."""
+    segment numbers expanded from ``offsets``; ``ids`` is not read).  Rows
+    of ``[B, E]`` values are reduced alike."""
     n_seg = offsets.numel() - 1
     seg = torch.repeat_interleave(
         torch.arange(n_seg, device=vals.device), offsets.diff().long())
     lo = int(offsets[0])
-    out = torch.full((n_out,), identity(op, vals.dtype), dtype=vals.dtype,
+    out = torch.full(tuple(vals.shape[:-1]) + (n_out,),
+                     identity(op, vals.dtype), dtype=vals.dtype,
                      device=vals.device)
-    return out.scatter_reduce_(0, seg, vals[lo:lo + seg.numel()],
+    src = vals[..., lo:lo + seg.numel()]
+    return out.scatter_reduce_(-1, seg.expand(src.shape), src,
                                _SCATTER_REDUCE[op], include_self=True)
 
 
@@ -104,7 +121,9 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     ``vals``/``ids``: [E_pad] edge-slot arrays (CSC or CSR order); ``ids``
     is the segment id of each slot and is checked for shape only, since the
     runs are read from ``offsets`` ([N+1] int32, sorted).  Returns [n_out];
-    empty segments and rows ``N..n_out-1`` get the op's identity.
+    empty segments and rows ``N..n_out-1`` get the op's identity.  Lanes:
+    ``vals`` [B, E_pad] (``ids`` and ``offsets`` shared) gives [B, n_out]
+    in one launch, each row the bits of the 1-D call on it.
 
     ``offsets`` must ascend within ``[0, len(vals)]``, as a ``Graph``'s
     ``begin``/``r_begin`` do; the kernel does not check it (that would
@@ -124,9 +143,9 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     """
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
-    _check_1d("vals", vals, _DTYPE_CODE)
+    _check_1d("vals", vals, _DTYPE_CODE, dims=(1, 2))
     _check_1d("offsets", offsets, (torch.int32,))
-    if ids.shape != vals.shape:
+    if ids.shape != vals.shape[-1:]:
         raise ValueError(f"ids shape {tuple(ids.shape)} != vals shape "
                          f"{tuple(vals.shape)}")
     if offsets.numel() < 1 or n_out < offsets.numel() - 1:
@@ -138,26 +157,31 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
         return segment_reduce_sorted_ref(vals, ids, offsets, n_out, op)
     stream = _cuda_stream(vals)
     lib = _build.lib()
-    out = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
-    # per tile of edge slots a status word and a row bound (and one more
-    # bound), per chunk of rows the end of a run of empty rows; the C entry
-    # clears what must start at 0
-    n_tiles = max(1, -(-vals.numel() // lib.gm_segment_reduce_tile_size()))
+    lanes, n_vals = (1, vals.shape[0]) if vals.dim() == 1 else vals.shape
+    out = torch.empty(tuple(vals.shape[:-1]) + (n_out,), dtype=vals.dtype,
+                      device=vals.device)
+    if out.numel() == 0:
+        return out
+    # per lane and tile of edge slots a status word, per tile a row bound
+    # (and one more bound), per chunk of rows the end of a run of empty
+    # rows; the C entry clears what must start at 0
+    n_tiles = max(1, -(-n_vals // lib.gm_segment_reduce_tile_size()))
     n_chunks = -(-(offsets.numel() - 1) // lib.gm_segment_reduce_row_chunk())
-    scratch = torch.empty(2 * n_tiles + 1 + n_chunks, dtype=torch.int64,
-                          device=vals.device)
+    scratch = torch.empty((lanes + 1) * n_tiles + 1 + n_chunks,
+                          dtype=torch.int64, device=vals.device)
     with torch.cuda.device(vals.device):
         err = lib.gm_segment_reduce(
-            vals.data_ptr(), vals.numel(), offsets.data_ptr(),
+            vals.data_ptr(), lanes, n_vals, offsets.data_ptr(),
             offsets.numel() - 1, n_out, out.data_ptr(), scratch.data_ptr(),
             _DTYPE_CODE[vals.dtype], OPS.index(op), stream)
     if err:
         raise RuntimeError(f"gm_segment_reduce: CUDA error {err}")
-    _count(segment_reduce_sorted)
+    _count("segment_reduce_sorted", lanes=vals.dim() == 2)
     return out
 
 
 segment_reduce_sorted.launches = 0
+segment_reduce_sorted.lane_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -167,17 +191,22 @@ segment_reduce_sorted.launches = 0
 def plain_cumsum_ref(vals: torch.Tensor,
                      exclusive: bool = False) -> torch.Tensor:
     """Plain version of :func:`plain_cumsum`.  ``dtype=`` keeps int32 in
-    int32 (``torch.cumsum`` would promote it to int64), so it wraps too."""
-    c = torch.cumsum(vals, 0, dtype=vals.dtype)
-    return torch.cat([c.new_zeros(1), c]) if exclusive else c
+    int32 (``torch.cumsum`` would promote it to int64), so it wraps too.
+    Rows of ``[B, n]`` values are scanned alike."""
+    c = torch.cumsum(vals, -1, dtype=vals.dtype)
+    return torch.cat([c.new_zeros(tuple(c.shape[:-1]) + (1,)), c], -1) \
+        if exclusive else c
 
 
 def plain_cumsum(vals: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
-    """Prefix sum of a 1-D int32 or float32 tensor of any length.
+    """Prefix sum of an int32 or float32 tensor of any length, along its
+    last axis: ``[n]``, or ``[B, n]`` lanes scanned in one launch.
 
     Inclusive: ``out[i] = sum(vals[:i+1])``, ``n`` values.  ``exclusive``:
     ``out[i] = sum(vals[:i])``, ``n + 1`` values (``out[0] = 0``,
-    ``out[n]`` the total), written by the kernel directly.  int32 sums are
+    ``out[n]`` the total), written by the kernel directly; with lanes a
+    ``[B, n + 1]`` view whose rows lie a multiple of 4 values apart, so
+    that each starts 16-byte aligned.  int32 sums are
     exact mod 2^32 (the global prefix may wrap; differences of prefixes
     stay exact), with no bound on chunk sums.  On the card the kernel is a
     single pass with decoupled look-back: tile aggregates are added in an
@@ -186,30 +215,38 @@ def plain_cumsum(vals: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
     16-byte aligned (a view such as ``x[1:]``) is read with 4-byte loads:
     the same result, more slowly.
     """
-    _check_1d("vals", vals, _DTYPE_CODE)
+    _check_1d("vals", vals, _DTYPE_CODE, dims=(1, 2))
     if vals.device.type == "cpu":
         return plain_cumsum_ref(vals, exclusive)
     stream = _cuda_stream(vals)
     lib = _build.lib()
-    n = vals.numel()
-    out = torch.empty(n + 1 if exclusive else n, dtype=vals.dtype,
-                      device=vals.device)
-    if n == 0:
+    lanes, n = (1, vals.shape[0]) if vals.dim() == 1 else vals.shape
+    m = n + 1 if exclusive else n
+    if vals.dim() == 1:
+        out = torch.empty(m, dtype=vals.dtype, device=vals.device)
+        ld = m
+    else:
+        ld = -(-m // 4) * 4 if exclusive else m
+        out = torch.empty((lanes, ld), dtype=vals.dtype,
+                          device=vals.device)[:, :m]
+    if n == 0 or lanes == 0:
         return out.zero_()          # the exclusive form's single 0
-    # one status word per tile and the tile counter, cleared by the C entry
-    scratch = torch.empty(-(-n // lib.gm_cumsum_tile_size()) + 1,
+    # one status word per lane and tile and the tile counter, cleared by
+    # the C entry
+    scratch = torch.empty(lanes * -(-n // lib.gm_cumsum_tile_size()) + 1,
                           dtype=torch.int64, device=vals.device)
     with torch.cuda.device(vals.device):
         err = lib.gm_cumsum(vals.data_ptr(), out.data_ptr(),
-                            scratch.data_ptr(), n, _DTYPE_CODE[vals.dtype],
-                            int(exclusive), stream)
+                            scratch.data_ptr(), lanes, n, ld,
+                            _DTYPE_CODE[vals.dtype], int(exclusive), stream)
     if err:
         raise RuntimeError(f"gm_cumsum: CUDA error {err}")
-    _count(plain_cumsum)
+    _count("plain_cumsum", lanes=vals.dim() == 2)
     return out
 
 
 plain_cumsum.launches = 0
+plain_cumsum.lane_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +327,7 @@ def segmented_scan(vals: torch.Tensor, ids: torch.Tensor,
             stream)
     if err:
         raise RuntimeError(f"gm_segmented_scan: CUDA error {err}")
-    _count(segmented_scan)
+    _count("segmented_scan")
     return out
 
 
@@ -434,7 +471,7 @@ def take_along_blocks(table: torch.Tensor, idx: torch.Tensor, mode: str,
             stream)
     if err:
         raise RuntimeError(f"gm_take_along: CUDA error {err}")
-    _count(take_along_blocks)
+    _count("take_along_blocks")
     return out
 
 
@@ -514,7 +551,7 @@ def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
             binned.data_ptr(), stream)
     if err:
         raise RuntimeError(f"gm_row_gather: CUDA error {err}")
-    _count(row_gather_checksum)
+    _count("row_gather_checksum")
     return zeroed[0]
 
 
@@ -522,13 +559,22 @@ row_gather_checksum.launches = 0
 
 _WRAPPERS = (segment_reduce_sorted, plain_cumsum, segmented_scan,
              take_along_blocks, row_gather_checksum)
+_LANE_WRAPPERS = (segment_reduce_sorted, plain_cumsum)
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in _WRAPPERS:
         fn.launches = 0
+    for fn in _LANE_WRAPPERS:
+        fn.lane_launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+def lane_launch_counts() -> dict:
+    """The lane-batched launches, by ``"<wrapper>[lanes]"``."""
+    return {f"{fn.__name__}[lanes]": fn.lane_launches
+            for fn in _LANE_WRAPPERS}

@@ -28,21 +28,22 @@ from . import kernels
 def segment_sum_by_offsets(vals: torch.Tensor, offsets: torch.Tensor,
                            n_out: int) -> torch.Tensor:
     """``out[v] = sum(vals[offsets[v]:offsets[v+1]])``, padded with 0 to
-    ``n_out``.  ``vals``: [E_pad]; slots past ``offsets[-1]`` are never
-    read back."""
+    ``n_out``.  ``vals``: [E_pad], or [B, E_pad] lanes (one prefix-sum
+    launch for all of them, [B, n_out] out); slots past ``offsets[-1]`` are
+    never read back."""
     if vals.dtype in kernels.KERNEL_DTYPES:
         ex = kernels.plain_cumsum(vals, exclusive=True)
     else:
-        c = torch.cumsum(vals, 0, dtype=vals.dtype)
-        ex = torch.cat([c.new_zeros(1), c])
-    out = ex.index_select(0, offsets[1:]) - ex.index_select(0, offsets[:-1])
-    return torch.nn.functional.pad(out, (0, n_out - out.shape[0]))
+        c = torch.cumsum(vals, -1, dtype=vals.dtype)
+        ex = torch.cat([c.new_zeros(tuple(c.shape[:-1]) + (1,)), c], -1)
+    out = ex.index_select(-1, offsets[1:]) - ex.index_select(-1, offsets[:-1])
+    return torch.nn.functional.pad(out, (0, n_out - out.shape[-1]))
 
 
 def in_nbr_count_true(g: Graph, node_mask_vals: torch.Tensor) -> torch.Tensor:
     """[N_pad] int32: per node, the number of in-neighbours w with
-    ``node_mask_vals[w]`` true."""
-    vals = node_mask_vals.index_select(0, g.r_node_idx).to(torch.int32)
+    ``node_mask_vals[w]`` true ([B, N_pad] for [B, N_pad] lanes)."""
+    vals = node_mask_vals.index_select(-1, g.r_node_idx).to(torch.int32)
     return segment_sum_by_offsets(vals, g.r_begin, g.n_pad)
 
 
@@ -53,8 +54,8 @@ def in_nbr_any_fast(g: Graph, node_mask_vals: torch.Tensor) -> torch.Tensor:
 
 def out_nbr_count_true(g: Graph, node_mask_vals: torch.Tensor) -> torch.Tensor:
     """[N_pad] int32: per node, the number of out-neighbours s with
-    ``node_mask_vals[s]`` true."""
-    vals = node_mask_vals.index_select(0, g.node_idx).to(torch.int32)
+    ``node_mask_vals[s]`` true ([B, N_pad] for [B, N_pad] lanes)."""
+    vals = node_mask_vals.index_select(-1, g.node_idx).to(torch.int32)
     return segment_sum_by_offsets(vals, g.begin, g.n_pad)
 
 

@@ -36,6 +36,9 @@ def sorted_segment_reduce(vals: torch.Tensor, ids: torch.Tensor,
       ``kernels.segment_reduce_sorted_ref``, on the CPU and on the card;
     * bool min and max reduce as uint8 and come back bool; a bool sum is
       refused, as ``jax.ops.segment_sum`` refuses it.
+
+    ``vals`` may be [B, E] lanes (a batched compiled program): one launch
+    for all of them, [B, n_out] out, by the same dtype rules.
     """
     if vals.dtype == torch.bool:
         if op == "add":

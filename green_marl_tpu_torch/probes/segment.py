@@ -1,7 +1,8 @@
 """Segment kernels on the card, at the LiveJournal-scale graph's pull shape.
 
-Times ``kernels.segment_reduce_sorted`` (float32 add and int32 min) and
-``kernels.segmented_scan`` (float32 add) over the CSC of the RMAT graph of
+Times ``kernels.segment_reduce_sorted`` (float32 add and int32 min),
+``kernels.segmented_scan`` (float32 add) and ``kernels.plain_cumsum``
+(int32, inclusive and exclusive) over the CSC of the RMAT graph of
 bench.py's LiveJournal-scale sizes (N=4.8M, E=69M, seed 42, edges from
 ``native/gm_io.cc``), beside a ``clone()`` of the values and, for the
 float32 sum, ``torch.segment_reduce`` (a yardstick only: the port never
@@ -83,6 +84,10 @@ def time_all(args, K, record, vals_f, vals_i, ids, offs, n_pad, e_pad):
              reduce_bytes),
             ("segmented_scan float32 add",
              lambda: K.segmented_scan(vals_f, ids, "add"), 12 * e_pad),
+            ("plain_cumsum int32",
+             lambda: K.plain_cumsum(vals_i), 8 * e_pad),
+            ("plain_cumsum int32 exclusive",
+             lambda: K.plain_cumsum(vals_i, exclusive=True), 8 * e_pad + 4),
             ("torch.segment_reduce float32 sum (offsets)",
              lambda: torch.segment_reduce(vals_f, "sum", offsets=offs64),
              reduce_bytes),
@@ -206,6 +211,9 @@ def main(argv=None):
     scan = K.segmented_scan(vals_f, ids, "add")
     assert torch.allclose(scan[tails][nonempty], got[:LJ_N][nonempty],
                           rtol=1e-5, atol=0.0)
+    for excl in (False, True):
+        assert torch.equal(K.plain_cumsum(vals_i, exclusive=excl),
+                           K.plain_cumsum_ref(vals_i, exclusive=excl))
     record(what="checks", ok=True,
            float_add_same_bits_twice=bool(torch.equal(got, again)))
     del want, scan, tails, nonempty, got, again, got_i

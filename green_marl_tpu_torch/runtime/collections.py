@@ -21,7 +21,8 @@ merge can treat them leaf by leaf.
 Indexing follows JAX's rules for out-of-range indices, which the lowering
 relies on: :func:`take` wraps negative indices once and clamps the rest,
 :func:`put` wraps negative indices once and drops what is still out of
-range.
+range.  Each of them also takes lane values of a batched program
+(``runtime.lanes``): lane-leading arrays with shared or per-lane indices.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from . import lanes as LN
 
 
 # ---------------------------------------------------------------------------
@@ -44,6 +47,8 @@ def _index(idx, n: int, device) -> torch.Tensor:
 def take(arr: torch.Tensor, idx) -> torch.Tensor:
     """``arr[idx]`` along axis 0 as a JAX gather: a negative index counts
     from the end, an index still out of range reads the nearest row."""
+    if LN.is_lanes(arr) or LN.is_lanes(idx):
+        return LN.take(arr, torch.as_tensor(idx, device=arr.device))
     n = arr.shape[0]
     return arr[_index(idx, n, arr.device).clamp(0, n - 1)]
 
@@ -53,6 +58,8 @@ def put(arr: torch.Tensor, idx, val) -> torch.Tensor:
     counts from the end, an index still out of range is dropped.  Duplicate
     indices must carry equal values (every caller writes a constant or a
     single index)."""
+    if any(LN.is_lanes(x) for x in (arr, idx, val)):
+        return LN.put(arr, idx, val)
     n = arr.shape[0]
     i = _index(idx, n, arr.device)
     i = torch.where((i >= 0) & (i < n), i, n).reshape(-1)
@@ -67,9 +74,15 @@ def put(arr: torch.Tensor, idx, val) -> torch.Tensor:
 def put2(arr: torch.Tensor, rows, cols, val) -> torch.Tensor:
     """``arr.at[rows, cols].set(val)`` on a 2-D tensor, JAX's rules per
     axis (a write out of range on either axis is dropped)."""
-    n0, n1 = arr.shape
+    n0, n1 = arr.shape[-2:]
     r = _index(rows, n0, arr.device)
     c = _index(cols, n1, arr.device)
+    if any(LN.is_lanes(x) for x in (arr, r, c, val)):
+        # one scatter per lane into the flattened matrix
+        ok = (r >= 0) & (r < n0) & (c >= 0) & (c < n1)
+        flat = LN.put(arr.flatten(-2), torch.where(ok, r * n1 + c, n0 * n1),
+                     val)
+        return flat.reshape(flat.shape[0], n0, n1)
     r, c = torch.broadcast_tensors(r, c)
     ok = (r >= 0) & (r < n0) & (c >= 0) & (c < n1)
     flat = torch.where(ok, r * n1 + c, n0 * n1).reshape(-1)
@@ -139,7 +152,7 @@ class NodeSet:
         return take(self.bits, v)
 
     def size(self) -> torch.Tensor:
-        return self.bits.to(torch.int32).sum(dtype=torch.int32)
+        return LN.reduce("sum", self.bits.to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +174,7 @@ class NodeSeq:
 
     @property
     def capacity(self) -> int:
-        return int(self.buf.shape[0])
+        return int(self.buf.shape[-1])
 
     def push_back(self, v) -> "NodeSeq":
         pos = (self.head + self.count) % self.capacity
@@ -188,7 +201,7 @@ class NodeSeq:
     def items(self) -> torch.Tensor:
         """[cap] ids in order, -1 beyond ``count``."""
         ar = torch.arange(self.capacity, device=self.buf.device)
-        vals = self.buf[(self.head + ar) % self.capacity]
+        vals = take(self.buf, (self.head + ar) % self.capacity)
         return torch.where(ar < self.count, vals,
                            torch.full((), -1, dtype=vals.dtype,
                                       device=vals.device))
@@ -264,7 +277,7 @@ class DenseNodeMap:
         return take(self.present, k)
 
     def size(self):
-        return self.present.to(torch.int32).sum(dtype=torch.int32)
+        return LN.reduce("sum", self.present.to(torch.int32))
 
     def _masked(self, for_min: bool):
         big, small = _extrema(self.val.dtype)
@@ -275,16 +288,16 @@ class DenseNodeMap:
 
     def min_key(self):
         """Key with the minimum value (getMinKey_seq); ties: smallest key."""
-        return torch.argmin(self._masked(True)).to(torch.int32)
+        return LN.arg("min", self._masked(True)).to(torch.int32)
 
     def max_key(self):
-        return torch.argmax(self._masked(False)).to(torch.int32)
+        return LN.arg("max", self._masked(False)).to(torch.int32)
 
     def min_value(self):
-        return self._masked(True).min()
+        return LN.reduce("min", self._masked(True))
 
     def max_value(self):
-        return self._masked(False).max()
+        return LN.reduce("max", self._masked(False))
 
     def has_min_value(self, k):
         return take(self.present, k) & (take(self.val, k) == self.min_value())

@@ -1171,6 +1171,140 @@ def test_compiled_int_pull_on_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# Lane-batched kernels and batched compiled programs (CompiledProc.batch)
+# ---------------------------------------------------------------------------
+
+def _lane_case(rng, b, n_seg, dtype, tail=0):
+    """[b, e] values, [n_seg + 1] offsets with runs of empty rows (at slot
+    0, in the middle over whole 512-row chunks, at the end) and one hub; e
+    odd, ``tail`` slots past the last row."""
+    lens = rng.choice([0, 1, 1, 2, 5, 40], size=n_seg)
+    lens[:3000] = 0
+    lens[n_seg // 2:n_seg // 2 + 5000] = 0
+    lens[-2000:] = 0
+    lens[n_seg // 3] = 300_000
+    off = np.zeros(n_seg + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    e = int(off[-1]) + tail
+    e += 1 - e % 2
+    vals = np.stack([_vals(rng, e, dtype) for _ in range(b)])
+    if dtype == torch.float32:
+        vals += rng.random(vals.shape).astype(np.float32)
+    return vals, off.astype(np.int32)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("dtype,op", [(torch.int32, "add"),
+                                      (torch.int32, "min"),
+                                      (torch.int32, "max"),
+                                      (torch.float32, "add"),
+                                      (torch.float32, "max")])
+def test_segment_reduce_lanes(dev, b, dtype, op):
+    """[B, E] lanes in one launch: int32 add, min and max equal the plain
+    version exactly; every lane has the bits of the 1-D kernel on its row;
+    also with offsets clipped to a slab (rows that start at slot > 0)."""
+    rng = np.random.default_rng(b)
+    vals_h, off = _lane_case(rng, b, 60_000, dtype, tail=77)
+    vals = torch.from_numpy(vals_h).to(dev)
+    ids = torch.zeros(vals.shape[1], dtype=torch.int32, device=dev)
+    for offsets, n_out in ((torch.from_numpy(off).to(dev), 60_300),
+                           (torch.from_numpy(off[20_000:45_001]).to(dev),
+                            25_100)):
+        K.reset_launch_counts()
+        got = K.segment_reduce_sorted(vals, ids, offsets, n_out, op)
+        torch.cuda.synchronize()
+        assert got.shape == (b, n_out) and got.dtype == dtype
+        assert K.lane_launch_counts()["segment_reduce_sorted[lanes]"] == 1
+        assert K.launch_counts()["segment_reduce_sorted"] == 0
+        if dtype == torch.int32 or op != "add":
+            assert torch.equal(got, K.segment_reduce_sorted_ref(
+                vals, ids, offsets, n_out, op))
+        for r in range(b):
+            assert torch.equal(got[r], K.segment_reduce_sorted(
+                vals[r].contiguous(), ids, offsets, n_out, op)), r
+
+
+@pytest.mark.parametrize("b", [1, 5, 16])
+@pytest.mark.parametrize("n", [1, 8191, 8192 * 3 + 5, 1_000_003])
+def test_cumsum_lanes(dev, b, n):
+    """[B, n] int32 lanes in one launch, inclusive and exclusive: bit for
+    bit ``torch.cumsum(dim=1)`` mod 2^32 and the 1-D kernel on each row."""
+    rng = np.random.default_rng(n + b)
+    v = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (b, n))
+                         .astype(np.int32)).to(dev)
+    want = torch.cumsum(v.long(), dim=1)
+    want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).int()
+    K.reset_launch_counts()
+    inc = K.plain_cumsum(v)
+    exc = K.plain_cumsum(v, exclusive=True)
+    torch.cuda.synchronize()
+    assert K.lane_launch_counts()["plain_cumsum[lanes]"] == 2
+    assert torch.equal(inc, want)
+    assert exc.shape == (b, n + 1) and torch.equal(exc[:, 1:], want)
+    assert not exc[:, 0].any()
+    assert torch.equal(inc, torch.cumsum(v, dim=1, dtype=torch.int32))
+    for r in range(b):
+        assert torch.equal(exc[r], K.plain_cumsum(v[r].contiguous(),
+                                                  exclusive=True))
+
+
+_BAND_GM = """
+Procedure band(G: Graph, age, cnt: N_P<Int>, lo: Int) : Int {
+    Foreach(n: G.Nodes) {
+        n.cnt = Count(t: n.InNbrs)(t.age >= lo && t.age < lo + 10);
+    }
+    Return Sum(n: G.Nodes){ n.cnt };
+}
+"""
+
+
+@pytest.mark.parametrize("text,over,kw", [
+    (_PAGERANK_GM, {"d": [0.6, 0.75, 0.85, 0.92]}, dict(e=1e-7, max=100)),
+    (_HOP_DIST_GM, {"root": [0, 5, 77, 19_999]}, {}),
+    (_BAND_GM, {"lo": [0, 10, 25, 60]}, {"age": "age"}),
+], ids=["pagerank", "hop_dist", "band_count"])
+def test_batched_program_on_card(dev, text, over, kw):
+    """A batched compiled program on the card equals ``device="cpu"``
+    (integers exactly, floats within rtol 1e-4 as for one instance) and
+    launches the lane-batched kernels where its pulls depend on the
+    lanes."""
+    import warnings
+
+    from green_marl_tpu_torch.graph import generate as gen
+    from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.lang.lower import compile_source
+    src, dst = gen.rmat_edges(20_000, 200_000, seed=3)
+    g, _ = from_edges(src, dst, 20_000)
+    if kw.get("age"):
+        kw = {"age": torch.from_numpy(np.random.default_rng(2).integers(
+            0, 80, g.n_pad).astype(np.int32))}
+    over = {k: np.asarray(v, np.float32 if isinstance(v[0], float)
+                          else np.int32) for k, v in over.items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cp = compile_source(text)
+    want = cp.batch(g, over=over, **kw)
+    kw_dev = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+              for k, v in kw.items()}
+    cp.batch(g.to(dev), over=over, **kw_dev)       # builds the kernels
+    K.reset_launch_counts()
+    got = cp.batch(g.to(dev), over=over, **kw_dev)
+    torch.cuda.synchronize()
+    lanes = K.lane_launch_counts()
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].device.type == "cuda"
+        if want[k].dtype.is_floating_point:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                       atol=1e-9)
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+    if text is _PAGERANK_GM:
+        assert lanes["segment_reduce_sorted[lanes]"] > 0
+    elif text is _BAND_GM:
+        assert lanes["plain_cumsum[lanes]"] == 1
+
+
+# ---------------------------------------------------------------------------
 # Multi-device execution: 4 shards on one card against one-device runs
 # ---------------------------------------------------------------------------
 

@@ -151,8 +151,8 @@ def test_wrappers_check_arguments_and_count_only_launches():
         K.plain_cumsum(x.long())
     with pytest.raises(ValueError):
         K.plain_cumsum(x[::2])
-    with pytest.raises(ValueError):
-        K.plain_cumsum(x.reshape(2, 5))
+    with pytest.raises(ValueError):     # lanes are [B, n]: no third axis
+        K.plain_cumsum(x.reshape(1, 2, 5))
     with pytest.raises(ValueError):
         K.segment_reduce_sorted(x, x, off, 2, "mul")
     with pytest.raises(TypeError):
