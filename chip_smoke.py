@@ -1312,9 +1312,13 @@ def lane_kernel_records(torch, K, inputs, b, smi):
         log(f"  {name} at [{b}, E]: kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, {b} x the 1-D kernel on one row "
             f"{r['one_ms']:.3f} ms, bound {bound:.3f} ms ({r['bytes'] / 1e6:.1f}"
-            f" MB at 3.35 TB/s; {bound / r['ms']:.0%} of it), one PyTorch "
+            f" MB at 3.35 TB/s), one PyTorch "
             "call " + ("none" if r["library_ms"] is None
                        else f"{r['library_ms']:.3f} ms") + f" (card: {smi})")
+        log(f"  {name} bound share: {bound / r['ms']:.1%} ({bound:.3f} of "
+            f"{r['ms']:.3f} ms)")
+        check(r["ms"] <= r["plain_ms"], f"{name} at [{b}, E] no slower than "
+              f"its plain version ({r['ms']:.3f} <= {r['plain_ms']:.3f} ms)")
     return recs
 
 

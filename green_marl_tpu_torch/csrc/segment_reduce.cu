@@ -98,17 +98,10 @@
 // result on its own 0.05 (each timed by leaving it out).  With the carry put
 // off by a tile and the results leaving together: 0.186-0.190.
 //
-// Lanes: the same launch reduces B rows of values at once, vals [B, n_vals]
-// and out [B, n_out] with one offsets array for all of them (the JAX
-// package's `vmap` over the TPU kernel, which adds a grid axis over the
-// lanes).  The row bounds and the map of empty chunks depend on the offsets
-// alone, so the first launch finds them once for every lane.  The tile
-// kernel walks (lane, tile) work items, lane-major, with one status word
-// each: the work of a lane is that of the one-row launch on its row, tile
-// for tile, so float32 add gives each lane the bits the one-row launch
-// gives it.  The lane enters only where an item starts (its row of vals,
-// out and status), never the slot walk.  A look-back never leaves its
-// lane: tile 0 of every lane publishes state 2.
+// Lanes: vals [B, n_vals] and out [B, n_out] with one offsets array for all
+// of them go to a kernel of their own (segment_reduce_lanes_kernel below),
+// which shares the row-bounds launch and gives each lane the bits of the
+// one-row launch on its row.
 //
 // Empty segments and rows v >= n_seg get the op's identity: 0, INT32_MAX,
 // INT32_MIN for int32 and 0, +inf, -inf for float32.  Slots outside
@@ -256,9 +249,7 @@ constexpr int kOffBuf = kRowChunk + 1;
 constexpr size_t kSmemBytes =
     (size_t)(2 * kTile + kTile + 2 * kOffBuf + kRowChunk + kTile / 32) * 4;
 
-// Work item `item` is tile item % n_tiles of lane item / n_tiles (with
-// kLanes false there is one lane and the item is the tile).
-template <typename T, int OP, bool kVec, bool kLanes>
+template <typename T, int OP, bool kVec>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
                       const int32_t* __restrict__ offsets, int64_t n_seg,
@@ -266,7 +257,7 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
                       uint64_t* __restrict__ status,
                       const int64_t* __restrict__ tile_rows,
                       const int64_t* __restrict__ run_end,
-                      int64_t n_tiles, int64_t n_lanes) {
+                      int64_t n_tiles) {
   typedef Red<T, OP> R;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const s_vals = reinterpret_cast<T*>(smem);  // [2][kTile], phys_vec order
@@ -282,44 +273,32 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
   const int lane = t & 31;
   const int warp = t >> 5;
 
-  // rows n_seg..n_out-1 of every lane: the identity, shared out over the
-  // blocks
-  const int64_t pad = n_out - n_seg;
-  for (int64_t k = (int64_t)blockIdx.x * kThreads + t; k < pad * n_lanes;
-       k += (int64_t)gridDim.x * kThreads)
-    out[kLanes ? k / pad * n_out + n_seg + k % pad : n_seg + k] = R::ident();
-  const int64_t n_items = kLanes ? n_tiles * n_lanes : n_tiles;
-  // the tile of a work item within its lane, and where its lane's row of
-  // out starts
-  auto tile_of = [&](int64_t item) -> int64_t {
-    return kLanes ? item % n_tiles : item;
-  };
-  auto out_row = [&](int64_t item) -> int64_t {
-    return kLanes ? item / n_tiles * n_out : 0;
-  };
+  // rows n_seg..n_out-1: the identity, shared out over the blocks
+  for (int64_t v = n_seg + (int64_t)blockIdx.x * kThreads + t; v < n_out;
+       v += (int64_t)gridDim.x * kThreads)
+    out[v] = R::ident();
 
   if (t < kTile / 32) s_ends[t] = 0;
   // the slots that belong to any row at all: [lo, hi)
   const int64_t lo = offsets[0];
   const int64_t hi = offsets[n_seg];
 
-  // Requests work item `item`'s values and the offsets of its first
-  // kRowChunk rows [r0, r1) into buffer b; returns where the row that is
-  // still open at the tile's end starts (the tile's end if there is none).
-  auto request = [&](int64_t item, int64_t r0, int64_t r1, int b) -> int64_t {
-    const int64_t ts = tile_of(item) * kTile;
-    const T* const lv = kLanes ? vals + item / n_tiles * n_vals : vals;
+  // Requests tile `tile`'s values and the offsets of its first kRowChunk
+  // rows [r0, r1) into buffer b; returns where the row that is still open
+  // at the tile's end starts (the tile's end if there is none).
+  auto request = [&](int64_t tile, int64_t r0, int64_t r1, int b) -> int64_t {
+    const int64_t ts = tile * kTile;
 #pragma unroll
     for (int r = 0; r < kVecs; ++r) {
       const int vec = r * kThreads + t;          // coalesced over the threads
       const int64_t i = ts + 4 * vec;
       T* dst = s_vals + b * kTile + 4 * phys_vec(vec / kVecs, vec % kVecs);
       if (kVec && i + 4 <= n_vals) {
-        cp_async16(dst, lv + i);
+        cp_async16(dst, vals + i);
       } else {
 #pragma unroll
         for (int m = 0; m < 4; ++m)
-          if (i + m < n_vals) dst[m] = lv[i + m];
+          if (i + m < n_vals) dst[m] = vals[i + m];
       }
     }
     const int rows0 = (int)(r1 - r0 < kRowChunk ? r1 - r0 : kRowChunk);
@@ -328,44 +307,41 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     return r1 < n_seg ? (int64_t)offsets[r1] : ts + kTile;
   };
 
-  // Block b takes work items b, b + G, b + 2G, ... of a grid of G blocks
-  // (`tile` below counts items).  While it works on one, the next one's
-  // values and offsets are on their way into the other buffer and the row
-  // bounds of the one after are being read, so that no tile starts with a
-  // chain of dependent loads.
+  // Block b takes tiles b, b + G, b + 2G, ... of a grid of G blocks.  While
+  // it works on one, the next one's values and offsets are on their way
+  // into the other buffer and the row bounds of the one after are being
+  // read, so that no tile starts with a chain of dependent loads.
   const int64_t stride = gridDim.x;
   int64_t tile = blockIdx.x, next = tile + stride;
   int64_t r0 = 0, r1 = 0, r0n = 0, r1n = 0, open_at = 0;
-  if (tile < n_items) {
-    r0 = tile_rows[tile_of(tile)];
-    r1 = tile_rows[tile_of(tile) + 1];
+  if (tile < n_tiles) {
+    r0 = tile_rows[tile];
+    r1 = tile_rows[tile + 1];
     open_at = request(tile, r0, r1, 0);
   }
   cp_async_commit();
-  if (next < n_items) {
-    r0n = tile_rows[tile_of(next)];
-    r1n = tile_rows[tile_of(next) + 1];
+  if (next < n_tiles) {
+    r0n = tile_rows[next];
+    r1n = tile_rows[next + 1];
   }
   // The cut first row of a tile waits for its carry until the block has done
   // its next tile: by then the tiles before it have published, and their
   // status words, read at that tile's start, have long arrived.
   int64_t cut_tile = -1, cut_row = 0;
-  for (unsigned k = 0; tile < n_items; ++k) {
+  for (unsigned k = 0; tile < n_tiles; ++k) {
     const int b = k & 1;
     const int64_t after = next + stride;
     int64_t r0a = 0, r1a = 0, open_n = 0;
-    if (after < n_items) {
-      r0a = tile_rows[tile_of(after)];
-      r1a = tile_rows[tile_of(after) + 1];
+    if (after < n_tiles) {
+      r0a = tile_rows[after];
+      r1a = tile_rows[after + 1];
     }
-    if (next < n_items) open_n = request(next, r0n, r1n, b ^ 1);
+    if (next < n_tiles) open_n = request(next, r0n, r1n, b ^ 1);
     cp_async_commit();
     cp_async_wait<1>();                          // this tile's requests
     __syncthreads();
 
-    const int64_t ts = tile_of(tile) * kTile;    // the tile's slots: [ts, te)
-    const int64_t row0 = out_row(tile);          // the lane's row of out
-    T* const out_l = out + row0;
+    const int64_t ts = tile * kTile;             // the tile's slots: [ts, te)
     const T* const v_tile = s_vals + b * kTile;
     int32_t* const off = s_off + b * kOffBuf;
     // the row cut by the tile's start (it ends here, so r0 < r1)
@@ -373,7 +349,7 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     // few rows (the rule): their results meet in shared memory and leave
     // together, coalesced; else each goes to memory on its own
     const bool few = r1 - r0 <= kRowChunk;
-    T* const dst = few ? s_out : out_l + r0;
+    T* const dst = few ? s_out : out + r0;
     T cut_part = R::ident();
     uint64_t cut_word = 0;
     if (warp == 1 && cut_tile >= 0) {
@@ -511,14 +487,14 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
       __syncthreads();
       const int rows = (int)(r1 - r0);
       for (int i = t + (head ? 1 : 0); i < rows; i += kThreads)
-        out_l[r0 + i] = s_out[i];
+        out[r0 + i] = s_out[i];
     }
     if (warp == 1 && cut_tile >= 0) {
       const T carry = gm::look_back<R>(status, cut_tile, lane, cut_word);
       if (lane == 0) out[cut_row] = R::apply(carry, cut_part);
     }
     cut_tile = head ? tile : -1;
-    cut_row = row0 + r0;
+    cut_row = r0;
     tile = next;
     r0 = r0n;
     r1 = r1n;
@@ -535,37 +511,481 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
   }
 }
 
-template <typename T, int OP, bool kVec, bool kLanes>
+// ---------------------------------------------------------------------------
+// Lanes: vals [B, n_vals] and out [B, n_out] with one offsets array for all
+// of them (the JAX package's `vmap` over the TPU kernel, which adds a grid
+// axis over the lanes).  Bound on an H100: device-memory bandwidth, B x
+// (4 bytes a value and 4 a result) and the offsets once: 4,742 MB at
+// [16, E_pad] of the LiveJournal-scale graph, 1.416 ms at 3.35 TB/s.  The
+// one-row tile kernel over (lane, tile) work items, lane-major, redid the
+// row pass of every tile for every lane and spilled at its register cap:
+// 3.26 ms.  So a kernel of its own, tile-major with the lanes inside: a
+// block takes a tile, goes over its rows once, and then reduces the tile's
+// slots for every lane in turn.
+//   - What does not depend on the lane is found once a tile: the row pass
+//     (row-end bits, row numbers, empty rows, the jumps over runs of empty
+//     chunks), and each thread's row-end mask and slot mask, kept in
+//     registers.  For each lane only the values come in again.
+//   - The values stream into a ring of kStages shared-memory stages, one
+//     lane's tile (16 KB) a stage, by the Tensor Memory Accelerator's 1-D
+//     bulk copy with an mbarrier a stage.  Thread 0 starts the copy of work
+//     item k + kStages as soon as every thread has taken item k's values
+//     into registers, so the next lanes' bytes arrive while the current
+//     lane is walked and scanned.  A stage lies as in memory; a thread reads
+//     its four 16-byte vectors rotated by (t / 2) % 4, so eight neighbouring
+//     threads hit eight distinct bank groups, and puts them back in order in
+//     registers.  Values that are not 16-byte aligned, or rows whose length
+//     is not a multiple of 4, take 4-byte loads straight into registers.
+//   - The slot walk, the block scan and the cut-row look-back are the 1-D
+//     kernel's, with the same tile, slot split, scan tree and order, so
+//     each lane gets the bits of the 1-D launch on its row.  Each (lane,
+//     tile) has its status word; a look-back never leaves its lane.  The
+//     part of a lane's cut first row waits in out itself, and the row is
+//     finished while the block walks the same lane of its next tile.
+//   - Blocks are split into lane groups when the tiles are fewer than the
+//     blocks the card holds: group g takes a contiguous share of the lanes.
+// A block waits only for lower tiles of the same lane, and the grid is
+// cooperative, so the lowest unfinished tile of a lane never waits.
+//
+// One barrier a lane: a lane's results of a tile of few rows leave shared
+// memory after the next lane's barrier, so they take one of three buffers
+// in turn, and the warps' totals one of two.
+//
+// Shared memory of one block: kStages stages of values, the row numbers,
+// one load of offsets, kOutBufs buffers of the rows' results, the row-end
+// bits: 73 KB at kStages = 3, so three blocks an SM (228 KB), and 80
+// registers a thread.  Measured on an NVIDIA H100 80GB HBM3 at 700 W at
+// the LiveJournal-scale pull shape, float32 add at [16, E_pad] (PERF.md):
+// 3 blocks of 3 stages 1.94-1.95 ms; with two barriers a lane and the cut
+// row's part read back from out at its look-back 2.20; the same with 4
+// blocks of 2 stages (64 registers, 40-52 bytes spilled) 2.06, with the
+// part read ahead 1.99-2.00; 2 blocks of 5 stages 2.81; without the
+// look-back (wrong results) 1.90.  `nvcc -Xptxas -v` at 80 registers: the
+// bulk-copy forms of float32 add and int32 min/max spill 12 bytes, the
+// 4-byte-load forms of float32 4-16; a form that spilled 0-16 bytes (the
+// last lane's results out after one more barrier a tile, the slot bounds
+// in 32 bits) took 1.98 against this one's 1.93-1.94 in turns.
+constexpr int kLaneBlocksPerSM = 3;
+constexpr int kStages = 3;
+constexpr int kOutBufs = 3;
+constexpr size_t kLaneSmemBytes =
+    (size_t)(kStages * kTile + kTile + kOffBuf + kOutBufs * kRowChunk +
+             kTile / 32) *
+    4;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, from and to 16-byte aligned addresses) from
+// global to shared memory by the TMA; completes on the barrier
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <typename T, int OP, bool kTma>
+__global__ void __launch_bounds__(kThreads, kLaneBlocksPerSM)
+segment_reduce_lanes_kernel(const T* __restrict__ vals, int64_t n_vals,
+                            const int32_t* __restrict__ offsets,
+                            int64_t n_seg, int64_t n_out, T* __restrict__ out,
+                            uint64_t* __restrict__ status,
+                            const int64_t* __restrict__ tile_rows,
+                            const int64_t* __restrict__ run_end,
+                            int64_t n_tiles, int64_t n_lanes,
+                            int64_t lanes_per_group) {
+  typedef Red<T, OP> R;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* const s_ring = reinterpret_cast<T*>(smem);  // [kStages][kTile]
+  // s_row[k]: the row that ends at slot k, counted from the tile's first row
+  int32_t* const s_row = reinterpret_cast<int32_t*>(s_ring + kStages * kTile);
+  int32_t* const s_off = s_row + kTile;                      // [kOffBuf]
+  T* const s_out = reinterpret_cast<T*>(s_off + kOffBuf);    // [kOutBufs][kRowChunk]
+  unsigned* const s_ends =
+      reinterpret_cast<unsigned*>(s_out + kOutBufs * kRowChunk);
+  __shared__ __align__(8) uint64_t s_full[kStages];
+  // the warps' totals, two sets: a lane's are read while the next lane's
+  // are written
+  __shared__ int s_wf[2][kWarps];
+  __shared__ T s_wv[2][kWarps];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+
+  // rows n_seg..n_out-1 of every lane: the identity, shared out over the
+  // blocks
+  const int64_t pad = n_out - n_seg;
+  for (int64_t k = (int64_t)blockIdx.x * kThreads + t; k < pad * n_lanes;
+       k += (int64_t)gridDim.x * kThreads)
+    out[k / pad * n_out + n_seg + k % pad] = R::ident();
+
+  // the block's lanes [l0, l1) and tiles first, first + stride, ...
+  const int64_t n_groups = (n_lanes + lanes_per_group - 1) / lanes_per_group;
+  const int64_t stride = gridDim.x / n_groups;
+  const int64_t group = blockIdx.x / stride;
+  const int64_t first = blockIdx.x % stride;
+  const int64_t l0 = group * lanes_per_group;
+  const int64_t l1 = l0 + lanes_per_group < n_lanes ? l0 + lanes_per_group
+                                                    : n_lanes;
+  const int64_t nl = group < n_groups && l0 < l1 ? l1 - l0 : 0;
+  const int64_t my_tiles =
+      nl > 0 && first < n_tiles ? (n_tiles - 1 - first) / stride + 1 : 0;
+  // work item k: lane l0 + k % nl of the block's tile k / nl
+  const int64_t n_items = my_tiles * nl;
+
+  // Thread 0 starts the copy of work item k into stage k % kStages.
+  auto start_copy = [&](int64_t k) {
+    const int64_t ts = (first + k / nl * stride) * kTile;
+    const int64_t l = l0 + k % nl;
+    const int s = (int)(k % kStages);
+    const int64_t n = n_vals - ts < kTile ? n_vals - ts : kTile;
+    const unsigned bytes = n > 0 ? (unsigned)(n * sizeof(T)) : 0u;
+    mbar_expect_tx(&s_full[s], bytes);
+    if (bytes) bulk_copy(s_ring + s * kTile, vals + l * n_vals + ts, bytes,
+                         &s_full[s]);
+  };
+  if (kTma && t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&s_full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (t < kTile / 32) s_ends[t] = 0;
+  __syncthreads();
+  if (kTma && t == 0)
+    for (int64_t k = 0; k < kStages && k < n_items; ++k) start_copy(k);
+
+  // the slots that belong to any row at all: [lo, hi)
+  const int64_t lo = offsets[0];
+  const int64_t hi = offsets[n_seg];
+  const int base = kPer * t;
+  const int rot = (t >> 1) & (kVecs - 1);
+
+  // A lane's results of a tile of few rows leave shared memory after the
+  // next lane's barrier (or the next tile's first one): the rows [r0, r0 +
+  // out_rows) of lane out_lane from stage out_buf, the cut first row left
+  // out.
+  int64_t out_lane = -1, out_r0 = 0;
+  int out_rows = 0, out_buf = 0, out_from = 0;
+  auto copy_out = [&]() {
+    if (out_lane >= 0) {
+      const T* const src = s_out + out_buf * kRowChunk;
+      T* const o = out + out_lane * n_out + out_r0;
+      for (int i = t + out_from; i < out_rows; i += kThreads) o[i] = src[i];
+      out_lane = -1;
+    }
+  };
+
+  int64_t item = 0;
+  // the cut first row of the block's last tile, finished lane by lane
+  // while the block walks its next tile
+  int64_t cut_tile = -1, cut_row = 0;
+  for (int64_t tile = first; nl > 0 && tile < n_tiles; tile += stride) {
+    const int64_t ts = tile * kTile;
+    const int64_t r0 = tile_rows[tile];
+    const int64_t r1 = tile_rows[tile + 1];
+    // where the row still open at the tile's end starts
+    const int64_t open_at = r1 < n_seg ? (int64_t)offsets[r1] : ts + kTile;
+    const bool few = r1 - r0 <= kRowChunk;
+    // the row cut by the tile's start (it ends here, so r0 < r1)
+    const bool head = r0 < r1 && (int64_t)offsets[r0] < ts;
+    __syncthreads();               // the last tile's s_row, s_off, s_out
+    copy_out();                    // its last lane's results
+
+    // 1. by rows, once for every lane: an empty row gets the identity; any
+    //    other marks the slot where it ends
+    for (int64_t c = r0; c < r1;) {
+      const int rows = (int)(r1 - c < kRowChunk ? r1 - c : kRowChunk);
+      if (c != r0) __syncthreads();              // s_off is read by the last
+      for (int i = t; i <= rows; i += kThreads) s_off[i] = offsets[c + i];
+      __syncthreads();
+      if (!few && rows == kRowChunk && s_off[0] == s_off[rows]) {
+        // 512 empty rows: as in the 1-D kernel, jump over the run's whole
+        // chunks (tile_rows_kernel wrote them for every lane)
+        const int64_t k = (c + kRowChunk - 1) / kRowChunk;
+        const int64_t e0 = k > 0 ? run_end[k - 1] : 0;
+        const int64_t e = e0 > 0 ? e0 : run_end[k];
+        if (e > 0) {
+          if (e0 == 0)
+            for (int64_t l = l0; l < l1; ++l)
+              for (int64_t v = c + t; v < k * kRowChunk; v += kThreads)
+                out[l * n_out + v] = R::ident();
+          c = e < r1 ? e : r1;
+          continue;
+        }
+      }
+      for (int i = t; i < rows; i += kThreads) {
+        const int a = (int)((int64_t)s_off[i] - ts);
+        const int end = (int)((int64_t)s_off[i + 1] - ts) - 1;
+        if (end < a) {
+          if (few) {
+#pragma unroll
+            for (int b = 0; b < kOutBufs; ++b)
+              s_out[b * kRowChunk + c - r0 + i] = R::ident();
+          } else {
+            for (int64_t l = l0; l < l1; ++l)
+              out[l * n_out + c + i] = R::ident();
+          }
+        } else {
+          atomicOr(&s_ends[end >> 5], 1u << (end & 31));
+          s_row[end] = (int32_t)(c - r0 + i);
+        }
+      }
+      c += rows;
+    }
+    __syncthreads();
+    // what each thread keeps for every lane: where its rows end, and
+    // whether some of its slots lie outside every row
+    const unsigned ends = (s_ends[base >> 5] >> (base & 31)) &
+                          (kPer == 32 ? ~0u : (1u << kPer) - 1u);
+    const bool edge = ts + base < lo || ts + base + kPer > hi;
+
+    // 2. by lanes: the 1-D kernel's slot walk and scan on each lane's values
+    int buf = 0;                   // the lane's stage of results
+    for (int64_t l = l0; l < l1; ++l, ++item) {
+      T* const out_l = out + l * n_out;
+      uint64_t* const st_l = status + l * n_tiles;
+      T* const dst = few ? s_out + buf * kRowChunk : out_l + r0;
+      // warp 1 finishes the cut row of the block's last tile in this lane:
+      // its part (left in out) and the status words before it, read now
+      uint64_t cut_word = 0;
+      T cut_part = R::ident();
+      if (warp == 1 && cut_tile >= 0) {
+        if (cut_tile - 1 - lane >= 0)
+          cut_word = gm::load_status(st_l + cut_tile - 1 - lane);
+        if (lane == 0) cut_part = out_l[cut_row];
+      }
+      T x[kPer];
+      if (kTma) {
+        const int s = (int)(item % kStages);
+        mbar_wait(&s_full[s], (unsigned)(item / kStages) & 1u);
+        const T* const v_tile = s_ring + s * kTile + base;
+        uint4 v[kVecs];            // v[m]: vector (m + rot) % kVecs
+#pragma unroll
+        for (int m = 0; m < kVecs; ++m)
+          v[m] = *reinterpret_cast<const uint4*>(
+              v_tile + 4 * ((m + rot) & (kVecs - 1)));
+#pragma unroll
+        for (int r = 1; r < kVecs; r <<= 1) {
+          if (rot & r) {           // rotate right by r
+            uint4 w[kVecs];
+#pragma unroll
+            for (int m = 0; m < kVecs; ++m) w[m] = v[(m - r) & (kVecs - 1)];
+#pragma unroll
+            for (int m = 0; m < kVecs; ++m) v[m] = w[m];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kVecs; ++m) {
+          x[4 * m + 0] = gm::from_bits<T>(v[m].x);
+          x[4 * m + 1] = gm::from_bits<T>(v[m].y);
+          x[4 * m + 2] = gm::from_bits<T>(v[m].z);
+          x[4 * m + 3] = gm::from_bits<T>(v[m].w);
+        }
+      } else {
+        const T* const lv = vals + l * n_vals + ts + base;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          x[j] = ts + base + j < n_vals ? lv[j] : R::ident();
+      }
+      if (edge) {                  // slots of no row
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (ts + base + j < lo || ts + base + j >= hi) x[j] = R::ident();
+      }
+      int f = 0;                   // a row ended among my slots
+      T first_part = R::ident();   // my slots up to the first end
+      int first_row = 0;
+      T acc = R::ident();
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        acc = R::apply(acc, x[j]);
+        if ((ends >> j) & 1) {
+          const int32_t row = s_row[base + j];
+          if (f) {
+            dst[row] = acc;
+          } else {
+            first_part = acc;
+            first_row = row;
+            f = 1;
+          }
+          acc = R::ident();
+        }
+      }
+
+      // exclusive scan of the threads' (f, acc) pairs over the block
+      int wf = f;
+      T wv = acc;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int yf = __shfl_up_sync(kFull, wf, s);
+        const T yv = __shfl_up_sync(kFull, wv, s);
+        if (lane >= s) combine<R>(yf, yv, wf, wv);
+      }
+      const int wb = (int)(l & 1);
+      if (lane == 31) {
+        s_wf[wb][warp] = wf;
+        s_wv[wb][warp] = wv;
+      }
+      int ef = __shfl_up_sync(kFull, wf, 1);
+      T ev = __shfl_up_sync(kFull, wv, 1);
+      if (lane == 0) {
+        ef = 0;
+        ev = R::ident();
+      }
+      // every thread holds this item's values, and the last lane's
+      // results are all in shared memory
+      __syncthreads();
+      copy_out();
+      if (l == l0 && t < kTile / 32) s_ends[t] = 0;   // for the next tile
+      int pf = 0;
+      T pv = R::ident();
+      for (int w = 0; w < (t == 0 ? kWarps : warp); ++w) {
+        int nf = s_wf[wb][w];
+        T nv = s_wv[wb][w];
+        combine<R>(pf, pv, nf, nv);
+        pf = nf;
+        pv = nv;
+      }
+      if (t == 0) {
+        if (kTma && item + kStages < n_items) {
+          // the stage is free: its values are in registers
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          start_copy(item + kStages);
+        }
+        gm::store_status(st_l + tile,
+                         (open_at < ts ? gm::kState1 : gm::kState2) |
+                             gm::to_bits(pv));
+        pf = 0;
+        pv = R::ident();
+      }
+      combine<R>(pf, pv, ef, ev);  // (ef, ev): everything before my slots
+      if (f) {
+        const T whole = R::apply(ev, first_part);
+        if (ef || !head) dst[first_row] = whole;
+        else out_l[r0] = whole;    // the cut row's part, until its carry
+      }
+      if (few) {
+        out_lane = l;
+        out_r0 = r0;
+        out_rows = (int)(r1 - r0);
+        out_buf = buf;
+        out_from = head ? 1 : 0;
+        buf = buf + 1 < kOutBufs ? buf + 1 : 0;
+      }
+      if (warp == 1 && cut_tile >= 0) {
+        const T carry = gm::look_back<R>(st_l, cut_tile, lane, cut_word);
+        if (lane == 0) out_l[cut_row] = R::apply(carry, cut_part);
+      }
+    }
+    cut_tile = head ? tile : -1;
+    cut_row = r0;
+  }
+  __syncthreads();                 // the last results, the cut row's parts
+  copy_out();
+  if (cut_tile >= 0) {
+    for (int64_t l = l0 + warp; l < l1; l += kWarps) {
+      const T carry = gm::look_back<R>(status + l * n_tiles, cut_tile, lane);
+      if (lane == 0)
+        out[l * n_out + cut_row] = R::apply(carry, out[l * n_out + cut_row]);
+    }
+  }
+}
+
+// Blocks the card holds at once of `kernel` with `smem` bytes each.
+cudaError_t resident_blocks(const void* kernel, size_t smem, int* resident) {
+  if (*resident > 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1 || sms < 1) return cudaErrorLaunchOutOfResources;
+  *resident = per_sm * sms;
+  return cudaSuccess;
+}
+
+// A cooperative launch: the runtime starts the grid only when all of its
+// blocks fit on the card together, or refuses it.  A block that waits for a
+// tile's status word thus never waits for a block that is not running.
+template <typename T, int OP, bool kVec>
 cudaError_t launch_tiles(const T* vals, int64_t n_vals,
                          const int32_t* offsets, int64_t n_seg, int64_t n_out,
                          T* out, uint64_t* status, const int64_t* rows,
                          const int64_t* run_end, int64_t n_tiles,
-                         int64_t n_lanes, cudaStream_t stream) {
-  auto kernel = segment_reduce_kernel<T, OP, kVec, kLanes>;
-  static int resident = 0;         // blocks the card holds at once
-  if (resident == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (e != cudaSuccess) return e;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, kSmemBytes);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1 || sms < 1) return cudaErrorLaunchOutOfResources;
-    resident = per_sm * sms;
-  }
-  // A cooperative launch: the runtime starts the grid only when all of its
-  // blocks fit on the card together, or refuses it.  A block that waits for
-  // a tile's status word thus never waits for a block that is not running.
-  const int64_t items = n_tiles * n_lanes;
-  const int64_t blocks = items < resident ? items : resident;
-  void* args[] = {&vals,    &n_vals,  &offsets, &n_seg,   &n_out,  &out,
-                  &status,  &rows,    &run_end, &n_tiles, &n_lanes};
+                         cudaStream_t stream) {
+  auto kernel = segment_reduce_kernel<T, OP, kVec>;
+  static int resident = 0;
+  cudaError_t e = resident_blocks((const void*)kernel, kSmemBytes, &resident);
+  if (e != cudaSuccess) return e;
+  const int64_t blocks = n_tiles < resident ? n_tiles : resident;
+  void* args[] = {&vals,   &n_vals, &offsets, &n_seg,   &n_out,
+                  &out,    &status, &rows,    &run_end, &n_tiles};
   return cudaLaunchCooperativeKernel((const void*)kernel,
                                      dim3((unsigned)blocks), dim3(kThreads),
                                      args, kSmemBytes, stream);
+}
+
+template <typename T, int OP, bool kTma>
+cudaError_t launch_lane_tiles(const T* vals, int64_t n_vals,
+                              const int32_t* offsets, int64_t n_seg,
+                              int64_t n_out, T* out, uint64_t* status,
+                              const int64_t* rows, const int64_t* run_end,
+                              int64_t n_tiles, int64_t n_lanes,
+                              cudaStream_t stream) {
+  auto kernel = segment_reduce_lanes_kernel<T, OP, kTma>;
+  static int resident = 0;
+  cudaError_t e =
+      resident_blocks((const void*)kernel, kLaneSmemBytes, &resident);
+  if (e != cudaSuccess) return e;
+  // fewer tiles than the card holds blocks: the lanes split into groups
+  int64_t groups = resident / n_tiles;
+  groups = groups < 1 ? 1 : groups > n_lanes ? n_lanes : groups;
+  int64_t per_group = (n_lanes + groups - 1) / groups;
+  groups = (n_lanes + per_group - 1) / per_group;
+  const int64_t tiles = n_tiles < resident / groups ? n_tiles
+                                                    : resident / groups;
+  const int64_t blocks = tiles * groups;
+  void* args[] = {&vals,    &n_vals,  &offsets, &n_seg,
+                  &n_out,   &out,     &status,  &rows,
+                  &run_end, &n_tiles, &n_lanes, &per_group};
+  return cudaLaunchCooperativeKernel((const void*)kernel,
+                                     dim3((unsigned)blocks), dim3(kThreads),
+                                     args, kLaneSmemBytes, stream);
 }
 
 template <typename T, int OP>
@@ -587,27 +1007,25 @@ int launch(const void* vals, int64_t n_lanes, int64_t n_vals,
                                                    n_out, n_lanes);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  // 16-byte loads need every lane's row aligned
+  // 16-byte loads and bulk copies need every lane's row aligned
   const bool vec =
       (uintptr_t)vals % 16 == 0 && (n_lanes == 1 || n_vals % 4 == 0);
   const T* v = (const T*)vals;
   T* o = (T*)out;
   if (n_lanes == 1)
-    e = vec ? launch_tiles<T, OP, true, false>(v, n_vals, offsets, n_seg,
-                                               n_out, o, status, rows,
-                                               run_end, n_tiles, 1, stream)
-            : launch_tiles<T, OP, false, false>(v, n_vals, offsets, n_seg,
-                                                n_out, o, status, rows,
-                                                run_end, n_tiles, 1, stream);
+    e = vec ? launch_tiles<T, OP, true>(v, n_vals, offsets, n_seg, n_out, o,
+                                        status, rows, run_end, n_tiles,
+                                        stream)
+            : launch_tiles<T, OP, false>(v, n_vals, offsets, n_seg, n_out, o,
+                                         status, rows, run_end, n_tiles,
+                                         stream);
   else
-    e = vec ? launch_tiles<T, OP, true, true>(v, n_vals, offsets, n_seg,
-                                              n_out, o, status, rows,
-                                              run_end, n_tiles, n_lanes,
-                                              stream)
-            : launch_tiles<T, OP, false, true>(v, n_vals, offsets, n_seg,
-                                               n_out, o, status, rows,
-                                               run_end, n_tiles, n_lanes,
-                                               stream);
+    e = vec ? launch_lane_tiles<T, OP, true>(v, n_vals, offsets, n_seg, n_out,
+                                             o, status, rows, run_end,
+                                             n_tiles, n_lanes, stream)
+            : launch_lane_tiles<T, OP, false>(v, n_vals, offsets, n_seg,
+                                              n_out, o, status, rows, run_end,
+                                              n_tiles, n_lanes, stream);
   return (int)e;
 }
 

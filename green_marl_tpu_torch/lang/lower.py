@@ -2206,7 +2206,7 @@ class Lowerer:
             raise LowerError(f"unbound collection {it.source}")
         kind = self.collections.get(it.source)
         if (self._traced(coll) if kind == "NSET"
-                else self._concrete is not None):
+                else self._concrete is not None or LN.lanes_of(coll)):
             raise LowerError("collection iteration inside a traced loop "
                              "(items are data-dependent)")
         if kind == "NSET":
@@ -2587,41 +2587,6 @@ def _bind_collection(kind: str, val, g: Graph):
     return order
 
 
-def _host_eager_constructs(proc: A.Procedure) -> List[str]:
-    """The constructs that run on the host one element at a time: a DFS,
-    a While driven by a map, a loop over collection items.  A map declared
-    inside a parallel loop is a per-node histogram on the device
-    (communities.gm) and drives nothing on the host."""
-    maps = set()
-
-    def decl(n):
-        if isinstance(n, A.VarDecl) and n.type.kind == "MAP":
-            maps.update(n.names)
-        elif isinstance(n, A.Foreach) and n.iterator.iter_type != "ITEMS":
-            return          # the maps of its body are histograms
-        for f in dataclasses.fields(n) if dataclasses.is_dataclass(n) \
-                else ():
-            v = getattr(n, f.name)
-            for x in (v if isinstance(v, (list, tuple)) else [v]):
-                if dataclasses.is_dataclass(x) and not isinstance(x, type):
-                    decl(x)
-    decl(proc.body)
-    found = []
-
-    def scan(n):
-        if isinstance(n, A.BFS) and not n.is_bfs:
-            found.append("InDFS")
-        elif isinstance(n, A.Foreach) and n.iterator.iter_type == "ITEMS":
-            found.append("collection Items loop")
-        elif isinstance(n, A.While) and _any_node(
-                [n.cond, n.body], lambda x: (
-                    isinstance(x, A.MapAccess) and x.map_name in maps)
-                or (isinstance(x, A.Builtin) and x.driver in maps)):
-            found.append("map-driven While")
-    _walk_ast(proc.body, scan)
-    return found
-
-
 def _lane_leading(x, b: int) -> torch.Tensor:
     """An output of a batched run with its lane axis leading, as
     ``vmap``'s ``out_axes=0`` gives it: a lane scalar [B, 1] becomes [B], an
@@ -2725,10 +2690,12 @@ class CompiledProc:
         lane-batched kernels.  A predicate that depends on the lanes
         counts as traced: an ``If`` on it runs both branches, a ``While``
         on it runs while any lane's holds (a lane whose predicate is false
-        keeps its state), a host read of it raises ``LowerError``, as JAX
-        refuses it.  Returns the usual output dict, every value with a
-        leading lane axis.  Programs with host-eager constructs (DFS,
-        map-driven While loops, collection Items loops) cannot batch.
+        keeps its state), a host read of it raises ``LowerError`` ("...
+        cannot batch"), as JAX refuses it.  A host-eager construct (a DFS,
+        a collection Items loop, a priority-map While) whose host reads do
+        not depend on the lanes runs once for every lane, as under JAX's
+        ``vmap``.  Returns the usual output dict, every value with a
+        leading lane axis.
 
         Example::
 
@@ -2741,15 +2708,16 @@ class CompiledProc:
         if not vals or any(v.dim() == 0 or v.shape[0] != vals[0].shape[0]
                            for v in vals):
             raise ValueError("over= arrays must share a leading dim")
-        eager = _host_eager_constructs(self.proc)
-        if eager:
-            raise LowerError(f"{eager[0]} runs on the host and cannot "
-                             "batch")
         b = int(vals[0].shape[0])
         kw = dict(fixed)
         kw.update({n: LN.mark(v.reshape(b, 1) if v.dim() == 1 else v)
                    for n, v in zip(names, vals)})
-        out = self(g, **kw)
+        try:
+            out = self(g, **kw)
+        except LowerError as e:
+            if "cannot batch" in str(e):
+                raise
+            raise LowerError(f"{e}: cannot batch") from e
         return {k: tree_map(lambda x: _lane_leading(x, b), v)
                 for k, v in out.items()}
 

@@ -278,6 +278,7 @@ def try_priority_while(lw, s: A.While, env) -> bool:
     host-eager replay."""
     from .lower import (EdgeCtx, NodeCtx, _F, _coerce, _identity, _where)
     from ..runtime.collections import DenseNodeMap
+    from ..runtime.lanes import expand_like, take
 
     if lw.axis is not None:
         return False          # sharded mode rejects maps earlier anyway
@@ -309,7 +310,7 @@ def try_priority_while(lw, s: A.While, env) -> bool:
                        inner_var=m.v_var, outer_ids=src_ids,
                        inner_ids=dst_ids, mask=emask, parent=None)
         env2 = dict(env)
-        ds = dist_vec.index_select(0, src_ids)
+        ds = lw._take(dist_vec, src_ids)
         finite = ds < INF_I
         env2[m.dist_var] = torch.where(finite, ds, zero)
         if m.e_var is not None:
@@ -318,13 +319,13 @@ def try_priority_while(lw, s: A.While, env) -> bool:
 
     def relax_vals(dist_vec):
         ectx, env2, finite = edge_env_ctx(dist_vec)
-        val = _coerce(lw.eval(m.relax, env2, ectx), dt).expand(emask.shape)
+        val = expand_like(_coerce(lw.eval(m.relax, env2, ectx), dt), emask)
         return torch.where(emask & finite, val, INF_I)
 
     sdist = _bellman_ford(lw, env, dist0, relax_vals, dst_ids)
 
     destc = lw._a(dest, torch.int32).clamp(0, g.n_pad - 1)
-    d_dest = sdist[destc.long()]
+    d_dest = take(sdist, destc)
     found = d_dest < INF_I
     finite = sdist < INF_I
     nmask = g.node_mask()
@@ -340,27 +341,25 @@ def try_priority_while(lw, s: A.While, env) -> bool:
     # per-target writes at the argmin-winning edge from a settled source
     if m.edge_writes:
         ectx, env2, _fin = edge_env_ctx(sdist)
-        val = _coerce(lw.eval(m.relax, env2, ectx), dt).expand(emask.shape)
+        val = expand_like(_coerce(lw.eval(m.relax, env2, ectx), dt), emask)
         # a relaxation u->v happened iff u was settled while v was not
         # yet (the `!v.Settled` pop-time filter): sdist[u] < sdist[v],
         # or v never settled at all — keeps the root's Parent at NIL
-        s_src = sdist.index_select(0, src_ids)
-        s_dst = sdist.index_select(0, dst_ids)
-        was_open = (s_src < s_dst) | ~settled.index_select(0, dst_ids)
-        active = emask & settled.index_select(0, src_ids) & was_open
+        was_open = (lw._take(sdist, src_ids) < lw._take(sdist, dst_ids)) \
+            | ~lw._take(settled, dst_ids)
+        active = emask & lw._take(settled, src_ids) & was_open
         cand = torch.where(active, val, INF_I)
         best = _seg_min(cand, dst_ids, g)
         touched = best < INF_I
-        win = active & (cand == best.index_select(0, dst_ids))
+        win = active & (cand == lw._take(best, dst_ids))
         win_slot = _argmin_slot(lw, g, win, dst_ids)
         wctx = ectx.with_mask(win)
         for w in m.edge_writes:
             loc, wdt = lw.props[w.lhs.prop]
             key = _F + w.lhs.prop
-            rv = _coerce(lw.eval(w.rhs, env2, wctx), wdt).expand(
-                emask.shape)
+            rv = expand_like(_coerce(lw.eval(w.rhs, env2, wctx), wdt), emask)
             arr = env[key]
-            lw._wr(env, key, _where(touched, rv[win_slot.long()], arr))
+            lw._wr(env, key, _where(touched, take(rv, win_slot), arr))
 
     # exit flags + final map state (settled entries removed; dest and
     # the unsettled frontier remain)

@@ -136,8 +136,11 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     alone.  So int32 and min/max equal the plain version bit for bit, and
     float32 add, which sums in another order than a sequential loop (within
     rounding: rtol 1e-5 against float64 for values of one sign), gives the
-    same bits on every launch.  ``vals`` that is not 16-byte aligned (a
-    view such as ``x[1:]``) is read with 4-byte loads: the same result,
+    same bits on every launch.  Lanes go to a kernel of their own that
+    takes a tile, finds its rows once and walks it for every lane, each
+    lane's values streamed in by TMA bulk copies.  ``vals`` that is not
+    16-byte aligned (a view such as ``x[1:]``), or lanes of a length that
+    is not a multiple of 4, is read with 4-byte loads: the same result,
     more slowly.  The launch is cooperative: it needs a device that
     supports ``cudaLaunchCooperativeKernel``.
     """

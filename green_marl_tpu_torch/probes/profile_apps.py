@@ -44,7 +44,8 @@ SCATTER_KEYS = ("scatter", "index_put", "indexput", "index_copy",
 
 # (group, substrings of the kernel's name, lower case); the first match wins
 GROUPS = (
-    ("segment reduce", ("segment_reduce_kernel", "tile_rows_kernel")),
+    ("segment reduce", ("segment_reduce_kernel", "segment_reduce_lanes_kernel",
+                        "tile_rows_kernel")),
     ("prefix sum", ("scan_kernel",)),
     ("copies and memsets", ("memcpy", "memset")),
     (GATHERS, GATHER_KEYS),

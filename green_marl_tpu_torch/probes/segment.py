@@ -13,9 +13,20 @@ the slab's end), beside its plain version.  Each kernel is first held
 against its plain version.  Times are CUDA events, per call: back-to-back
 launches in groups, the median group and the range over the groups.
 
+``--lanes B`` times the lane-batched segment reduce instead, at the shape a
+batched compiled program gives it: ``[B, E_pad]`` values (float32 add and
+int32 min) over the same offsets, each lane first held against the 1-D
+kernel on its row (bit for bit) and the whole against the plain version,
+then timed beside B launches of the 1-D kernel, the plain version and
+``torch.segment_reduce`` on the ``[E_pad, B]`` transpose (a yardstick: the
+transpose itself is not timed).  ``--ptxas`` prints what ``nvcc -Xptxas
+-v`` says of each segment-reduce kernel (registers, spills, shared
+memory) and exits.
+
 Run on a machine with an NVIDIA GPU, from the root of a checkout::
 
-    python green_marl_tpu_torch/probes/segment.py [--root DIR]
+    python green_marl_tpu_torch/probes/segment.py [--root DIR] [--lanes B]
+    python green_marl_tpu_torch/probes/segment.py --ptxas
 
 ``--root DIR`` takes the package from another checkout (``DIR`` holds
 ``green_marl_tpu_torch/``), so two commits can be timed in turns within one
@@ -150,6 +161,88 @@ def clipped_slab(args, K, record, vals_f, vals_i, offs, n_pad, e_pad):
         parts(K, record, "clipped slab float32 add", vf, off, n_pad)
 
 
+def lanes(args, K, record, offs, n_pad, e_pad):
+    """The lane-batched segment reduce at [B, E_pad]: checked, then timed
+    beside B one-row launches, the plain version and one PyTorch call."""
+    b = args.lanes
+    dev = offs.device
+    gen = torch.Generator(device=dev).manual_seed(LJ_SEED + b)
+    vals_f = torch.rand((b, e_pad), device=dev, generator=gen)
+    vals_i = torch.randint(0, LJ_N, (b, e_pad), device=dev, generator=gen,
+                           dtype=torch.int32)
+    ids = vals_i[0]                                  # shape only
+    in_range = int(offs[-1]) - int(offs[0])
+    nbytes = b * (4 * in_range + 4 * n_pad) + 4 * offs.numel()
+    for what, vals, op in (("float32 add", vals_f, "add"),
+                           ("int32 min", vals_i, "min")):
+        if args.unchecked:
+            med, lo, hi = timed(lambda: K.segment_reduce_sorted(
+                vals, ids, offs, n_pad, op), args.calls, args.groups)
+            record(what=f"lanes {what}: kernel, unchecked", b=b, ms=med,
+                   ms_min=lo, ms_max=hi, bound_ms=nbytes / HBM_BYTES_PER_MS)
+            continue
+        got = K.segment_reduce_sorted(vals, ids, offs, n_pad, op)
+        rows_equal = all(torch.equal(got[r], K.segment_reduce_sorted(
+            vals[r].contiguous(), ids, offs, n_pad, op)) for r in range(b))
+        if op == "add":
+            want = K.segment_reduce_sorted_ref(vals.double(), ids, offs,
+                                               n_pad, op)
+            close = bool(torch.allclose(got.double(), want, rtol=1e-5,
+                                        atol=0.0))
+            err = float((got.double() - want).abs().max())
+        else:
+            want = K.segment_reduce_sorted_ref(vals, ids, offs, n_pad, op)
+            close = bool(torch.equal(got, want))
+            err = float((got - want).abs().max())
+        del want, got
+        assert rows_equal and close, (what, rows_equal, close)
+        record(what=f"lanes {what}: checks", b=b, ok=True,
+               rows_equal_1d=rows_equal, max_abs_err=err)
+        row = vals[0].contiguous()
+        times = [
+            ("kernel", lambda: K.segment_reduce_sorted(vals, ids, offs,
+                                                       n_pad, op), 1),
+            (f"{b} x the 1-D kernel", lambda: K.segment_reduce_sorted(
+                row, ids, offs, n_pad, op), b)]
+        if op == "add":
+            col = vals.t().contiguous()              # [E_pad, B]
+            offs64 = offs.long()
+            times.append(("torch.segment_reduce on the [E_pad, B] transpose",
+                          lambda: torch.segment_reduce(
+                              col, "sum", offsets=offs64, axis=0), 1))
+        for name, fn, mult in times:
+            med, lo, hi = timed(fn, args.calls, args.groups)
+            record(what=f"lanes {what}: {name}", b=b, ms=mult * med,
+                   ms_min=mult * lo, ms_max=mult * hi,
+                   bound_ms=nbytes / HBM_BYTES_PER_MS)
+        med, lo, hi = timed(lambda: K.segment_reduce_sorted_ref(
+            vals, ids, offs, n_pad, op), 1, 3)
+        record(what=f"lanes {what}: plain", b=b, ms=med, ms_min=lo,
+               ms_max=hi, bound_ms=nbytes / HBM_BYTES_PER_MS)
+        if op == "add":
+            del col
+        del row
+
+
+def ptxas(root):
+    """``nvcc -Xptxas -v`` on csrc/segment_reduce.cu with the build's
+    flags: one record per kernel, its registers, spills and shared memory
+    as ptxas prints them."""
+    from green_marl_tpu_torch.ops import _build
+    src = os.path.join(root, "green_marl_tpu_torch", "csrc",
+                       "segment_reduce.cu")
+    out = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         os.devnull, src], capture_output=True, text=True, check=True)
+    kernel = None
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("spill" in line or "Used" in line):
+            print(json.dumps({"kernel": kernel, "ptxas": line.strip()}),
+                  flush=True)
+
+
 def main(argv=None):
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -160,10 +253,20 @@ def main(argv=None):
     ap.add_argument("--groups", type=int, default=7)
     ap.add_argument("--parts", action="store_true",
                     help="device time of each launch (torch.profiler)")
+    ap.add_argument("--lanes", type=int, default=0, metavar="B",
+                    help="time the lane-batched form at [B, E_pad]")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="with --lanes: time the kernel alone, without "
+                         "checks (for copies that leave out part of the "
+                         "work)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print nvcc -Xptxas -v for the segment reduce")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probes/segment.py: needs an NVIDIA GPU")
     sys.path.insert(0, os.path.abspath(args.root))
+    if args.ptxas:
+        return ptxas(os.path.abspath(args.root))
     from green_marl_tpu_torch.graph import native
     from green_marl_tpu_torch.ops import kernels as K
 
@@ -194,6 +297,9 @@ def main(argv=None):
            max_len=int(deg.max()), share_under_8=float((deg < 8).mean()),
            share_under_32=float((deg < 32).mean()),
            share_empty=float((deg == 0).mean()))
+    if args.lanes:
+        del ids, vals_f, vals_i
+        return lanes(args, K, record, offs, n_pad, e_pad)
 
     # each kernel against its plain version
     got = K.segment_reduce_sorted(vals_f, ids, offs, n_pad, "add")

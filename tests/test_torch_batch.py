@@ -9,7 +9,9 @@ bit, floats within rtol 1e-6 (a lane's float sums may add in another order
 than JAX's batched reductions).  Each lane must also equal the port's own
 single run on it (floats bit for bit: a lane's reductions are those of the
 single run).  What JAX's batch refuses, the port refuses with
-``LowerError``.  The lane-batched plain versions of the segment-reduce and
+``LowerError`` ("... cannot batch"); what JAX runs host-eager once for every
+lane (a DFS, a collection Items loop, a priority-map While whose host reads
+do not depend on the lanes), the port runs too.  The lane-batched plain versions of the segment-reduce and
 prefix-sum kernels must equal the 1-D ones row by row.
 """
 
@@ -35,6 +37,8 @@ from green_marl_tpu_torch.lang import lower as TL
 from green_marl_tpu_torch.ops import kernels as K
 from green_marl_tpu_torch.ops import segment as S
 from green_marl_tpu_torch.runtime import collections as TC
+
+import test_torch_lower as TLT
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -298,9 +302,11 @@ def parity10k():
     return gj, gt
 
 
-def _check_batch(text, graphs, over, rtol=1e-6, **fixed):
+def _check_batch(text, graphs, over, rtol=1e-6, unlike_single=(), **fixed):
     """The port's batch against JAX's vmap, and each lane against the
-    port's single run on it; returns the port's batched outputs."""
+    port's single run on it (but the outputs named in ``unlike_single``,
+    where JAX's batch differs from its own single runs); returns the port's
+    batched outputs."""
     gj, gt = graphs
     jo = outputs_from_arrays(_compile(JL, text).batch(
         gj, over={k: jnp.asarray(v) for k, v in over.items()}, **fixed))
@@ -323,7 +329,7 @@ def _check_batch(text, graphs, over, rtol=1e-6, **fixed):
         kw = dict(fixed)
         kw.update({k: v[i] for k, v in over.items()})
         one = cp(gt, **kw)
-        for k in one:
+        for k in set(one) - set(unlike_single):
             for x, y in zip(TC.tree_leaves(one[k]), TC.tree_leaves(to[k])):
                 np.testing.assert_array_equal(y[i].numpy(), x.numpy(),
                                               err_msg=f"{k} lane {i}")
@@ -418,10 +424,134 @@ def test_one_lane(g100):
                  e=1e-7, max=30)
 
 
+# host-eager constructs whose host reads do not depend on the lanes: JAX's
+# vmap runs them once for every lane, and so does the port
+
+# a DFS from a fixed root, then a lane-dependent pass
+DFS_THEN_LANES_GM = """
+Proc dfsk(G: Graph, s: Node, k: Int; A: N_P<Int>) {
+    Int t = 0;
+    G.A = -1;
+    InDFS(v: G.Nodes From s) {
+        v.A = t;
+        t++;
+    }
+    Foreach(n: G.Nodes) { n.A = n.A + k; }
+}
+"""
+
+# tests/test_torch_lower.py's programs with a lane argument of their own
+COLLECTIONS_K_GM = TLT.COLLECTIONS.replace(
+    "Q: Node_Seq; A: N_P<Int>) : Int",
+    "Q: Node_Seq, k: Int; A: N_P<Int>) : Int").replace(
+    "Return total * 1000", "Return k + total * 1000")
+DFS_K_GM = TLT.DFS.replace("s: Node;", "s: Node, k: Int;").replace(
+    "v.A = t;", "v.A = t + k;")
+TARJAN_K_GM = TLT.TARJAN_LIKE.replace("(G: Graph; SCC", "(G: Graph, k: Int; SCC")
+# the priority-map While, with a Return in each branch of its last If
+PRIORITY_ELSE_GM = TLT.DIJKSTRA_GM.replace(
+    "If (found) { Return M[dst]; }\n    Return -1;",
+    "If (found) { Return M[dst]; } Else { Return -1; }")
+
+
+def _host_eager_cases(gt):
+    nset = np.zeros(gt.n_pad, bool)
+    nset[[2, 4, 9]] = True
+    ones = np.ones(gt.e_pad, np.int32)
+    k = np.asarray([1, 2, 3], np.int32)
+    return {
+        "indfs_fixed_root": (DFS_THEN_LANES_GM, {"k": k}, dict(s=0)),
+        "collection_items": (COLLECTIONS_K_GM,
+                             {"k": np.asarray([67, 68], np.int32)},
+                             dict(S=[1, 3, 5], O=[7, 3, 7, 8], T=nset)),
+        "indfs_post": (DFS_K_GM, {"k": k}, dict(s=0)),
+        "tarjan_like": (TARJAN_K_GM, {"k": k}, {}),
+        "priority_while_over_dst": (
+            PRIORITY_ELSE_GM, {"dst": np.asarray([0, 1, 5, 40], np.int32)},
+            dict(src=0, Len=ones)),
+        "priority_while_over_src": (
+            PRIORITY_ELSE_GM, {"src": np.asarray([0, 1, 3], np.int32)},
+            dict(dst=1, Len=ones)),
+        "priority_while_both": (
+            PRIORITY_ELSE_GM, {"src": np.asarray([0, 3, 7], np.int32),
+                               "dst": np.asarray([5, 1, 9], np.int32)},
+            dict(Len=(np.arange(gt.e_pad) % 5 + 1).astype(np.int32))),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "indfs_fixed_root", "collection_items", "indfs_post", "tarjan_like",
+    "priority_while_over_dst", "priority_while_over_src",
+    "priority_while_both"])
+def test_host_eager_programs_batch(g100, case):
+    text, over, fixed = _host_eager_cases(g100[1])[case]
+    _check_batch(text, g100, over, **fixed)
+
+
+@pytest.mark.parametrize("arg,lanes,fixed,want,single", [
+    ("src", [0, 1], dict(dst=1), [0, 0], [-1, 0]),
+    ("dst", [0, 1, 5], dict(src=0), [0, 0, 2], [0, -1, 2]),
+], ids=["over_src", "over_dst"])
+def test_priority_while_matches_jax_return_merge(g100, arg, lanes, fixed,
+                                                 want, single):
+    """tests/test_torch_lower.py's DIJKSTRA_GM ends in ``If (found) {
+    Return M[dst]; } Return -1;``.  JAX's vmap merges a traced If with a
+    Return in one branch only as a Return in every lane (ROADMAP Queue 3),
+    so a lane whose single run finds no path (-1) returns the map's value
+    at dst (0).  The port's batch gives JAX's lanes; its single runs, like
+    JAX's, give -1."""
+    gt = g100[1]
+    ones = np.ones(gt.e_pad, np.int32)
+    out = _check_batch(TLT.DIJKSTRA_GM, g100,
+                       {arg: np.asarray(lanes, np.int32)},
+                       unlike_single=("_return",), Len=ones, **fixed)
+    assert out["_return"].tolist() == want
+    cp = _compile(TL, TLT.DIJKSTRA_GM)
+    assert [int(cp(gt, Len=ones, **{arg: v}, **fixed)["_return"])
+            for v in lanes] == single
+
+
+# a sequence that holds a lane value, then a loop over its items
+ITEMS_OF_LANES_GM = """
+Proc p(G: Graph, r, q: Node; A: N_P<Int>) : Int {
+    Node_Seq Q;
+    Int c = 0;
+    G.A = 0;
+    Q.PushBack(r);
+    Q.PushBack(q);
+    For (v: Q.Items) { v.A += 1; c += 1; }
+    Return c;
+}
+"""
+
+# a map-driven While (not the priority idiom) fed a lane value
+MAP_WHILE_GM = """
+Proc mw(G: Graph, a, b: Node, k: Int) : Int {
+    Map<Node, Int> M;
+    M[a] = k;
+    M[b] = 2;
+    Int s = 0;
+    While (M.Size() > 0) {
+        Node u = M.GetMinKey();
+        s += M[u] * (u + 1);
+        M.Remove(u);
+    }
+    Return s;
+}
+"""
+
+
 @pytest.mark.parametrize("text,over,fixed", [
     (DIJKSTRA_GM, {"src": np.asarray([0, 1], np.int32)}, dict(dst=1)),
     (DFS_GM, {"s": np.asarray([0, 3], np.int32)}, {}),
-], ids=["dijkstra", "dfs"])
+    (TLT.DFS.replace("s: Node;", "s: Node, k: Int;").replace(
+        "[v != s + 7]", "[v != k]"), {"k": np.asarray([7, 9], np.int32)},
+     dict(s=0)),
+    (ITEMS_OF_LANES_GM, {"r": np.asarray([0, 3], np.int32)}, dict(q=5)),
+    (MAP_WHILE_GM, {"k": np.asarray([1, 5], np.int32)}, dict(a=3, b=4)),
+    (MAP_WHILE_GM, {"a": np.asarray([1, 5], np.int32)}, dict(k=3, b=4)),
+], ids=["dijkstra", "dfs", "dfs_lane_navigator", "items_of_lane_values",
+        "map_while_lane_values", "map_while_lane_keys"])
 def test_refused_where_jax_refuses(g100, text, over, fixed):
     gj, gt = g100
     if text is DIJKSTRA_GM:

@@ -1224,6 +1224,75 @@ def test_segment_reduce_lanes(dev, b, dtype, op):
                 vals[r].contiguous(), ids, offsets, n_out, op)), r
 
 
+def _lane_layout(rng, b, dtype, layout):
+    """[b, e] values on the host and [n_seg + 1] offsets for a layout of
+    the lane kernel's tests: ``aligned`` (e % 4 == 0: the bulk copies),
+    ``odd_length`` (e % 4 != 0: 4-byte loads), ``unaligned_view`` (the
+    aligned case shifted by one slot in memory, see the caller),
+    ``few_tiles`` (fewer tiles than the card holds blocks: lane groups)."""
+    if layout == "few_tiles":
+        lens = rng.choice([0, 1, 3, 17], size=3000)
+        lens[1000:1700] = 0                      # 700 empty rows
+        off = np.zeros(lens.size + 1, np.int64)
+        np.cumsum(lens, out=off[1:])
+        e = int(off[-1]) + 5
+        vals = np.stack([_vals(rng, e, dtype) for _ in range(b)])
+        if dtype == torch.float32:
+            vals += rng.random(vals.shape).astype(np.float32)
+        return vals, off.astype(np.int32)
+    vals, off = _lane_case(rng, b, 60_000, dtype, tail=77)
+    if layout == "odd_length":
+        return vals, off
+    return vals[:, :vals.shape[1] // 4 * 4], off
+
+
+@pytest.mark.parametrize("layout", ["aligned", "odd_length",
+                                    "unaligned_view", "few_tiles"])
+@pytest.mark.parametrize("b", [2, 3, 16, 17])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_segment_reduce_lane_kernel(dev, op, dtype, b, layout):
+    """The lane kernel against its plain version and against the 1-D kernel
+    on each row: runs of more than 512 empty rows, a hub row over 73 tiles,
+    a share of the rows, offsets clipped to a slab.  int32 and min/max equal the plain version
+    bit for bit; float32 add gives each lane the 1-D kernel's bits and is
+    within rtol 1e-5 of a float64 sum (values of one sign)."""
+    rng = np.random.default_rng(1000 * b + len(layout))
+    vals_h, off = _lane_layout(rng, b, dtype, layout)
+    if layout == "unaligned_view":
+        buf = torch.empty((b, vals_h.shape[1] + 1), dtype=dtype, device=dev)
+        vals = buf.view(-1)[1:1 + vals_h.size].view(vals_h.shape)
+        vals.copy_(torch.from_numpy(vals_h))
+        assert vals.data_ptr() % 16 != 0 and vals.is_contiguous()
+    else:
+        vals = torch.from_numpy(vals_h).to(dev)
+    e = vals.shape[1]
+    ids = torch.zeros(e, dtype=torch.int32, device=dev)
+    n_seg = off.size - 1
+    # all rows; a share of them (rows that start past slot 0); all rows
+    # clipped to a slab as a shard's are (runs of empty rows at both ends)
+    clipped = np.clip(off - e // 4, 0, e // 2).astype(np.int32)
+    for offsets, n_out in ((off, n_seg + 300),
+                           (off[n_seg // 3:2 * n_seg // 3 + 1], n_seg),
+                           (clipped, n_seg)):
+        offsets = torch.from_numpy(np.ascontiguousarray(offsets)).to(dev)
+        K.reset_launch_counts()
+        got = K.segment_reduce_sorted(vals, ids, offsets, n_out, op)
+        torch.cuda.synchronize()
+        assert got.shape == (b, n_out) and got.dtype == dtype
+        assert K.lane_launch_counts()["segment_reduce_sorted[lanes]"] == 1
+        if dtype == torch.int32 or op != "add":
+            assert torch.equal(got, K.segment_reduce_sorted_ref(
+                vals, ids, offsets, n_out, op))
+        else:
+            want = K.segment_reduce_sorted_ref(vals.double(), ids, offsets,
+                                               n_out, op)
+            assert torch.allclose(got.double(), want, rtol=1e-5, atol=0.0)
+        for r in range(b):
+            assert torch.equal(got[r], K.segment_reduce_sorted(
+                vals[r].contiguous(), ids, offsets, n_out, op)), r
+
+
 @pytest.mark.parametrize("b", [1, 5, 16])
 @pytest.mark.parametrize("n", [1, 8191, 8192 * 3 + 5, 1_000_003])
 def test_cumsum_lanes(dev, b, n):

@@ -583,9 +583,21 @@ def test_batch_lanes_equal_single_runs(g100):
             outs["pg_rank"][i].numpy(),
             pr(gt, e=1e-8, d=float(np.float32(d)), max=20)["pg_rank"]
             .numpy(), rtol=1e-6)
+    # a priority-map While over lane sources runs as JAX's vmap runs it
+    # (tests/test_torch_batch.py holds such programs lane for lane); a DFS
+    # from lane roots reads a lane value on the host and cannot batch
+    ones = np.ones(gt.e_pad, np.int32)
+    got = _compile(TL, DIJKSTRA_GM).batch(
+        gt, over={"src": np.arange(2, dtype=np.int32)}, dst=1, Len=ones)
+    want = _compile(JL, DIJKSTRA_GM).batch(
+        gj, over={"src": jax.numpy.arange(2, dtype=jax.numpy.int32)}, dst=1,
+        Len=jax.numpy.asarray(ones))
+    np.testing.assert_array_equal(got["_return"].numpy(),
+                                  np.asarray(want["_return"]))
+    np.testing.assert_array_equal(got["Parent"].numpy(),
+                                  np.asarray(want["Parent"]))
     with pytest.raises(TL.LowerError, match="cannot batch"):
-        _compile(TL, DIJKSTRA_GM).batch(gt, over={"src": np.arange(2)},
-                                        dst=1)
+        _compile(TL, DFS).batch(gt, over={"s": np.arange(2, dtype=np.int32)})
 
 
 # --------------------------------------------------------------------------

@@ -346,6 +346,8 @@ def test_profile_groups_name_the_ports_kernels():
                        "<float, 0, true>(...)") == "segment reduce"
     assert pa.group_of("(anonymous namespace)::tile_rows_kernel(int const*"
                        ")") == "segment reduce"
+    assert pa.group_of("void (anonymous namespace)::segment_reduce_lanes_"
+                       "kernel<float, 0, true>(...)") == "segment reduce"
     assert pa.group_of("void (anonymous namespace)::scan_kernel<unsigned "
                        "int, true, true>") == "prefix sum"
     assert pa.group_of("void at::native::(anonymous namespace)::"
