@@ -155,13 +155,31 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    versions on the [16, E_pad] values the runs gave them, each lane against
    the 1-D kernel, and their times beside plain, 16 x the 1-D kernel, the
    bound and one PyTorch call.
+13. the harness and the probes of the hot paths, on the card: the placement
+   matrix (``harness.matrix_sweep``: pagerank, hop_dist, sssp, conduct,
+   avg_teen_cnt and multi_bfs under each placement at 8 shards, the
+   compiled ones from the inline ``.gm`` texts of this script) on its own
+   400-node graph and at the 1/16 size, every one of the 12 cells against
+   the one-device run; the scaling ladder (``harness.scaling``, S = 1, 2,
+   4, 8) on phase 4's graph, ranks bit-identical across S, then the segment
+   reduce against its plain version on an S=8 shard's slab;
+   ``harness.multihost_bench``'s card rows at N=400k, E=4M (threads and one
+   NCCL rank of 4 shards, the same checksums; the 2- and 4-rank rows not
+   run on one card); the Twitter-class bit BFS at B=1024
+   (``probes.twitter_scale``) on phase 11's graph and schedule, fused ==
+   paged, the instances whose roots phase 11 held against scipy reaching
+   scipy's sets; ``probes.bfs``'s pull sweep, push tiers and auto BFS on
+   phase 4's graph (the BFS's reached set == hop_dist's), then the prefix
+   sum against its plain version on the pull sweep's values; and
+   ``probes.prep``'s stages at the 1/16 size.
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
 kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
 the component and path models and the sampling family counted on their own
 too), phase 8, phase 9 (each compiled call on its own), phase 10,
-phase 11 and phase 12 (each batched and single run on its own).
+phase 11, phase 12 (each batched and single run on its own) and phase 13
+(each harness run and probe on its own).
 The last two lines are a JSON record of the kernels and the JSON status
 line.  Exits non-zero, with no result, where CUDA is unavailable.
 """
@@ -2137,7 +2155,7 @@ def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
     return total
 
 
-def scale_phase(torch, K, dev, scale, g_host, times):
+def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
     """Phase 11: ``probes.scale``'s witness on the graph past 2^24 nodes;
     each of its checks, each run's launches, the segment reduce against
     its plain version on the slabs the runs gave it, its times and the
@@ -2145,7 +2163,7 @@ def scale_phase(torch, K, dev, scale, g_host, times):
     checks')."""
     K.reset_launch_counts()
     rec = scale.run(SCALE_N, SCALE_E, SCALE_B, dev, g_host=g_host,
-                    times=times)
+                    times=times, keep=keep)
     torch.cuda.synchronize()
     log(f"  footprint of {scale.SHARDS} shards: {rec['footprint']}; levels "
         f"{rec['levels']}; bit BFS edges traversed "
@@ -2199,6 +2217,226 @@ def scale_phase(torch, K, dev, scale, g_host, times):
     log(f"  device memory peak {rec['max_memory_allocated_gb']:.2f} GB "
         f"(card: {rec['card']})")
     return launched
+
+
+# phase 13: the harness (green_marl_tpu_torch/harness/) and the probes of
+# the hot paths (probes/twitter_scale.py, bfs.py, prep.py).  conduct.gm is
+# the inline text of tests/test_torch_distribute.py:49
+CONDUCT_GM = """
+Procedure conduct(G: Graph, member: N_P<Int>, num: Int) : Float {
+    Int Din, Dout, Cross;
+    Din = Sum(u: G.Nodes)(u.member == num){ u.Degree() };
+    Dout = Sum(u: G.Nodes)(u.member != num){ u.Degree() };
+    Cross = Sum(u: G.Nodes)(u.member == num){
+        Count(j: u.Nbrs)(j.member != num) };
+    Float m = (Din < Dout) ? Din : Dout;
+    If (m == 0) Return (Cross == 0) ? 0.0 : +INF;
+    Else Return (Cross / m);
+}
+"""
+MH_N, MH_E = 400_000, 4_000_000      # multihost_bench's card rows
+
+
+def matrix_part(torch, K, dev, add):
+    """Phase 13, the placement matrix at 8 shards on the card, on its own
+    graph and at the 1/16 size: every cell runs and passes."""
+    import tempfile
+
+    from green_marl_tpu_torch.harness import matrix_sweep as M
+
+    with tempfile.TemporaryDirectory() as d:
+        for name, text in (("pagerank", PAGERANK_GM),
+                           ("hop_dist", HOP_DIST_GM), ("sssp", SSSP_GM),
+                           ("conduct", CONDUCT_GM),
+                           ("avg_teen_cnt", AVG_TEEN_CNT_GM)):
+            with open(os.path.join(d, f"{name}.gm"), "w") as f:
+                f.write(text)
+        for n, e in (M.DEFAULT_GRAPH, (SMALL_N, SMALL_E)):
+            t0 = time.time()
+            path = os.path.join(d, f"m{n}.bin")
+            M.write_graph(path, n, e)
+            t1 = time.time()
+            before = K.launch_counts()
+            rec = M.sweep(path, dev.type, d, log=lambda m: log("  | " + m))
+            launched = add(launched_since(K, before))
+            cells = {(c["app"], c["placement"]): c["launches"]
+                     for c in rec["cells"]}
+            check(rec["ran"] == rec["passed"] == 12 and rec["not_run"] == 0
+                  and all(cells[(a, p)] > 0 for a in ("pagerank", "sssp")
+                          for p in ("distribute", "engine")),
+                  f"matrix sweep N={n} E={e} (graph {t1 - t0:.1f} s): 12 of "
+                  f"12 cells at {M.SHARDS} shards on the card agree with one "
+                  f"device in {time.time() - t1:.1f} s; launches {launched}; "
+                  f"segment reduces a cell {cells}")
+            os.remove(path)
+
+
+def scaling_part(torch, K, dev, g_host, add):
+    """Phase 13, the scaling ladder on phase 4's graph; then the segment
+    reduce against its plain version on one S=8 shard's slab."""
+    from green_marl_tpu_torch.harness import scaling as SC
+
+    before = K.launch_counts()
+    rows, keep = SC.ladder(g_host, dev, log=lambda m: log("  " + m))
+    launched = add(launched_since(K, before))
+    log("  " + SC.table(rows, g_host.num_nodes, g_host.num_edges)
+        .replace("\n", "\n  "))
+    check(all(r["ranks_equal"] for r in rows)
+          and all(r["segment_reduce_launches"] == r["S"] * SC.ITERS
+                  for r in rows),
+          f"scaling ladder S={SC.LADDER}: ranks bit-identical across S, "
+          f"one segment reduce a shard a superstep; launches {launched}")
+    ids, off, n_out = (x.to(dev) if torch.is_tensor(x) else x
+                       for x in keep["slab"])
+    gen = torch.Generator(device=dev).manual_seed(LJ_SEED)
+    vals = torch.rand(ids.numel(), generator=gen, device=dev)
+    got = K.segment_reduce_sorted(vals, ids, off, n_out, op="add")
+    want = K.segment_reduce_sorted_ref(vals.double(), ids, off, n_out, "add")
+    err = float((got.double() - want).abs().max())
+    ivals = torch.randint(-2**30, 2**30, (ids.numel(),), generator=gen,
+                          device=dev, dtype=torch.int32)
+    exact = all(torch.equal(
+        K.segment_reduce_sorted(ivals, ids, off, n_out, op=op),
+        K.segment_reduce_sorted_ref(ivals, ids, off, n_out, op))
+        for op in ("min", "max"))
+    check(torch.allclose(got.double(), want, rtol=1e-5, atol=0.0) and exact,
+          f"segment_reduce_sorted on S={SC.LADDER[-1]} shard 0's slab "
+          f"({ids.numel()} slots, {n_out} rows): float32 add within rtol "
+          f"1e-5 of float64 (max abs err {err:.3g}), int32 min and max "
+          "exactly")
+
+
+def multihost_part(torch, K, dev, add):
+    """Phase 13, multihost_bench's card rows: threads against one NCCL
+    rank of 4 shards; the 2- and 4-rank rows not run on one card."""
+    from green_marl_tpu_torch.harness import multihost_bench as MB
+
+    before = K.launch_counts()
+    row = MB.bench(MH_N, MH_E, dev, log=lambda m: log("  " + m))
+    launched = add(launched_since(K, before))
+    arr = {a["arrangement"]: a for a in row["arrangements"]}
+    ran = [a for a in arr.values() if a["status"] == "ran"]
+    check(row["ok"] and len(ran) == 2
+          and all(a["segment_reduce_launches"] == 2 * MB.SHARDS * a["iters"]
+                  for a in ran)
+          and all(a["status"] == "not run" for name, a in arr.items()
+                  if name.startswith(("2 ", "4 "))),
+          f"multihost_bench N={MH_N} E={MH_E}: threads and one NCCL rank of "
+          f"4 shards give {ran[0]['iters']} iterations and the same "
+          f"checksums shard for shard (wsum {ran[0]['wsum']!r}); "
+          + "; ".join(f"{n}: {a['time_s'] * 1000:.1f} ms" for n, a in
+                      arr.items() if a["status"] == "ran")
+          + f"; launches {launched}")
+
+
+def twitter_part(torch, K, dev, g_scale, scale_keep, add):
+    """Phase 13, the Twitter-class bit BFS at B=1024 on phase 11's graph
+    and schedule, fused and paged: equal, and the instances whose roots
+    phase 11 held against scipy reach what scipy reached."""
+    from green_marl_tpu_torch.probes import twitter_scale as TW
+
+    bp = scale_keep["binned"]
+    out_deg = np.diff(g_scale.begin.numpy()).astype(np.int64)
+    roots = TW.top_roots(out_deg)
+    planes = {}
+    torch.cuda.empty_cache()
+    before = K.launch_counts()
+    res = TW.run(bp, TW.degree_rows(bp, out_deg), roots, dev, keep=planes)
+    add(launched_since(K, before))
+    for name in TW.VARIANTS:
+        r = res[name]
+        log(f"  {name}: B={TW.B} levels={r['levels']} traversed="
+            f"{r['traversed']}: {r['time_ms']:.1f} ms (host clock, median "
+            f"of {r['run_times_ms']}), {r['device_ms']:.1f} ms (CUDA "
+            f"events), {r['agg_gteps']:.2f} GTEPS aggregate; peak "
+            f"{r['peak_gb']:.2f} GB")
+    visited = planes["fused"][3]
+    inv = bp.inv_perm.numpy()
+    same = []
+    for r, seen in scale_keep["reach"].items():
+        for i in np.flatnonzero(roots == r):
+            lane = visited[:, i // TW.PLANE_BITS].numpy()[inv]
+            same.append(np.array_equal(
+                (lane >> (i % TW.PLANE_BITS)) & 1 == 1, seen))
+    check(res["equal"] and same and all(same),
+          f"bit BFS B={TW.B} plane_bits={TW.PLANE_BITS} at N={SCALE_N} "
+          f"E={SCALE_E}: fused == paged (levels, traversed and reached of "
+          f"each instance, the planes); {len(same)} instance(s) whose root "
+          f"phase 11 held against scipy reach its reached set")
+
+
+def bfs_part(torch, K, dev, g_host, add):
+    """Phase 13, probes/bfs.py's three measurements on phase 4's graph;
+    the prefix sum against its plain version on the pull sweep's
+    values."""
+    from green_marl_tpu_torch.models.hop_dist import hop_dist
+    from green_marl_tpu_torch.models.relax import INT32_MAX
+    from green_marl_tpu_torch.probes import bfs as PB
+
+    out_deg = np.diff(g_host.begin.numpy())
+    before = K.launch_counts()
+    rec = PB.measure(g_host, out_deg, dev, log=lambda m: log("  " + m))
+    launched = add(launched_since(K, before))
+    g = g_host.to(dev)
+    r0 = rec["bfs"]["roots"][0]
+    reached = int((hop_dist(g, r0).dist[:g.num_nodes] < INT32_MAX).sum())
+    check(rec["pull"]["plain_cumsum_launches"] == 1
+          and min(rec["bfs"]["plain_cumsum_launches"]) > 0
+          and rec["bfs"]["reached"] == reached,
+          f"probes/bfs.py: pull sweep {rec['pull']['ms']:.3f} ms, push "
+          + ", ".join(f"cap {c} {rec[f'push_{c}']['ms']:.3f} ms"
+                      for c in PB.PUSH_CAPS)
+          + f", auto bfs {rec['bfs']['ms']:.1f} ms (CUDA events); root "
+          f"{r0}: {rec['bfs']['levels']} levels, reached {reached} == "
+          f"hop_dist's; launches {launched}")
+    vals = PB.pull_values(g, PB.pull_frontier(g).to(dev))
+    got = K.plain_cumsum(vals, exclusive=True)
+    check(torch.equal(got, K.plain_cumsum_ref(vals, exclusive=True)),
+          f"plain_cumsum exclusive on the pull sweep's values "
+          f"({vals.numel()} slots, {int(got[-1])} ones) == plain exactly")
+
+
+def prep_part(torch, K, native, dev, add):
+    """Phase 13, probes/prep.py's stages at the 1/16 size."""
+    from green_marl_tpu_torch.probes import prep as PP
+
+    src, dst = native.rmat_edges(SMALL_N, SMALL_E, seed=LJ_SEED)
+    before = K.launch_counts()
+    rec = PP.stages(src, dst, SMALL_N, dev, log=lambda m: log("  " + m))
+    add(launched_since(K, before))
+    deg = torch.from_numpy(np.bincount(src, minlength=SMALL_N)
+                           .astype(np.int32))
+    check(torch.equal(rec["deg_binned"].cpu(), deg[rec["perm"].long()]),
+          f"probes/prep.py at N={SMALL_N} E={SMALL_E}: every stage ran; "
+          "to_binned(deg) on the card == the host's deg[perm]")
+
+
+def harness_phase(torch, K, dev, native, g_host, g_scale, scale_keep):
+    """Phase 13: the harness and the hot-path probes on the card.  Returns
+    the launches of their runs by name (not the checks')."""
+    total = {name: 0 for name in K.launch_counts()}
+
+    def add(launched):
+        for name, k in launched.items():
+            total[name] += k
+        return launched
+
+    for what, part in (
+            ("placement matrix", lambda: matrix_part(torch, K, dev, add)),
+            ("scaling ladder", lambda: scaling_part(torch, K, dev, g_host,
+                                                     add)),
+            ("multihost_bench", lambda: multihost_part(torch, K, dev, add)),
+            ("Twitter-class bit BFS", lambda: twitter_part(
+                torch, K, dev, g_scale, scale_keep, add)),
+            ("BFS phases", lambda: bfs_part(torch, K, dev, g_host, add)),
+            ("preprocessing stages", lambda: prep_part(torch, K, native, dev,
+                                                       add))):
+        log(f"  -- {what}")
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        part()
+        log(f"  {what} {time.time() - t0:.1f} s")
+    return total
 
 
 def main():
@@ -2879,8 +3117,9 @@ def main():
     log(f"  edges drawn in {scale_times['t_gen_s']:.1f} s and frozen in "
         f"{scale_times['t_freeze_s']:.1f} s on the host thread (waited "
         f"{time.time() - t0:.1f} s for it)")
-    counts_scale = scale_phase(torch, K, dev, scale, g_scale, scale_times)
-    del g_scale
+    scale_keep = {}                 # phase 13 runs on the same graph
+    counts_scale = scale_phase(torch, K, dev, scale, g_scale, scale_times,
+                               scale_keep)
     log(f"  graphs past 2^24 nodes {time.time() - t0:.1f} s; launches "
         f"{counts_scale}")
     check(counts_scale["segment_reduce_sorted"] > 0,
@@ -2895,7 +3134,6 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.time()
     counts_batch, lane_recs = batch_phase(torch, K, dev, g_host, smi)
-    del g_host
     log(f"  lockstep programs {time.time() - t0:.1f} s; launches "
         f"{counts_batch}")
     for name in LANE_KERNELS:
@@ -2904,6 +3142,23 @@ def main():
               f"({counts_batch[name + '[lanes]']} times)")
     for name in counts:
         counts[name] += counts_batch[name]
+
+    # -- 13. the harness and the hot-path probes ---------------------------
+    log(f"== 13. the harness and the hot-path probes: the placement matrix, "
+        f"the scaling ladder, multihost_bench, the Twitter-class bit BFS, "
+        f"the BFS phases and the preprocessing stages (card: {smi})")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    counts_harness = harness_phase(torch, K, dev, native, g_host, g_scale,
+                                   scale_keep)
+    del g_host, g_scale, scale_keep
+    log(f"  harness and probes {time.time() - t0:.1f} s; launches "
+        f"{counts_harness}")
+    for name in ("segment_reduce_sorted", "plain_cumsum"):
+        check(counts_harness[name] > 0, f"{name} launched by the harness "
+              f"and the probes ({counts_harness[name]} times)")
+    for name, n in counts_harness.items():
+        counts[name] += n
     log(f"total {time.time() - t_all:.1f} s")
 
     errs = {"segment_reduce_sorted": seg_err, "plain_cumsum": float(cs_err),

@@ -115,7 +115,7 @@ def segment_reduce_sorted_ref(vals: torch.Tensor, ids: torch.Tensor,
 
 def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
                           offsets: torch.Tensor, n_out: int,
-                          op: str = "add") -> torch.Tensor:
+                          op: str = "add", base: int = 0) -> torch.Tensor:
     """Sorted-segment reduction ``out[v] = op-reduce(vals[offsets[v]:offsets[v+1]])``.
 
     ``vals``/``ids``: [E_pad] edge-slot arrays (CSC or CSR order); ``ids``
@@ -143,6 +143,15 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     is not a multiple of 4, is read with 4-byte loads: the same result,
     more slowly.  The launch is cooperative: it needs a device that
     supports ``cudaLaunchCooperativeKernel``.
+
+    ``base``: the position of ``vals[0]`` in a longer slot array that
+    another call reduces whole, as a shard's slab of a graph's CSC sits in
+    the CSC.  The float32 sum of a segment depends on where the tile edges
+    fall; on the card the values are laid ``base`` mod the tile size slots
+    into the launch (a copy of ``vals``), so that the tiles are cut where
+    the whole array's are and every segment gets the whole call's bits,
+    whatever the slab.  The plain version's order does not depend on the
+    position.
     """
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
@@ -160,6 +169,12 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
         return segment_reduce_sorted_ref(vals, ids, offsets, n_out, op)
     stream = _cuda_stream(vals)
     lib = _build.lib()
+    phase = base % lib.gm_segment_reduce_tile_size()
+    if phase:
+        # slots before offsets[0] count as the identity, whatever they hold
+        vals = torch.cat([vals.new_zeros(tuple(vals.shape[:-1]) + (phase,)),
+                          vals], -1)
+        offsets = offsets + phase
     lanes, n_vals = (1, vals.shape[0]) if vals.dim() == 1 else vals.shape
     out = torch.empty(tuple(vals.shape[:-1]) + (n_out,), dtype=vals.dtype,
                       device=vals.device)

@@ -22,7 +22,7 @@ from . import kernels, scan_reduce
 
 def sorted_segment_reduce(vals: torch.Tensor, ids: torch.Tensor,
                           offsets: torch.Tensor, n_out: int,
-                          op: str) -> torch.Tensor:
+                          op: str, base: int = 0) -> torch.Tensor:
     """Segment reduction over the sorted runs that ``offsets`` describes.
 
     Routed by dtype, on whichever device ``vals`` is on:
@@ -38,7 +38,10 @@ def sorted_segment_reduce(vals: torch.Tensor, ids: torch.Tensor,
       refused, as ``jax.ops.segment_sum`` refuses it.
 
     ``vals`` may be [B, E] lanes (a batched compiled program): one launch
-    for all of them, [B, n_out] out, by the same dtype rules.
+    for all of them, [B, n_out] out, by the same dtype rules.  ``base``:
+    where ``vals[0]`` sits in a longer slot array (a shard's slab in the
+    CSC), so that a float sum on the card gets the whole array's bits
+    (``kernels.segment_reduce_sorted``).
     """
     if vals.dtype == torch.bool:
         if op == "add":
@@ -48,7 +51,8 @@ def sorted_segment_reduce(vals: torch.Tensor, ids: torch.Tensor,
     if op == "add" and not vals.dtype.is_floating_point:
         return scan_reduce.segment_sum_by_offsets(vals, offsets, n_out)
     if vals.dtype in kernels.KERNEL_DTYPES:
-        return kernels.segment_reduce_sorted(vals, ids, offsets, n_out, op=op)
+        return kernels.segment_reduce_sorted(vals, ids, offsets, n_out, op=op,
+                                             base=base)
     return kernels.segment_reduce_sorted_ref(vals, ids, offsets, n_out, op)
 
 

@@ -25,6 +25,7 @@ ones (torch has no unsigned shifts or popcount on the CPU).
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -59,6 +60,7 @@ class VertexShardedGraph:
     E_s: int
     cap: int
     ghost_total: int
+    slot_base: Tuple[int, ...]  # CSC slot of each shard's first edge
 
     @property
     def n_glob(self) -> int:
@@ -148,7 +150,8 @@ def build_vertex_sharded(g: Graph, num_shards: int) -> VertexShardedGraph:
         csc_slot=T(csc_slot), send_idx=T(send_idx),
         deg_owned=T(deg_owned), dst_off=T(dst_off),
         num_nodes=N, num_edges=E, num_shards=S,
-        L=L, E_s=E_s, cap=cap, ghost_total=int(ghost_total))
+        L=L, E_s=E_s, cap=cap, ghost_total=int(ghost_total),
+        slot_base=tuple(int(b) for b in bounds[:S]))
 
 
 def place(vsg: VertexShardedGraph, mesh: Mesh,
@@ -200,8 +203,10 @@ def pagerank_vsharded(vsg: VertexShardedGraph, mesh: Mesh,
                       axis: str = "v"):
     """PageRank with O(N/S) state: rank lives only on its owner.  Per
     superstep one ghost all_to_all of rank/deg, a local sorted segment sum
-    (the segment-reduce kernel) and a psum'd L1 diff.  Returns ``(rank [N],
-    diff, iterations)``."""
+    (the segment-reduce kernel) and a psum'd L1 diff.  Each shard's sums
+    are cut where the whole CSC's are (``slot_base``), so the ranks have
+    the same bits at every shard count.  Returns ``(rank [N], diff,
+    iterations)``."""
     N, L = vsg.num_nodes, vsg.L
 
     def run(axes, dst_l, vidx, emask, send_idx, off, deg):
@@ -209,6 +214,7 @@ def pagerank_vsharded(vsg: VertexShardedGraph, mesh: Mesh,
         dst_l, vidx, emask, send_idx, off, deg = map(
             _local, (dst_l, vidx, emask, send_idx, off, deg))
         dev = dst_l.device
+        base = vsg.slot_base[ax.index()]
         gid = ax.index() * L + torch.arange(L, dtype=torch.int32,
                                             device=dev)
         owned = gid < N
@@ -226,7 +232,8 @@ def pagerank_vsharded(vsg: VertexShardedGraph, mesh: Mesh,
         while ax.agree(it < max_iter and (it == 0 or bool(diff > e_))):
             ghost = _exchange(rank * inv_deg, send_idx, ax)
             contrib = torch.where(emask, ghost[vidx], zero)
-            part = sorted_segment_reduce(contrib, dst_l, off, L, "add")
+            part = sorted_segment_reduce(contrib, dst_l, off, L, "add",
+                                         base=base)
             val = torch.where(owned, (1 - d_) * inv_n + d_ * part, zero)
             diff = ax.psum((val - rank).abs().sum())
             rank = val

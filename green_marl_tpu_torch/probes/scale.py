@@ -186,10 +186,11 @@ def bit(planes: torch.Tensor, b: int) -> np.ndarray:
     return ((planes[:, b // 32] >> (b % 32)) & 1).bool().cpu().numpy()
 
 
-def one_device(g_host, roots, dev) -> Dict:
+def one_device(g_host, roots, dev, keep: Optional[Dict] = None) -> Dict:
     """pagerank, hop_dist from ``roots[0]``, the bit BFS from ``roots`` and
     the compiled pagerank.gm on one device; results on the host, and the
-    pulls' slab (ids, offsets, n_out) on the host."""
+    pulls' slab (ids, offsets, n_out) on the host.  ``keep`` (a dict)
+    receives the bit BFS's schedule on the host as ``"binned"``."""
     from ..models import batched
     from ..models.hop_dist import hop_dist
     from ..models.pagerank import pagerank
@@ -216,6 +217,8 @@ def one_device(g_host, roots, dev) -> Dict:
     t0 = time.time()
     bp = binned.binned_in(g_host)
     sec["t_binned_build_s"] = time.time() - t0
+    if keep is not None:
+        keep["binned"] = bp
     bp = bp.to(dev, with_edges=False)
     rows = np.zeros(bp.n_rows, np.int32)
     rows[:n] = np.diff(g_host.begin.numpy())[bp.perm.cpu().numpy()]
@@ -380,9 +383,13 @@ def card() -> str:
 
 
 def run(n: int, e: int, b: int, dev: torch.device,
-        g_host=None, times: Optional[Dict] = None) -> Dict:
+        g_host=None, times: Optional[Dict] = None,
+        keep: Optional[Dict] = None) -> Dict:
     """The whole witness; returns its record (``record["checks"]["ok"]``).
-    ``g_host``/``times``: a graph already made by :func:`host_graph`."""
+    ``g_host``/``times``: a graph already made by :func:`host_graph`.
+    ``keep`` (a dict) receives the bit BFS's host schedule (``"binned"``)
+    and the oracle's reached sets of the sampled roots (``"reach"``: root
+    -> [N] bool), for a caller that runs on the same graph after."""
     if g_host is None:
         g_host, times = host_graph(n, e)
         _log(f"graph N={n} E={e}: {times}")
@@ -397,7 +404,10 @@ def run(n: int, e: int, b: int, dev: torch.device,
     orc = oracles(g_host, roots)
     _log(f"oracles: BFS {orc['t_bfs_oracle_s']:.1f} s, ranks "
          f"{orc['t_rank_oracle_s']:.1f} s")
-    one = one_device(g_host, roots, dev)
+    one = one_device(g_host, roots, dev, keep)
+    if keep is not None:
+        keep["reach"] = {int(roots[b]): lv < INT32_MAX
+                         for b, lv in orc["bfs"].items()}
     _log(f"one device: {one['ms']} ms")
     sh = sharded(g_host, roots, dev)
     _log(f"sharded: {sh['ms']} ms")

@@ -5,10 +5,17 @@ Counterpart of ``profile_supersteps`` and ``graph_placement_report`` of
 ``fetch_baseline``, ``device_time``) work around a remote TPU link whose
 ``block_until_ready`` does not block; on a local card CUDA events time the
 device, so they have no counterpart here.
+
+The harness and the probes share three helpers: :func:`entry_device` (an
+entry point's ``--device``, which never falls back to the CPU),
+:func:`card` (``nvidia-smi``'s name and power limit) and :func:`timed` (the
+host clock around a call that ends in a synchronize, and CUDA events on the
+card).
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
@@ -68,3 +75,43 @@ def graph_placement_report(g) -> str:
                     f"dtype={str(a.dtype).replace('torch.', '')} -- "
                     f"hugepage=[ ] replication=[X] distribution=[ ]")
     return "\n".join(rows)
+
+
+def entry_device(name: str, device: str) -> torch.device:
+    """The device an entry point was asked for; exits non-zero, with a
+    message, when it is ``cuda`` and there is no card (it never carries on
+    on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{name}: no CUDA device (torch.cuda.is_available() "
+                         "is False); use --device cpu for the CPU")
+    return dev
+
+
+def card(dev: torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of the card (``--query-gpu=
+    name,power.limit``), or a line that says the run is on the CPU."""
+    if dev.type != "cuda":
+        return f"none ({dev.type}: no device times)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def timed(fn, dev: torch.device):
+    """``(fn(), host ms, device ms)``: the host clock around ``fn()`` and a
+    synchronize, and CUDA events around it on the card (None elsewhere)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1000 * (time.perf_counter() - t0), None
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return out, 1000 * (time.perf_counter() - t0), ev0.elapsed_time(ev1)

@@ -1488,3 +1488,131 @@ def test_nccl_one_rank_four_shards(dev, mesh4):
     torch.testing.assert_close(rank, rank_t, rtol=1e-5, atol=0.0)
     assert torch.equal(dist, dist_t)
     assert counts["all_to_all"] == it + depth and counts["psum"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The harness and the hot-path probes (harness/, probes/) on the card
+# ---------------------------------------------------------------------------
+
+_SSSP_GM = """
+Procedure sssp(G:Graph, dist:N_P<Int>, len:E_P<Int>, root: Node)
+{
+    N_P<Bool> updated;
+    N_P<Bool> updated_nxt;
+    N_P<Int>  dist_nxt;
+    Bool fin = False;
+    G.dist = (G == root) ? 0 : +INF;
+    G.updated = (G == root) ? True: False;
+    G.dist_nxt = G.dist;
+    G.updated_nxt = G.updated;
+    While(!fin) {
+        fin = True;
+        Foreach(n: G.Nodes)(n.updated) {
+            Foreach(s: n.Nbrs) {
+                Edge e = s.ToEdge();
+                <s.dist_nxt; s.updated_nxt> min= <n.dist + e.len; True>;
+            }
+        }
+        G.dist = G.dist_nxt;
+        G.updated = G.updated_nxt;
+        G.updated_nxt = False;
+        fin = ! Exist(n: G.Nodes){n.updated};
+    }
+}
+"""
+
+_CONDUCT_GM = """
+Procedure conduct(G: Graph, member: N_P<Int>, num: Int) : Float {
+    Int Din, Dout, Cross;
+    Din = Sum(u: G.Nodes)(u.member == num){ u.Degree() };
+    Dout = Sum(u: G.Nodes)(u.member != num){ u.Degree() };
+    Cross = Sum(u: G.Nodes)(u.member == num){
+        Count(j: u.Nbrs)(j.member != num) };
+    Float m = (Din < Dout) ? Din : Dout;
+    If (m == 0) Return (Cross == 0) ? 0.0 : +INF;
+    Else Return (Cross / m);
+}
+"""
+
+_AVG_TEEN_CNT_GM = """
+Procedure avg_teen_cnt(G: Graph, age, teen_cnt: N_P<Int>, K: Int) : Float {
+    Foreach(n: G.Nodes) {
+        n.teen_cnt = Count(t: n.InNbrs)(t.age >= 10 && t.age < 20);
+    }
+    Float avg = (Float) Avg(n: G.Nodes)(n.age > K){ n.teen_cnt };
+    Return avg;
+}
+"""
+
+
+def test_segment_reduce_base_gives_the_whole_arrays_bits(dev):
+    """A slab reduced with ``base`` = its position in a longer array gets,
+    for every segment, the bits of the whole array's float32 sum (the
+    sharded PageRank's ranks then agree at every shard count)."""
+    rng = np.random.default_rng(21)
+    off = _segments(rng, 300_000, hub=1 << 18)
+    vals = torch.from_numpy(rng.random(int(off[-1])).astype(np.float32)) \
+        .to(dev)
+    whole = K.segment_reduce_sorted(vals, vals, torch.from_numpy(off).to(dev),
+                                    300_000, "add")
+    from green_marl_tpu_torch.ops import _build
+    tile = _build.lib().gm_segment_reduce_tile_size()
+    for first in (12_345, 99_999, 150_001):
+        cut = int(off[first])
+        assert cut % tile                  # not on a tile edge
+        sub = torch.from_numpy(off[first:] - cut).to(dev)
+        got = K.segment_reduce_sorted(vals[cut:].clone(), vals[cut:], sub,
+                                      300_000 - first, "add", base=cut)
+        assert torch.equal(got, whole[first:])
+
+
+def test_matrix_sweep_eight_shards_on_card(dev, tmp_path):
+    """``harness.matrix_sweep`` with 8 shards on the card: all 12 cells
+    run and agree with the one-device run; the pulls launch the segment
+    reduce."""
+    from green_marl_tpu_torch.harness import matrix_sweep as M
+    for app, text in (("pagerank", _PAGERANK_GM), ("hop_dist", _HOP_DIST_GM),
+                      ("sssp", _SSSP_GM), ("conduct", _CONDUCT_GM),
+                      ("avg_teen_cnt", _AVG_TEEN_CNT_GM)):
+        (tmp_path / f"{app}.gm").write_text(text)
+    path = str(tmp_path / "m.bin")
+    M.write_graph(path)
+    rec = M.sweep(path, "cuda", str(tmp_path), log=lambda m: None)
+    assert (rec["ran"], rec["passed"], rec["not_run"]) == (12, 12, 0)
+    launches = {(c["app"], c["placement"]): c["launches"]
+                for c in rec["cells"]}
+    assert launches[("pagerank", "engine")] > 0
+    assert launches[("pagerank", "distribute")] > 0
+    assert rec["base"]["pagerank"]["values"]
+
+
+def test_twitter_probe_fused_equals_paged_on_card(dev):
+    """``probes.twitter_scale`` at its smoke size on the card: fused ==
+    paged, and both == the CPU run bit for bit."""
+    from green_marl_tpu_torch.probes import twitter_scale as TW
+    bp, deg_rows, out_deg, _ = TW.prepare(*TW.SMOKE)
+    roots = TW.top_roots(out_deg)
+    card, cpu = {}, {}
+    res = TW.run(bp, deg_rows, roots, dev, reps=1, keep=card)
+    TW.run(bp, deg_rows, roots, torch.device("cpu"), ("fused",), reps=1,
+           keep=cpu)
+    assert res["equal"] and res["fused"]["peak_gb"] > 0
+    assert card["fused"][0] == cpu["fused"][0]
+    assert np.array_equal(card["fused"][1], cpu["fused"][1])
+    assert torch.equal(card["fused"][3], cpu["fused"][3])
+
+
+def test_bfs_probe_launches_the_prefix_sum(dev):
+    """``probes.bfs`` on the card at a small size: the pull sweep and the
+    auto BFS launch the prefix-sum kernel, and the BFS equals the CPU's."""
+    from green_marl_tpu_torch.probes import bfs as PB
+    g, out_deg, _ = PB.host_graph(20_000, 200_000)
+    rec = PB.measure(g, out_deg, dev, log=lambda m: None)
+    want = PB.measure(g, out_deg, torch.device("cpu"), log=lambda m: None)
+    assert rec["pull"]["plain_cumsum_launches"] > 0
+    assert rec["pull"]["ms"] is not None
+    assert (rec["bfs"]["levels"], rec["bfs"]["reached"]) == (
+        want["bfs"]["levels"], want["bfs"]["reached"])
+    fr = PB.pull_frontier(g)
+    gd = g.to(dev)
+    assert torch.equal(PB.pull(gd, fr.to(dev)).cpu(), PB.pull(g, fr))
