@@ -27,6 +27,7 @@ import torch
 from ..engine.superstep import while_loop
 from ..graph.csr import Graph
 from ..ops import scan_reduce
+from ..utils.timing import span
 
 PUSH_TIERS = (4096, 65536, 1 << 20, 1 << 21)
 
@@ -72,7 +73,10 @@ def _push_expand(g: Graph, frontier: torch.Tensor, push_begin: torch.Tensor,
     live = i < torch.clamp(total, max=e_cap)
     dst = push_nbr.index_select(0, slot)
     hit = torch.zeros(n_pad + e_cap, dtype=torch.bool, device=dev)
-    hit[torch.where(live, dst, n_pad + i).long()] = True
+    # PyTorch copies the Python ``True`` to the card from pageable memory
+    # before the scatter: a copy that waits for the stream
+    with span("gm:sync:bfs_push_mark"):
+        hit[torch.where(live, dst, n_pad + i).long()] = True
     return hit[:n_pad]
 
 
@@ -84,26 +88,28 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
     "pull" and "push" force one (push with the full ``e_pad`` budget, which
     never truncates).
     """
-    if direction not in ("auto", "pull", "push"):
-        raise ValueError(f"direction must be auto, pull or push, "
-                         f"got {direction!r}")
-    if max_iter is None:
-        max_iter = g.num_nodes + 1
-    dev = g.device
-    node_mask = g.node_mask()
-    if reverse:
-        pull_src, pull_off = g.node_idx, g.begin
-        push_begin, push_nbr = g.r_begin, g.r_node_idx
-        out_deg = g.in_degree().to(torch.int32)
-    else:
-        pull_src, pull_off = g.r_node_idx, g.r_begin
-        push_begin, push_nbr = g.begin, g.node_idx
-        out_deg = g.out_degree().to(torch.int32)
-    tiers = [cap for cap in PUSH_TIERS if cap < g.e_pad // 2]
+    with span("gm:setup"):
+        if direction not in ("auto", "pull", "push"):
+            raise ValueError(f"direction must be auto, pull or push, "
+                             f"got {direction!r}")
+        if max_iter is None:
+            max_iter = g.num_nodes + 1
+        dev = g.device
+        node_mask = g.node_mask()
+        if reverse:
+            pull_src, pull_off = g.node_idx, g.begin
+            push_begin, push_nbr = g.r_begin, g.r_node_idx
+            out_deg = g.in_degree().to(torch.int32)
+        else:
+            pull_src, pull_off = g.r_node_idx, g.r_begin
+            push_begin, push_nbr = g.begin, g.node_idx
+            out_deg = g.out_degree().to(torch.int32)
+        tiers = [cap for cap in PUSH_TIERS if cap < g.e_pad // 2]
 
-    ids = torch.arange(g.n_pad, dtype=torch.int32, device=dev)
-    frontier0 = (ids == root) & node_mask
-    level0 = torch.where(frontier0, 0, -1).to(torch.int32)
+        ids = torch.arange(g.n_pad, dtype=torch.int32, device=dev)
+        frontier0 = (ids == root) & node_mask
+        level0 = torch.where(frontier0, 0, -1).to(torch.int32)
+        state0 = (level0, frontier0, 0, frontier0.sum())
 
     def expand_pull(frontier):
         vals = frontier.index_select(0, pull_src).to(torch.int32)
@@ -117,7 +123,8 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
         elif direction == "push":
             hit = _push_expand(g, frontier, push_begin, push_nbr, g.e_pad)
         else:
-            fe = int(torch.where(frontier, out_deg, 0).sum())
+            with span("gm:sync:bfs_direction"):
+                fe = int(torch.where(frontier, out_deg, 0).sum())
             fits = [cap for cap in tiers if fe <= cap]
             hit = (_push_expand(g, frontier, push_begin, push_nbr, fits[0])
                    if fits else expand_pull(frontier))
@@ -125,11 +132,12 @@ def bfs(g: Graph, root: int, max_iter: Optional[int] = None,
         level = torch.where(nxt, depth + 1, level)
         return level, nxt, depth + 1, count + nxt.sum()
 
-    state0 = (level0, frontier0, 0, frontier0.sum())
     (level, _, _, count), stats = while_loop(step, lambda s: s[1].any(),
                                              state0, max_iter)
+    with span("gm:sync:bfs_reached"):
+        reached = int(count)
     return BfsResult(level=level, levels_run=stats.iterations,
-                     reached=int(count))
+                     reached=reached)
 
 
 def bfs_many_sequential(g: Graph, roots, max_iter: Optional[int] = None):

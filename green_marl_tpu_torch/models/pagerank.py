@@ -30,7 +30,7 @@ import torch
 from ..engine.superstep import converge_loop
 from ..graph.csr import Graph
 from ..ops import segment as ops
-from ..utils.timing import profile_supersteps
+from ..utils.timing import profile_supersteps, span
 
 
 class PageRankResult(NamedTuple):
@@ -47,7 +47,8 @@ def pagerank(g: Graph, e=0.001, d=0.85, max_iter: int = 100,
     in ``dtype``, as in the JAX version: a float64 test on the host could
     stop at another iteration.
     """
-    e, rank0, step = _setup(g, e, d, dtype)
+    with span("gm:setup"):
+        e, rank0, step = _setup(g, e, d, dtype)
     (rank, diff), stats = converge_loop(step, lambda st: st[1] > e,
                                         (rank0, torch.zeros_like(e)),
                                         max_iter)
@@ -59,9 +60,7 @@ def _setup(g: Graph, e, d, dtype):
     and one superstep ``(rank, diff) -> (rank', diff')``."""
     dev = g.device
     mask = g.node_mask()
-    inv_n = torch.tensor(1.0 / g.num_nodes, dtype=dtype, device=dev)
-    e = torch.tensor(e, dtype=dtype, device=dev)
-    d = torch.tensor(d, dtype=dtype, device=dev)
+    inv_n, e, d = (_upload(x, dtype, dev) for x in (1.0 / g.num_nodes, e, d))
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     out_deg = g.out_degree().to(dtype)
@@ -76,6 +75,13 @@ def _setup(g: Graph, e, d, dtype):
         return val, (val - rank).abs().sum()
 
     return e, torch.where(mask, inv_n, zero), step
+
+
+def _upload(x, dtype, dev) -> torch.Tensor:
+    """A host number as a 0-d tensor on ``dev``: from pageable memory, a
+    copy that waits for the stream."""
+    with span("gm:sync:upload"):
+        return torch.tensor(x, dtype=dtype, device=dev)
 
 
 def pagerank_profiled(g: Graph, e=0.001, d=0.85, max_iter: int = 100,

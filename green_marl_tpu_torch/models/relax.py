@@ -23,7 +23,7 @@ import torch
 from ..engine.superstep import while_loop
 from ..graph.csr import Graph
 from ..ops import segment as ops
-from ..utils.timing import profile_supersteps
+from ..utils.timing import profile_supersteps, span
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -42,7 +42,8 @@ def _setup(g: Graph, root: int, edge_len: Optional[torch.Tensor],
            dist_dtype: torch.dtype):
     """``((dist0, updated0), step)`` of the relaxation from ``root``."""
     dev = g.device
-    inf = torch.tensor(_inf(dist_dtype), dtype=dist_dtype, device=dev)
+    with span("gm:sync:upload"):     # from pageable memory: a copy that waits
+        inf = torch.tensor(_inf(dist_dtype), dtype=dist_dtype, device=dev)
     ids = torch.arange(g.n_pad, dtype=torch.int32, device=dev)
     upd0 = ids == root
     dist0 = torch.where(upd0 & g.node_mask(), torch.zeros_like(inf), inf)
@@ -74,7 +75,8 @@ def min_relax(g: Graph, root: int, edge_len: Optional[torch.Tensor] = None,
     """
     if max_iter is None:
         max_iter = g.num_nodes + 1
-    state0, step = _setup(g, root, edge_len, dist_dtype)
+    with span("gm:setup"):
+        state0, step = _setup(g, root, edge_len, dist_dtype)
     (dist, _), stats = while_loop(step, lambda s: s[1].any(), state0,
                                   max_iter)
     return RelaxResult(dist=dist, iterations=stats.iterations)

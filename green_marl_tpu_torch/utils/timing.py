@@ -1,4 +1,5 @@
-"""Per-superstep timing and the graph's array report (``-GMProfile``).
+"""Per-superstep timing, the graph's array report (``-GMProfile``) and the
+program's profiler spans.
 
 Counterpart of ``profile_supersteps`` and ``graph_placement_report`` of
 ``green_marl_tpu/utils/timing.py``.  Its other helpers (``sync``,
@@ -11,14 +12,22 @@ entry point's ``--device``, which never falls back to the CPU),
 :func:`card` (``nvidia-smi``'s name and power limit) and :func:`timed` (the
 host clock around a call that ends in a synchronize, and CUDA events on the
 card).
+
+:func:`span` names the program's own ranges in a ``torch.profiler`` trace:
+``gm:setup`` (a model call's work before its loop), ``gm:superstep`` (one
+pass of a superstep loop) and ``gm:sync:<site>`` (each host wait for the
+device: ``predicate``, ``upload``, ``bfs_direction``, ``bfs_push_mark``,
+``bfs_reached``).  They exist only while a profiler records.
 """
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 
 import torch
+from torch.autograd import _profiler_enabled
 
 from ..graph.csr import ARRAY_FIELDS
 
@@ -31,6 +40,19 @@ def _device_of(state) -> torch.device:
         if isinstance(x, torch.Tensor):
             return x.device
     return torch.device("cpu")
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else a shared no-op context: one flag read when nobody profiles (an
+    unrecorded ``record_function`` costs ~20x as much on a CPU).  The range
+    sits in the profiler's trace, on the clock of the device activities."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def profile_supersteps(step, state, cond, max_iter: int = 10 ** 6):
