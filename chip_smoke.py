@@ -30,6 +30,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    the call to the result on the host) beside CUDA events; then BFS from
    the four highest-degree nodes, checked against hop_dist and sssp;
 5. one PageRank superstep's pull-sum on that graph, kernel against plain,
+   sssp from the first of those roots superstep by superstep with the
+   segment reduce's gather form (hop_dist's and sssp's relax step) held
+   bit for bit against its plain version at each superstep, with the
+   weights and with unit weights, and timed at the densest and the
+   sparsest superstep beside the five launches it replaced and its bound,
    the graph's in-degree picture, and each kernel's time at that graph's
    shapes beside its plain version, its bound (the bytes it must move over
    the card's 3.35 TB/s) and, where one PyTorch call computes the same
@@ -342,6 +347,78 @@ def launched_since(K, before):
     """The kernels launched since ``before = K.launch_counts()``, by name."""
     return {name: n - before[name] for name, n in K.launch_counts().items()
             if n != before[name]}
+
+
+def relax_form_check(torch, K, g, root, w, sp):
+    """Phase 5: sssp from ``root`` superstep by superstep, the segment
+    reduce's gather form (the main path's relax step) held bit for bit
+    against its plain version at each superstep, with the weights and with
+    unit weights (``add=None``); the steps must reach ``sp``, the model's
+    own run.  Then, at the densest superstep and at the sparsest with a
+    source set, each form's time beside the five launches it replaced
+    (two ``index_select``, the add, ``where``, the plain segment min) and
+    its bound: the ids (and the weights) of the slots of a row, the
+    offsets, the rows out, ``dist`` and ``updated`` once each."""
+    src, ids, offs, n_pad = g.r_node_idx, g.r_node_idx_dst, g.r_begin, g.n_pad
+    w_csc = w.index_select(0, g.e_rev2idx)
+    inf = torch.tensor(torch.iinfo(torch.int32).max, dtype=torch.int32,
+                       device=src.device)
+    dist = torch.full((n_pad,), int(inf), dtype=torch.int32,
+                      device=src.device)
+    dist[root] = 0
+    upd = torch.zeros(n_pad, dtype=torch.bool, device=src.device)
+    upd[root] = True
+    states = []                      # (share of slots set, dist, updated)
+    equal = {"weights": True, "unit weights": True}
+    while bool(upd.any()):
+        for what, add in (("weights", w_csc), ("unit weights", None)):
+            kw = dict(node_vals=dist, node_mask=upd, add=add)
+            got = K.segment_reduce_sorted(src, ids, offs, n_pad, "min", **kw)
+            want = K.segment_reduce_sorted_ref(src, ids, offs, n_pad, "min",
+                                               **kw)
+            equal[what] &= torch.equal(got, want)
+            if add is not None:
+                best = got
+        states.append((float(upd.index_select(0, src[:g.num_edges])
+                             .float().mean()), dist, upd))
+        new = torch.minimum(dist, best)
+        upd = new < dist
+        dist = new
+    shares = [round(s, 4) for s, _, _ in states]
+    for what, ok in equal.items():
+        check(ok, f"gather form int32 min with {what} on the LJ arrays: "
+              f"kernel == plain at each of sssp's {len(states)} supersteps "
+              f"from root {root} (shares of the slots' sources set: "
+              f"{shares})")
+    check(len(states) == sp.iterations and torch.equal(dist, sp.dist),
+          f"those {len(states)} supersteps reach sssp's own distances")
+    in_range = int(offs[-1]) - int(offs[0])
+    fixed = 4 * offs.numel() + 4 * n_pad + 5 * n_pad
+    dense = max(range(len(states)), key=lambda i: states[i][0])
+    sparse = min((i for i in range(len(states)) if states[i][0] > 0),
+                 key=lambda i: states[i][0])
+    recs = []
+    for step in (dense, sparse):
+        share, dist, upd = states[step]
+        for what, add, wt in (("weights", w_csc, w_csc),
+                              ("unit weights", None, 1)):
+            def form():
+                return K.segment_reduce_sorted(
+                    src, ids, offs, n_pad, "min", node_vals=dist,
+                    node_mask=upd, add=add)
+
+            def five():
+                cand = torch.where(upd.index_select(0, src),
+                                   dist.index_select(0, src) + wt, inf)
+                return K.segment_reduce_sorted(cand, ids, offs, n_pad, "min")
+
+            ms = cuda_ms(torch, form)
+            nbytes = (8 if add is not None else 4) * in_range + fixed
+            bound = nbytes / HBM_BYTES_PER_MS
+            recs.append(dict(add=what, step=step, share=share, ms=ms,
+                             five_ms=cuda_ms(torch, five), bytes=nbytes,
+                             bound_ms=bound, pct=100 * bound / ms))
+    return recs
 
 
 def timed_calls(module, name, sink):
@@ -2209,7 +2286,10 @@ def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
             "pagerank.gm_vsharded": S * scale.PR_ITERS}
     for run, k in want.items():
         got = rec["launches"][run]
-        check(got == ({"segment_reduce_sorted": k} if k else {}),
+        expect = {"segment_reduce_sorted": k} if k else {}
+        if run == "hop_dist":           # min_relax: the gather form
+            expect["segment_reduce_sorted[gather]"] = k
+        check(got == expect,
               f"{run}: launches {got}, {k} segment reduces expected")
     check(c["ok"], "every check of the witness")
     launched = {name: sum(r.get(name, 0) for r in rec["launches"].values())
@@ -2730,11 +2810,22 @@ def main():
         check(same, f"root {r}: bfs levels == hop_dist distances "
               f"(hop_dist {hd.iterations} supersteps, "
               f"{ev0.elapsed_time(ev1):.1f} ms)")
+    before = K.launch_counts()
     ev0.record()
     sp = sssp(g, roots[0], w)
     ev1.record()
     ev1.synchronize()
+    sp_launches = launched_since(K, before)
+    before = K.launch_counts()
     hd = hop_dist(g, roots[0])
+    hd_launches = launched_since(K, before)
+    # min_relax's step: one launch of the segment reduce's gather form
+    for name, res, got in (("sssp", sp, sp_launches),
+                           ("hop_dist", hd, hd_launches)):
+        check(got.get("segment_reduce_sorted[gather]") == res.iterations
+              == got.get("segment_reduce_sorted"),
+              f"root {roots[0]}: {name} launched the gather form once a "
+              f"superstep ({res.iterations} supersteps; {got})")
     check(bool((sp.dist >= hd.dist).all()),
           f"root {roots[0]}: sssp >= hop_dist everywhere "
           f"(sssp {sp.iterations} supersteps, "
@@ -2746,7 +2837,8 @@ def main():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  main path {time.time() - t_main:.1f} s; launches {counts}; "
         f"device memory peak {peak_gb:.2f} GB")
-    for name in ("segment_reduce_sorted", "plain_cumsum"):
+    for name in ("segment_reduce_sorted", "segment_reduce_sorted[gather]",
+                 "plain_cumsum"):
         check(counts[name] > 0, f"{name} launched on the main path "
               f"({counts[name]} times)")
     counts["segmented_scan"] = scan_launches
@@ -2778,6 +2870,7 @@ def main():
                       K.segment_reduce_sorted_ref(cand, ids, offs, n_pad,
                                                   "min")),
           "relax-style int32 min on the LJ arrays: kernel == plain")
+    gather_rec = relax_form_check(torch, K, g, roots[0], w, sp)
     bits = (torch.arange(g.e_pad, device=dev) % 3 == 0).to(torch.int32)
     cs_err = int((K.plain_cumsum(bits) - K.plain_cumsum_ref(bits))
                  .abs().max())
@@ -2879,6 +2972,12 @@ def main():
         f"plain {times['segment_reduce_sorted'][1]:.3f} ms")
     log(f"  segment_reduce_sorted int32 min, same shape: kernel "
         f"{min_ms[0]:.3f} ms, plain {min_ms[1]:.3f} ms")
+    for r in gather_rec:
+        log(f"  segment_reduce_sorted gather form, int32 {r['add']}, sssp "
+            f"superstep {r['step']} ({r['share']:.4f} of the slots' sources "
+            f"set): kernel {r['ms']:.3f} ms, the five launches it replaced "
+            f"{r['five_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bytes'] / 1e6:.1f} MB), {r['pct']:.1f}% of it")
     log(f"  plain_cumsum int32 n={g.e_pad}: kernel "
         f"{times['plain_cumsum'][0]:.3f} ms, plain "
         f"{times['plain_cumsum'][1]:.3f} ms")
@@ -3180,7 +3279,16 @@ def main():
          "bound_ms": lane_recs[f"{name}[lanes]"]["bytes"] / HBM_BYTES_PER_MS,
          "bound_by": "bytes",
          "library_ms": lane_recs[f"{name}[lanes]"]["library_ms"]}
-        for name in LANE_KERNELS]}))
+        for name in LANE_KERNELS] + [
+        {"name": "segment_reduce_sorted[gather]", "route": "cuda",
+         "source": SOURCES["segment_reduce_sorted"],
+         "replaces": "green_marl_tpu/models/relax.py:58 (the step's "
+                     "gathers, add and mask, then the segment min)",
+         "launches": counts["segment_reduce_sorted[gather]"],
+         "max_abs_err": 0.0, "ms": gather_rec[0]["ms"],
+         "plain_ms": gather_rec[0]["five_ms"],
+         "bound_ms": gather_rec[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

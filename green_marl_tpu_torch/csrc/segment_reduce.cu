@@ -103,6 +103,39 @@
 // which shares the row-bounds launch and gives each lane the bits of the
 // one-row launch on its row.
 //
+// The gather form (kGather; replaces no TPU kernel: the JAX package's
+// min-relaxation, green_marl_tpu/models/relax.py, gathers, masks and adds in
+// XLA before its segment min) is the superstep of hop_dist and sssp in one
+// launch, min only: vals holds each slot's source id, and slot i contributes
+//   node_vals[vals[i]] + add[i]  (1 without add)  where node_mask[vals[i]],
+//   the identity where not,
+// the add done as PyTorch does it (uint32 for int32, one IEEE add for
+// float32), so the result has the bits of gather, gather, where and the
+// plain reduce.  The tile's `cp.async` stage brings in the ids, the slot
+// pass is the one above.  Bound by bytes: the ids (and the weights)
+// streamed once, 4-8 bytes a slot where the five PyTorch passes moved ~40.
+// What bounds it in fact is random reads, one of the flags a slot and one
+// of node_vals a slot whose source is set, each a 32-byte sector: at
+// 4.8M nodes both tables stay in the L2, at 16.8M node_vals misses it.
+//   - Each thread requests its slots' flags right after the tile's ids
+//     arrive, before the pass over the rows, and the values (and the
+//     weights of the vectors of slots with a set source) as soon as the
+//     flags are in, all before the first use.  The reads go to the L2 only
+//     (`ld.global.cg`): nothing of the tables is read twice by one SM.
+//   - Two blocks an SM (kGatherBlocksPerSM): no registers spilled, and the
+//     L1 keeps room for the reads in flight.
+//   - A summary of the flags, one bit for 2^shift nodes, built by
+//     mask_summary_kernel before the tiles and held whole in each block's
+//     shared memory (kSummaryWords): a slot whose source's bit is clear
+//     reads no flag.  Most supersteps set few sources (a BFS wave's head
+//     and tail), and there the flags' reads were most of the time: at a
+//     share of 0 of the sources set, 0.68 -> 0.35 ms at the
+//     soc-LiveJournal1 shape, 4.9 -> 2.3 ms at Graph500 scale 24.
+//   - Four instantiations: int32 (hop_dist, and sssp with add) and float32
+//     (min_relax's float distances, with and without add).  ids and add
+//     must be 16-byte aligned, so the stage is always the 16-byte one
+//     (the wrapper copies a view that is not aligned).
+//
 // Empty segments and rows v >= n_seg get the op's identity: 0, INT32_MAX,
 // INT32_MIN for int32 and 0, +inf, -inf for float32.  Slots outside
 // [offsets[0], offsets[n_seg]) count as the identity.  Integer add wraps mod
@@ -114,12 +147,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "lookback.cuh"
 
 namespace {
 
 using gm::kFull;
 using gm::Red;
+
+// The gather form's node tables: values and flags by node id, a value by
+// slot to add (null: 1), and the flags' summary: bit g of `summary` is set
+// where a node of [g << shift, (g + 1) << shift) is (shift 0: the flags).
+template <typename T>
+struct NodeTables {
+  const T* vals;
+  const uint8_t* mask;
+  const T* add;
+  const uint32_t* summary;
+  int64_t summary_words;
+  int shift;
+};
+
+// x + w as PyTorch adds two tensors of the type: int32 wraps mod 2^32,
+// float32 rounds once (no contraction into a neighbouring operation).
+__device__ __forceinline__ int32_t torch_add(int32_t x, int32_t w) {
+  return (int32_t)((uint32_t)x + (uint32_t)w);
+}
+__device__ __forceinline__ float torch_add(float x, float w) {
+  return __fadd_rn(x, w);
+}
 
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, LiveJournal-scale pull
 // shape (PERF.md): 4 vectors with the registers capped for 4 blocks per SM
@@ -129,6 +186,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVecs = 4;            // 16-byte vectors (4 slots each) per thread
 constexpr int kBlocksPerSM = 4;     // blocks per SM that the registers must allow
+// The gather form's, measured at the benchmark's graph shapes on the same
+// card (PERF.md), ms at a share of 0 and 1 of the sources set, lj then
+// g500s24: 4 blocks (64 registers, 132-180 bytes spilled) 0.88, 2.17 and
+// 9.34, 27.7; 3 blocks (80 registers) 0.77, 1.34 and 5.40, 13.6; 2 blocks
+// (no spills) 0.67, 1.25 and 5.07, 12.9.  Fewer blocks leave more of the
+// SM's 256 KB to the L1, which holds the random reads in flight.
+constexpr int kGatherBlocksPerSM = 2;
 constexpr int kPer = 4 * kVecs;                    // consecutive slots a thread
 constexpr int kTile = kThreads * kPer;             // edge slots per tile
 constexpr int kRowChunk = 512;                     // rows per offsets load
@@ -248,24 +312,68 @@ __device__ __forceinline__ void combine(int pf, typename R::type pv, int& f,
 constexpr int kOffBuf = kRowChunk + 1;
 constexpr size_t kSmemBytes =
     (size_t)(2 * kTile + kTile + 2 * kOffBuf + kRowChunk + kTile / 32) * 4;
+// The gather form's summary of the flags, kept whole in each block's shared
+// memory behind the rest: at most kSummaryWords words, one bit for each
+// 2^shift nodes, shift the least that fits (0 up to 212,992 nodes; 32 nodes
+// a bit at soc-LiveJournal1's 4.8M, 128 at Graph500 scale 24's 16.8M).  26
+// KB keeps two blocks an SM in the 164 KB carve-out, which leaves the L1 96
+// KB for the reads in flight.  Measured at the benchmark's shapes on the
+// same card (PERF.md), slot passes of a whole sssp, lj then g500s24: no
+// summary 17.7 and 204 ms; 40 KB (16 and 64 nodes a bit, the 196 KB
+// carve-out) 15.0 and 183; 26 KB 15.3 and 173.
+constexpr int kSummaryWords = 6656;
+constexpr size_t kGatherSmemBytes = kSmemBytes + (size_t)kSummaryWords * 4;
 
-template <typename T, int OP, bool kVec>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
-                      const int32_t* __restrict__ offsets, int64_t n_seg,
-                      int64_t n_out, T* __restrict__ out,
-                      uint64_t* __restrict__ status,
-                      const int64_t* __restrict__ tile_rows,
-                      const int64_t* __restrict__ run_end,
-                      int64_t n_tiles) {
+// The summary, one warp a word: lane l sets bit l where a flag of its
+// 2^shift nodes is set.
+__global__ void __launch_bounds__(kThreads)
+mask_summary_kernel(const uint8_t* __restrict__ mask, int64_t n_nodes,
+                    int shift, uint32_t* __restrict__ summary,
+                    int64_t n_words) {
+  const int lane = threadIdx.x & 31;
+  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= n_words) return;                      // whole warps
+  const int64_t lo = ((w << 5) + lane) << shift;
+  int64_t hi = lo + ((int64_t)1 << shift);
+  hi = hi < n_nodes ? hi : n_nodes;
+  bool any = false;
+  int64_t v = lo;
+  if (shift >= 4 && (uintptr_t)mask % 16 == 0)   // 16 flags a load
+    for (; v + 16 <= hi; v += 16) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(mask + v));
+      any |= (q.x | q.y | q.z | q.w) != 0u;
+    }
+  for (; v < hi; ++v) any |= mask[v] != 0;
+  const unsigned bits = __ballot_sync(kFull, any);
+  if (lane == 0) summary[w] = bits;
+}
+
+// kGather: vals holds source ids and `nt` the node tables (see the head of
+// the file); kAdd: nt.add is given.  Without kGather, nt is not read.
+template <typename T, int OP, bool kVec, bool kGather = false,
+          bool kAdd = false>
+__global__ void __launch_bounds__(kThreads,
+                                  kGather ? kGatherBlocksPerSM : kBlocksPerSM)
+segment_reduce_kernel(
+    const typename std::conditional<kGather, int32_t, T>::type* __restrict__
+        vals,
+    int64_t n_vals, const int32_t* __restrict__ offsets, int64_t n_seg,
+    int64_t n_out, T* __restrict__ out, uint64_t* __restrict__ status,
+    const int64_t* __restrict__ tile_rows,
+    const int64_t* __restrict__ run_end, int64_t n_tiles, NodeTables<T> nt) {
   typedef Red<T, OP> R;
+  // what the tile's stage holds: the values, or the gather form's ids
+  typedef typename std::conditional<kGather, int32_t, T>::type S;
+  static_assert(!kGather || OP == gm::OP_MIN, "the gather form is a min");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const s_vals = reinterpret_cast<T*>(smem);  // [2][kTile], phys_vec order
+  S* const s_vals = reinterpret_cast<S*>(smem);  // [2][kTile], phys_vec order
   // s_row[k]: the row that ends at slot k, counted from the tile's first row
   int32_t* const s_row = reinterpret_cast<int32_t*>(smem) + 2 * kTile;
   int32_t* const s_off = s_row + kTile;          // [2][kOffBuf], as in memory
   T* const s_out = reinterpret_cast<T*>(s_off + 2 * kOffBuf);  // [kRowChunk]
   unsigned* const s_ends = reinterpret_cast<unsigned*>(s_out + kRowChunk);
+  // the gather form's summary of the flags, [nt.summary_words]
+  uint32_t* const s_sum = reinterpret_cast<uint32_t*>(s_ends + kTile / 32);
   __shared__ int s_wf[kWarps];
   __shared__ T s_wv[kWarps];
   __shared__ T s_head;                           // the cut first row's part
@@ -279,6 +387,9 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     out[v] = R::ident();
 
   if (t < kTile / 32) s_ends[t] = 0;
+  if (kGather)           // read after the first tile's barrier
+    for (int64_t i = t; i < nt.summary_words; i += kThreads)
+      s_sum[i] = nt.summary[i];
   // the slots that belong to any row at all: [lo, hi)
   const int64_t lo = offsets[0];
   const int64_t hi = offsets[n_seg];
@@ -292,7 +403,7 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     for (int r = 0; r < kVecs; ++r) {
       const int vec = r * kThreads + t;          // coalesced over the threads
       const int64_t i = ts + 4 * vec;
-      T* dst = s_vals + b * kTile + 4 * phys_vec(vec / kVecs, vec % kVecs);
+      S* dst = s_vals + b * kTile + 4 * phys_vec(vec / kVecs, vec % kVecs);
       if (kVec && i + 4 <= n_vals) {
         cp_async16(dst, vals + i);
       } else {
@@ -342,8 +453,32 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     __syncthreads();
 
     const int64_t ts = tile * kTile;             // the tile's slots: [ts, te)
-    const T* const v_tile = s_vals + b * kTile;
+    const S* const v_tile = s_vals + b * kTile;
     int32_t* const off = s_off + b * kOffBuf;
+    const int base = kPer * t;
+    // the slots of no row ([lo, hi) holds the rest) count as the identity
+    const bool edge = ts + base < lo || ts + base + kPer > hi;
+    // the gather form: my slots' flags, on their way through the row pass
+    uint32_t flag[kGather ? kPer : 1];
+    if (kGather) {
+#pragma unroll
+      for (int m = 0; m < kVecs; ++m) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(v_tile + 4 * phys_vec(t, m));
+        const uint32_t id[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int64_t i = ts + base + 4 * m + q;
+          const uint32_t g = id[q] >> nt.shift;
+          const bool maybe = !(edge && (i < lo || i >= hi)) &&
+                             ((s_sum[g >> 5] >> (g & 31)) & 1u);
+          // the flag itself where the summary's bit stands for more nodes
+          flag[4 * m + q] =
+              maybe && nt.shift ? (uint32_t)__ldcg(nt.mask + id[q])
+                                : (uint32_t)maybe;
+        }
+      }
+    }
     // the row cut by the tile's start (it ends here, so r0 < r1)
     const bool head = r0 < r1 && (int64_t)off[0] < ts;
     // few rows (the rule): their results meet in shared memory and leave
@@ -400,20 +535,61 @@ segment_reduce_kernel(const T* __restrict__ vals, int64_t n_vals,
     //    registers, writes the rows that start and end inside them, and
     //    keeps the part before the first end and the part after the last
     T x[kPer];
+    if (kGather) {
+      // the set sources' values and, where a vector of slots has one, its
+      // weights, all requested before the first is used
+      unsigned set = 0;
 #pragma unroll
-    for (int m = 0; m < kVecs; ++m) {
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(v_tile + 4 * phys_vec(t, m));
-      x[4 * m + 0] = gm::from_bits<T>(v.x);
-      x[4 * m + 1] = gm::from_bits<T>(v.y);
-      x[4 * m + 2] = gm::from_bits<T>(v.z);
-      x[4 * m + 3] = gm::from_bits<T>(v.w);
-    }
-    const int base = kPer * t;
-    if (ts + base < lo || ts + base + kPer > hi) {   // slots of no row
+      for (int j = 0; j < kPer; ++j) set |= (flag[j] != 0u ? 1u : 0u) << j;
+#pragma unroll
+      for (int m = 0; m < kVecs; ++m) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(v_tile + 4 * phys_vec(t, m));
+        const uint32_t id[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          x[4 * m + q] =
+              (set >> (4 * m + q)) & 1u ? __ldcg(nt.vals + id[q]) : R::ident();
+      }
+      T w[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) w[j] = (T)1;
+      if (kAdd) {
+        const T* const wp = nt.add + ts + base;
+#pragma unroll
+        for (int m = 0; m < kVecs; ++m) {
+          if (!((set >> (4 * m)) & 0xfu)) continue;
+          if (kVec && ts + base + 4 * m + 4 <= n_vals) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(wp + 4 * m));
+            w[4 * m + 0] = gm::from_bits<T>(v.x);
+            w[4 * m + 1] = gm::from_bits<T>(v.y);
+            w[4 * m + 2] = gm::from_bits<T>(v.z);
+            w[4 * m + 3] = gm::from_bits<T>(v.w);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if ((set >> (4 * m + q)) & 1u) w[4 * m + q] = __ldg(wp + 4 * m + q);
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < kPer; ++j)
-        if (ts + base + j < lo || ts + base + j >= hi) x[j] = R::ident();
+        if ((set >> j) & 1u) x[j] = torch_add(x[j], w[j]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < kVecs; ++m) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(v_tile + 4 * phys_vec(t, m));
+        x[4 * m + 0] = gm::from_bits<T>(v.x);
+        x[4 * m + 1] = gm::from_bits<T>(v.y);
+        x[4 * m + 2] = gm::from_bits<T>(v.z);
+        x[4 * m + 3] = gm::from_bits<T>(v.w);
+      }
+      if (edge) {                                // slots of no row
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (ts + base + j < lo || ts + base + j >= hi) x[j] = R::ident();
+      }
     }
     const unsigned ends = (s_ends[base >> 5] >> (base & 31)) &
                           (kPer == 32 ? ~0u : (1u << kPer) - 1u);
@@ -942,22 +1118,24 @@ cudaError_t resident_blocks(const void* kernel, size_t smem, int* resident) {
 // A cooperative launch: the runtime starts the grid only when all of its
 // blocks fit on the card together, or refuses it.  A block that waits for a
 // tile's status word thus never waits for a block that is not running.
-template <typename T, int OP, bool kVec>
-cudaError_t launch_tiles(const T* vals, int64_t n_vals,
-                         const int32_t* offsets, int64_t n_seg, int64_t n_out,
-                         T* out, uint64_t* status, const int64_t* rows,
-                         const int64_t* run_end, int64_t n_tiles,
-                         cudaStream_t stream) {
-  auto kernel = segment_reduce_kernel<T, OP, kVec>;
+template <typename T, int OP, bool kVec, bool kGather = false,
+          bool kAdd = false>
+cudaError_t launch_tiles(
+    const typename std::conditional<kGather, int32_t, T>::type* vals,
+    int64_t n_vals, const int32_t* offsets, int64_t n_seg, int64_t n_out,
+    T* out, uint64_t* status, const int64_t* rows, const int64_t* run_end,
+    int64_t n_tiles, cudaStream_t stream, NodeTables<T> nt = {}) {
+  auto kernel = segment_reduce_kernel<T, OP, kVec, kGather, kAdd>;
+  const size_t smem = kGather ? kGatherSmemBytes : kSmemBytes;
   static int resident = 0;
-  cudaError_t e = resident_blocks((const void*)kernel, kSmemBytes, &resident);
+  cudaError_t e = resident_blocks((const void*)kernel, smem, &resident);
   if (e != cudaSuccess) return e;
   const int64_t blocks = n_tiles < resident ? n_tiles : resident;
-  void* args[] = {&vals,   &n_vals, &offsets, &n_seg,   &n_out,
-                  &out,    &status, &rows,    &run_end, &n_tiles};
+  void* args[] = {&vals,   &n_vals, &offsets, &n_seg,   &n_out,  &out,
+                  &status, &rows,   &run_end, &n_tiles, &nt};
   return cudaLaunchCooperativeKernel((const void*)kernel,
                                      dim3((unsigned)blocks), dim3(kThreads),
-                                     args, kSmemBytes, stream);
+                                     args, smem, stream);
 }
 
 template <typename T, int OP, bool kTma>
@@ -988,16 +1166,17 @@ cudaError_t launch_lane_tiles(const T* vals, int64_t n_vals,
                                      args, kLaneSmemBytes, stream);
 }
 
+// Clears the status words and launches the row bounds (tile_rows_kernel).
 template <typename T, int OP>
-int launch(const void* vals, int64_t n_lanes, int64_t n_vals,
-           const int32_t* offsets, int64_t n_seg, int64_t n_out, void* out,
-           void* scratch, int64_t n_tiles, cudaStream_t stream) {
+cudaError_t row_bounds(int64_t n_lanes, const int32_t* offsets, int64_t n_seg,
+                       int64_t n_out, void* out, void* scratch,
+                       int64_t n_tiles, cudaStream_t stream) {
   uint64_t* status = (uint64_t*)scratch;
   int64_t* rows = (int64_t*)(status + n_lanes * n_tiles);
   int64_t* run_end = rows + n_tiles + 1;
   cudaError_t e =
       cudaMemsetAsync(scratch, 0, (size_t)(n_lanes * n_tiles) * 8, stream);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
   // a warp for each of the n_tiles + 1 row bounds, then one for 32 chunks
   const int64_t warps = n_tiles + 1 + (n_seg + 32 * kRowChunk - 1) /
                                           (32 * kRowChunk);
@@ -1005,7 +1184,18 @@ int launch(const void* vals, int64_t n_lanes, int64_t n_vals,
                             kThreads, 0, stream>>>(offsets, n_seg, n_tiles,
                                                    rows, run_end, (T*)out,
                                                    n_out, n_lanes);
-  e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T, int OP>
+int launch(const void* vals, int64_t n_lanes, int64_t n_vals,
+           const int32_t* offsets, int64_t n_seg, int64_t n_out, void* out,
+           void* scratch, int64_t n_tiles, cudaStream_t stream) {
+  uint64_t* status = (uint64_t*)scratch;
+  int64_t* rows = (int64_t*)(status + n_lanes * n_tiles);
+  int64_t* run_end = rows + n_tiles + 1;
+  cudaError_t e = row_bounds<T, OP>(n_lanes, offsets, n_seg, n_out, out,
+                                    scratch, n_tiles, stream);
   if (e != cudaSuccess) return (int)e;
   // 16-byte loads and bulk copies need every lane's row aligned
   const bool vec =
@@ -1026,6 +1216,44 @@ int launch(const void* vals, int64_t n_lanes, int64_t n_vals,
             : launch_lane_tiles<T, OP, false>(v, n_vals, offsets, n_seg,
                                               n_out, o, status, rows, run_end,
                                               n_tiles, n_lanes, stream);
+  return (int)e;
+}
+
+// The gather form, one row of slots: ids (and add) read with 16-byte loads,
+// so both must be 16-byte aligned (the wrapper copies a view that is not).
+template <typename T>
+int launch_gather(const int32_t* ids, int64_t n_vals, const int32_t* offsets,
+                  int64_t n_seg, int64_t n_out, void* out, void* scratch,
+                  NodeTables<T> nt, int64_t n_nodes, int64_t n_tiles,
+                  cudaStream_t stream) {
+  constexpr int OP = gm::OP_MIN;
+  uint64_t* status = (uint64_t*)scratch;
+  int64_t* rows = (int64_t*)(status + n_tiles);
+  int64_t* run_end = rows + n_tiles + 1;
+  cudaError_t e = row_bounds<T, OP>(1, offsets, n_seg, n_out, out, scratch,
+                                    n_tiles, stream);
+  if (e != cudaSuccess) return (int)e;
+  // the summary, after the row bounds in the scratch
+  int shift = 0;
+  while (((n_nodes - 1) >> shift) >= (int64_t)kSummaryWords * 32) ++shift;
+  nt.shift = shift;
+  nt.summary_words = n_nodes > 0 ? (((n_nodes - 1) >> shift) >> 5) + 1 : 0;
+  uint32_t* summary = (uint32_t*)(run_end + (n_seg + kRowChunk - 1) / kRowChunk);
+  nt.summary = summary;
+  if (nt.summary_words > 0) {
+    mask_summary_kernel<<<(unsigned)((nt.summary_words + kWarps - 1) / kWarps),
+                          kThreads, 0, stream>>>(nt.mask, n_nodes, shift,
+                                                 summary, nt.summary_words);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  T* o = (T*)out;
+  e = nt.add ? launch_tiles<T, OP, true, true, true>(
+                   ids, n_vals, offsets, n_seg, n_out, o, status, rows,
+                   run_end, n_tiles, stream, nt)
+             : launch_tiles<T, OP, true, true, false>(
+                   ids, n_vals, offsets, n_seg, n_out, o, status, rows,
+                   run_end, n_tiles, stream, nt);
   return (int)e;
 }
 
@@ -1060,6 +1288,34 @@ int gm_segment_reduce(const void* vals, int64_t n_lanes, int64_t n_vals,
     case 3: return launch<float, gm::OP_ADD>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
     case 4: return launch<float, gm::OP_MIN>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
     case 5: return launch<float, gm::OP_MAX>(vals, b, n_vals, offsets, n_seg, n_out, out, scratch, t, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The gather form's scratch beyond one lane's: uint64 words for the summary.
+int gm_segment_reduce_gather_scratch(void) { return kSummaryWords / 2; }
+
+// The gather form (min only, one row): ids holds each slot's node id;
+// node_vals ([n_nodes], dtype 0 = int32, 1 = float32) and node_mask
+// ([n_nodes] bytes, 0 = unset) are read at the ids of the slots in
+// [offsets[0], offsets[n_seg]); add ([n_vals], node_vals' dtype) may be
+// null for 1.  ids and add 16-byte aligned (else cudaErrorInvalidValue).
+// Scratch: one lane's of gm_segment_reduce, then
+// gm_segment_reduce_gather_scratch() words; out as gm_segment_reduce's.
+int gm_segment_reduce_gather(const int32_t* ids, int64_t n_vals,
+                             const int32_t* offsets, int64_t n_seg,
+                             int64_t n_out, void* out, void* scratch,
+                             const void* node_vals, const uint8_t* node_mask,
+                             int64_t n_nodes, const void* add, int dtype,
+                             void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_out <= 0) return (int)cudaGetLastError();
+  if ((uintptr_t)ids % 16 != 0 || (uintptr_t)add % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t t = n_vals > 0 ? (n_vals + kTile - 1) / kTile : 1;
+  switch (dtype) {
+    case 0: return launch_gather<int32_t>(ids, n_vals, offsets, n_seg, n_out, out, scratch, {(const int32_t*)node_vals, node_mask, (const int32_t*)add, nullptr, 0, 0}, n_nodes, t, s);
+    case 1: return launch_gather<float>(ids, n_vals, offsets, n_seg, n_out, out, scratch, {(const float*)node_vals, node_mask, (const float*)add, nullptr, 0, 0}, n_nodes, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

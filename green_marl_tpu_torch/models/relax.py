@@ -9,8 +9,12 @@ family reduces to (hop_dist.gm:36-50, sssp.gm:77-91)::
     G.dist = G.dist_nxt; G.updated = G.updated_nxt; fin = !Exist(updated)
 
 run here as a pull over CSC slots: each destination takes the min over its
-in-edges from updated sources (the segment-reduce kernel on the card), and
-``updated`` flags strict improvement.
+in-edges from updated sources, and ``updated`` flags strict improvement.
+The slot pass is one call of the segment reduce's gather form
+(``ops.kernels.segment_reduce_sorted`` with the node tables): on the card
+one launch reads each slot's source id, its flag and, where set, its
+distance and weight; on the CPU its plain version gathers, adds, masks and
+reduces as four PyTorch ops.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from ..engine.superstep import while_loop
 from ..graph.csr import Graph
-from ..ops import segment as ops
+from ..ops import kernels
 from ..utils.timing import profile_supersteps, span
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -48,15 +52,14 @@ def _setup(g: Graph, root: int, edge_len: Optional[torch.Tensor],
     upd0 = ids == root
     dist0 = torch.where(upd0 & g.node_mask(), torch.zeros_like(inf), inf)
     w = (edge_len.index_select(0, g.e_rev2idx).to(dist_dtype)
-         if edge_len is not None else torch.ones_like(inf))
+         if edge_len is not None else None)      # None: unit weights
 
     def step(state):
         dist, updated = state
-        src_dist = dist.index_select(0, g.r_node_idx)
-        src_upd = updated.index_select(0, g.r_node_idx)
-        cand = torch.where(src_upd, src_dist + w, inf)
-        best = ops.sorted_segment_reduce(cand, g.r_node_idx_dst, g.r_begin,
-                                         g.n_pad, "min")
+        # looked up at each call: a caller may wrap the module attribute
+        best = kernels.segment_reduce_sorted(
+            g.r_node_idx, g.r_node_idx_dst, g.r_begin, g.n_pad, "min",
+            node_vals=dist, node_mask=updated, add=w)
         new_dist = torch.minimum(dist, best)
         return new_dist, new_dist < dist
 

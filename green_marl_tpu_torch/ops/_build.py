@@ -103,6 +103,11 @@ def _load() -> ctypes.CDLL:
     cdll.gm_segment_reduce.restype = cint
     cdll.gm_segment_reduce.argtypes = [vp, i64, i64, vp, i64, i64, vp, vp,
                                        cint, cint, vp]
+    cdll.gm_segment_reduce_gather.restype = cint
+    cdll.gm_segment_reduce_gather.argtypes = [vp, i64, vp, i64, i64, vp, vp,
+                                              vp, vp, i64, vp, cint, vp]
+    cdll.gm_segment_reduce_gather_scratch.restype = cint
+    cdll.gm_segment_reduce_gather_scratch.argtypes = []
     cdll.gm_segment_reduce_tile_size.restype = cint
     cdll.gm_segment_reduce_tile_size.argtypes = []
     cdll.gm_segment_reduce_row_chunk.restype = cint

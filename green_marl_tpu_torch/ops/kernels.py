@@ -5,6 +5,9 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
 
 * ``segment_reduce_sorted`` -- ``out[v] = op-reduce(vals[offsets[v]:offsets[v+1]])``
   for op add, min or max on int32 or float32 (``csrc/segment_reduce.cu``);
+  its gather form takes node ids for ``vals`` and reduces, by min, the node
+  values they pick where a node flag is set, plus a weight a slot: the
+  superstep of hop_dist and sssp (``models/relax.py``) in one launch;
 * ``plain_cumsum`` -- inclusive or exclusive prefix sum of an int32 or
   float32 tensor, int32 exact mod 2^32 (``csrc/cumsum.cu``);
 * ``segmented_scan`` -- globally segmented inclusive scan, add/min/max on
@@ -51,18 +54,26 @@ _SCATTER_REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(name: str, lanes: bool = False) -> None:
+def _count(name: str, lanes: bool = False, gather: bool = False) -> None:
     """One more launch of wrapper ``name``'s kernel, or of its lane-batched
-    form (the shards of a sharded run launch from threads of their own).
+    form; the gather form counts in ``launches`` and in ``gather_launches``
+    (the shards of a sharded run launch from threads of their own).
     The wrapper is looked up among ``_WRAPPERS``, not in the module, so a
     caller that wraps a module attribute to watch its calls does not take
     the count."""
-    fn = next(f for f in _WRAPPERS if f.__name__ == name)
+    fn = _wrapper(name)
     with _COUNT_LOCK:
         if lanes:
             fn.lane_launches += 1
         else:
             fn.launches += 1
+        if gather:
+            fn.gather_launches += 1
+
+
+def _wrapper(name: str):
+    """The wrapper function ``name`` itself, which holds its counts."""
+    return next(f for f in _WRAPPERS if f.__name__ == name)
 
 
 def identity(op: str, dtype: torch.dtype):
@@ -97,10 +108,20 @@ def _cuda_stream(t: torch.Tensor) -> int:
 
 def segment_reduce_sorted_ref(vals: torch.Tensor, ids: torch.Tensor,
                               offsets: torch.Tensor, n_out: int,
-                              op: str = "add") -> torch.Tensor:
+                              op: str = "add", *,
+                              node_vals: Optional[torch.Tensor] = None,
+                              node_mask: Optional[torch.Tensor] = None,
+                              add: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Plain version of :func:`segment_reduce_sorted` (scatter-reduce over
     segment numbers expanded from ``offsets``; ``ids`` is not read).  Rows
-    of ``[B, E]`` values are reduced alike."""
+    of ``[B, E]`` values are reduced alike.  The gather form: two
+    ``index_select``, the add and a ``where`` make the values first."""
+    if node_vals is not None:
+        picked = node_vals.index_select(0, vals)
+        vals = torch.where(node_mask.index_select(0, vals),
+                           picked + (1 if add is None else add),
+                           identity(op, node_vals.dtype))
     n_seg = offsets.numel() - 1
     seg = torch.repeat_interleave(
         torch.arange(n_seg, device=vals.device), offsets.diff().long())
@@ -115,7 +136,10 @@ def segment_reduce_sorted_ref(vals: torch.Tensor, ids: torch.Tensor,
 
 def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
                           offsets: torch.Tensor, n_out: int,
-                          op: str = "add", base: int = 0) -> torch.Tensor:
+                          op: str = "add", base: int = 0, *,
+                          node_vals: Optional[torch.Tensor] = None,
+                          node_mask: Optional[torch.Tensor] = None,
+                          add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sorted-segment reduction ``out[v] = op-reduce(vals[offsets[v]:offsets[v+1]])``.
 
     ``vals``/``ids``: [E_pad] edge-slot arrays (CSC or CSR order); ``ids``
@@ -152,10 +176,30 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     the whole array's are and every segment gets the whole call's bits,
     whatever the slab.  The plain version's order does not depend on the
     position.
+
+    The gather form, with ``node_vals`` ([n_nodes] int32 or float32) and
+    ``node_mask`` ([n_nodes] bool): ``vals`` is the int32 node id of each
+    slot, and slot i contributes ``node_vals[vals[i]] + add[i]`` (``+ 1``
+    where ``add``, [E_pad] of ``node_vals``' dtype, is None) where
+    ``node_mask[vals[i]]`` is set, the identity where it is not.  The add
+    is PyTorch's (int32 wraps; float32 rounds once), so the result has the
+    bits of the plain version's ``index_select``, ``index_select``, add,
+    ``where`` and segment min.  ``op`` must be ``"min"`` and ``vals`` 1-D;
+    ``base`` changes nothing (a min does not depend on where the tiles are
+    cut).  The ids of the slots in ``[offsets[0], offsets[-1])`` must lie
+    in ``[0, n_nodes)``: the kernel reads the tables there unchecked, and
+    reads nothing at the other slots.  Counted in ``launches`` and in
+    ``gather_launches``.
     """
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
-    _check_1d("vals", vals, _DTYPE_CODE, dims=(1, 2))
+    gather = node_vals is not None
+    if gather:
+        _check_gather(vals, op, node_vals, node_mask, add)
+    elif node_mask is not None or add is not None:
+        raise ValueError("node_mask and add need node_vals")
+    else:
+        _check_1d("vals", vals, _DTYPE_CODE, dims=(1, 2))
     _check_1d("offsets", offsets, (torch.int32,))
     if ids.shape != vals.shape[-1:]:
         raise ValueError(f"ids shape {tuple(ids.shape)} != vals shape "
@@ -166,9 +210,14 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
     if offsets.device != vals.device:
         raise ValueError(f"offsets on {offsets.device}, vals on {vals.device}")
     if vals.device.type == "cpu":
-        return segment_reduce_sorted_ref(vals, ids, offsets, n_out, op)
+        return segment_reduce_sorted_ref(vals, ids, offsets, n_out, op,
+                                         node_vals=node_vals,
+                                         node_mask=node_mask, add=add)
     stream = _cuda_stream(vals)
     lib = _build.lib()
+    if gather:
+        return _gather_launch(lib, stream, vals, offsets, n_out, node_vals,
+                              node_mask, add)
     phase = base % lib.gm_segment_reduce_tile_size()
     if phase:
         # slots before offsets[0] count as the identity, whatever they hold
@@ -200,6 +249,64 @@ def segment_reduce_sorted(vals: torch.Tensor, ids: torch.Tensor,
 
 segment_reduce_sorted.launches = 0
 segment_reduce_sorted.lane_launches = 0
+segment_reduce_sorted.gather_launches = 0
+
+
+def _check_gather(vals, op, node_vals, node_mask, add) -> None:
+    """The arguments of :func:`segment_reduce_sorted`'s gather form."""
+    if op != "min":
+        raise ValueError(f"the gather form reduces by min, got op {op!r}")
+    _check_1d("vals", vals, (torch.int32,))
+    _check_1d("node_vals", node_vals, _DTYPE_CODE)
+    if node_mask is None:
+        raise ValueError("the gather form needs node_mask")
+    _check_1d("node_mask", node_mask, (torch.bool,))
+    if node_mask.shape != node_vals.shape:
+        raise ValueError(f"node_mask shape {tuple(node_mask.shape)} != "
+                         f"node_vals shape {tuple(node_vals.shape)}")
+    tensors = [node_vals, node_mask]
+    if add is not None:
+        _check_1d("add", add, (node_vals.dtype,))
+        if add.shape != vals.shape:
+            raise ValueError(f"add shape {tuple(add.shape)} != vals shape "
+                             f"{tuple(vals.shape)}")
+        tensors.append(add)
+    for t in tensors:
+        if t.device != vals.device:
+            raise ValueError(f"node tables on {t.device}, vals on "
+                             f"{vals.device}")
+
+
+def _gather_launch(lib, stream, ids, offsets, n_out, node_vals, node_mask,
+                   add) -> torch.Tensor:
+    """One launch of the gather form on the card (arguments checked).  The
+    kernel reads ``ids`` and ``add`` 16 bytes at a time: a view that is not
+    16-byte aligned is copied first."""
+    out = torch.empty(n_out, dtype=node_vals.dtype, device=ids.device)
+    if n_out == 0:
+        return out
+    if ids.data_ptr() % 16:
+        ids = ids.clone()
+    if add is not None and add.data_ptr() % 16:
+        add = add.clone()
+    n_vals = ids.numel()
+    n_tiles = max(1, -(-n_vals // lib.gm_segment_reduce_tile_size()))
+    n_chunks = -(-(offsets.numel() - 1) // lib.gm_segment_reduce_row_chunk())
+    # one lane's scratch, then the summary of the flags
+    scratch = torch.empty(2 * n_tiles + 1 + n_chunks
+                          + lib.gm_segment_reduce_gather_scratch(),
+                          dtype=torch.int64, device=ids.device)
+    with torch.cuda.device(ids.device):
+        err = lib.gm_segment_reduce_gather(
+            ids.data_ptr(), n_vals, offsets.data_ptr(), offsets.numel() - 1,
+            n_out, out.data_ptr(), scratch.data_ptr(), node_vals.data_ptr(),
+            node_mask.data_ptr(), node_vals.numel(),
+            None if add is None else add.data_ptr(),
+            _DTYPE_CODE[node_vals.dtype], stream)
+    if err:
+        raise RuntimeError(f"gm_segment_reduce_gather: CUDA error {err}")
+    _count("segment_reduce_sorted", gather=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -586,10 +693,17 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in _LANE_WRAPPERS:
         fn.lane_launches = 0
+    _wrapper("segment_reduce_sorted").gather_launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """The launches by wrapper, and under ``"segment_reduce_sorted[gather]"``
+    those of the segment reduce's gather form (counted in its wrapper's
+    too)."""
+    out = {fn.__name__: fn.launches for fn in _WRAPPERS}
+    out["segment_reduce_sorted[gather]"] = \
+        _wrapper("segment_reduce_sorted").gather_launches
+    return out
 
 
 def lane_launch_counts() -> dict:

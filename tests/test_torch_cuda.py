@@ -7,6 +7,8 @@ installed; there, skip ``tests/conftest.py`` (which imports JAX)::
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -177,6 +179,7 @@ def test_launch_counts_and_checks(dev):
                                                dtype=torch.int32,
                                                device=dev), 2, "add")
     assert K.launch_counts() == {"segment_reduce_sorted": 1,
+                                 "segment_reduce_sorted[gather]": 0,
                                  "plain_cumsum": 1, "segmented_scan": 0,
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0}
@@ -977,6 +980,123 @@ def test_sssp_path_and_delta_stepping_on_the_card(dev):
         want = sssp.dijkstra_host_exact(g, w, root, 5)
         assert (found, dist) == (want[0], want[3])
         assert np.array_equal(par, want[1]) and np.array_equal(pare, want[2])
+
+
+INT32_MAX = torch.iinfo(torch.int32).max
+GATHER_CASES = [(dtype, weighted, mask, False, False, 0)
+                for dtype in (torch.int32, torch.float32)
+                for weighted in (True, False)
+                for mask in ("all", "none", "one", "random")] + [
+    (torch.int32, True, "random", True, False, 0),
+    (torch.int32, False, "all", True, False, 0),
+    (torch.int32, True, "random", False, True, 0),
+    (torch.float32, True, "random", False, True, 0),
+    (torch.int32, True, "random", False, False, 1 << 21),
+    (torch.int32, True, "sparse", False, False, 1 << 21),
+    (torch.float32, False, "sparse", False, False, 5_000_001),
+    (torch.int32, False, "one", False, True, 5_000_001)]
+
+
+@functools.lru_cache(maxsize=1)
+def _gather_graph():
+    """An RMAT graph with one more hub of 20,000 in-edges, over five of the
+    kernel's 4,096-slot tiles."""
+    from green_marl_tpu_torch.graph import csr, generate
+    n = 60_000
+    src, dst = generate.rmat_edges(n, 1_500_000, seed=83)
+    rng = np.random.default_rng(83)
+    src = np.concatenate([src, rng.integers(0, n, 20_000).astype(src.dtype)])
+    dst = np.concatenate([dst, np.full(20_000, 5, dst.dtype)])
+    return csr.from_edges(src, dst, n)[0]
+
+
+@pytest.mark.parametrize("dtype,weighted,mask,wrap,unaligned,tables",
+                         GATHER_CASES)
+def test_segment_reduce_gather_form_matches_ref(dev, dtype, weighted, mask,
+                                                wrap, unaligned, tables):
+    """The gather form on a seeded RMAT graph's CSC, bit for bit its plain
+    version: hubs over many 4,096-slot tiles, empty rows, pad slots holding
+    the sentinel, rows n..n_out-1; sources all, none, one, a third or one
+    in a thousand set; ``wrap``: int32 values within 100 of INT32_MAX, so
+    that the add wraps; ``unaligned``: ids and weights not 16-byte aligned
+    (the wrapper copies them to aligned memory first); ``tables``: node tables of that many rows (0: n_pad),
+    past 327,680 so that a bit of the kernel's summary of the flags stands
+    for 8 or 16 nodes (the ids stay below n_pad)."""
+    g = _gather_graph()
+    rng = np.random.default_rng(84)
+    n_pad, e_pad = tables or g.n_pad, g.e_pad
+    if dtype == torch.int32:
+        vals = (INT32_MAX - rng.integers(0, 100, n_pad) if wrap
+                else rng.integers(0, 1 << 20, n_pad)).astype(np.int32)
+        add = rng.integers(1, 101, e_pad).astype(np.int32)
+    else:
+        vals = (100 * rng.random(n_pad)).astype(np.float32)
+        vals[::7] = np.inf
+        add = rng.random(e_pad).astype(np.float32)
+    node_mask = {"all": np.ones(n_pad, bool), "none": np.zeros(n_pad, bool),
+                 "one": np.arange(n_pad) == int(g.r_node_idx[e_pad // 3]),
+                 "random": rng.random(n_pad) < 0.3,
+                 "sparse": rng.random(n_pad) < 0.001}[mask]
+    args = (g.r_node_idx, g.r_node_idx_dst, g.r_begin, g.n_pad + 256, "min")
+    tables = dict(node_vals=torch.from_numpy(vals),
+                  node_mask=torch.from_numpy(node_mask),
+                  add=torch.from_numpy(add) if weighted else None)
+    want = K.segment_reduce_sorted_ref(*args, **tables)
+
+    def card(t):
+        if not unaligned:
+            return t.to(dev)
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.to(dev)
+        return buf[1:]
+    d_args = [card(t) for t in args[:3]] + list(args[3:])
+    d_tables = {k: None if t is None else card(t) for k, t in tables.items()}
+    K.reset_launch_counts()
+    got = K.segment_reduce_sorted(*d_args, **d_tables)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    assert K.launch_counts()["segment_reduce_sorted[gather]"] == 1
+    assert K.launch_counts()["segment_reduce_sorted"] == 1
+    if wrap:
+        assert (want < 0).any()
+    assert (want[:g.num_nodes] < K.identity("min", dtype)).any() == \
+        (mask != "none")
+
+
+def test_relax_models_on_the_card(dev):
+    """hop_dist, sssp and min_relax(dist_dtype=float32) on the card equal
+    their CPU results, each superstep one launch of the segment reduce's
+    gather form; pagerank and bfs launch none."""
+    from green_marl_tpu_torch.models import bfs, hop_dist, pagerank, relax
+    from green_marl_tpu_torch.models import sssp
+    g = _rmat_graph(20_000, 200_000, 85)
+    gd = g.to(dev)
+    w = _weights(g, 85, lo=1)
+    wd = w.to(dev)
+    by_degree = g.out_degree().argsort(descending=True)
+    for root in (int(by_degree[0]), int(by_degree[1000])):
+        for run in (lambda g, w: hop_dist.hop_dist(g, root),
+                    lambda g, w: sssp.sssp(g, root, w),
+                    lambda g, w: relax.min_relax(
+                        g, root, w, dist_dtype=torch.float32),
+                    lambda g, w: relax.min_relax(
+                        g, root, dist_dtype=torch.float32)):
+            want = run(g, w)
+            K.reset_launch_counts()
+            got = run(gd, wd)
+            counts = K.launch_counts()
+            assert got.iterations == want.iterations > 1
+            assert torch.equal(got.dist.cpu(), want.dist)
+            assert counts["segment_reduce_sorted[gather]"] == \
+                counts["segment_reduce_sorted"] == got.iterations
+    K.reset_launch_counts()
+    pr = pagerank.pagerank(gd)
+    lv = bfs.bfs(gd, int(g.out_degree().argmax()))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["segment_reduce_sorted"] >= pr.iterations > 0
+    assert int(lv.level.max()) > 0
+    assert counts["segment_reduce_sorted[gather]"] == 0
 
 
 def test_bc_on_the_card(dev):

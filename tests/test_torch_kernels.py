@@ -167,9 +167,127 @@ def test_wrappers_check_arguments_and_count_only_launches():
         [3, 9, torch.iinfo(torch.int32).min]
     # the CPU runs the plain versions: no kernel launched, nothing counted
     assert K.launch_counts() == {"segment_reduce_sorted": 0,
+                                 "segment_reduce_sorted[gather]": 0,
                                  "plain_cumsum": 0, "segmented_scan": 0,
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0}
+
+
+INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def gather_case(dtype, weighted, mask, wrap, seed=5):
+    """A pull over CSC slots as ``models.relax`` makes it: ids (sources)
+    in [0, n), sorted destinations with empty rows and a hub of 9,000
+    slots across the card's 4,096-slot tile edges, pad slots holding the
+    sentinel n, node tables of n_pad rows, rows n..n_out-1 past the
+    offsets.  ``mask``: which nodes are set (all, none, one, random);
+    ``wrap``: int32 values within 100 of INT32_MAX, so that adds wrap."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    lens = rng.choice([0, 0, 1, 2, 5, 30], size=n)
+    lens[n // 2] = 9000
+    off = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=off[1:])
+    e = int(off[-1])
+    e_pad, n_pad = -(-e // 128) * 128 + 128, -(-(n + 1) // 128) * 128
+    ids = np.full(e_pad, n, np.int32)
+    ids[:e] = rng.integers(0, n, e)
+    dst = np.full(e_pad, n, np.int32)
+    dst[:e] = np.repeat(np.arange(n), lens)
+    if dtype == torch.int32:
+        vals = (INT32_MAX - rng.integers(0, 100, n_pad) if wrap
+                else rng.integers(0, 1000, n_pad)).astype(np.int32)
+        add = rng.integers(1, 101, e_pad).astype(np.int32)
+    else:
+        vals = (100 * rng.random(n_pad)).astype(np.float32)
+        vals[::7] = np.inf
+        add = rng.random(e_pad).astype(np.float32)
+    node_mask = {"all": np.ones(n_pad, bool), "none": np.zeros(n_pad, bool),
+                 "one": np.arange(n_pad) == ids[e // 2],
+                 "random": rng.random(n_pad) < 0.3}[mask]
+    return (T(ids), T(dst), T(off), n_pad + 128, T(vals), T(node_mask),
+            T(add) if weighted else None)
+
+
+GATHER_CASES = [(dtype, weighted, mask, False)
+                for dtype in (torch.int32, torch.float32)
+                for weighted in (True, False)
+                for mask in ("all", "none", "one", "random")] + [
+    (torch.int32, True, "random", True), (torch.int32, False, "all", True)]
+
+
+@pytest.mark.parametrize("dtype,weighted,mask,wrap", GATHER_CASES)
+def test_segment_reduce_gather_form_matches_four_ops(dtype, weighted, mask,
+                                                     wrap):
+    """The gather form's plain version against the relax step's four ops
+    before the form existed: gather, gather, add and where, then the plain
+    segment min."""
+    ids, dst, off, n_out, vals, node_mask, add = gather_case(
+        dtype, weighted, mask, wrap)
+    got = K.segment_reduce_sorted(ids, dst, off, n_out, "min",
+                                  node_vals=vals, node_mask=node_mask,
+                                  add=add)
+    inf = torch.tensor(K.identity("min", dtype), dtype=dtype)
+    w = add if add is not None else torch.ones_like(inf)
+    cand = torch.where(node_mask.index_select(0, ids),
+                       vals.index_select(0, ids) + w, inf)
+    want = tseg.sorted_segment_reduce(cand, dst, off, n_out, "min")
+    assert got.dtype == dtype and torch.equal(got, want)
+    n = off.numel() - 1
+    assert (got[n:] == inf).all()
+    if wrap:                            # the add wrapped past INT32_MAX
+        assert (got < 0).any()
+    if mask == "none":
+        assert (got == inf).all()
+    else:
+        assert (got[:n] < inf).any()
+
+
+def test_launch_counts_with_a_wrapper_swapped_in(monkeypatch):
+    """A caller may swap the module attribute for a wrapper that watches
+    its calls (gmbench/trace.py, chip_smoke.py): the counts stay on the
+    wrapper function itself, the gather form's too."""
+    real = K.segment_reduce_sorted
+    monkeypatch.setattr(K, "segment_reduce_sorted",
+                        lambda *a, **kw: real(*a, **kw))
+    K.reset_launch_counts()
+    ids, dst, off, n_out, vals, node_mask, add = gather_case(
+        torch.int32, True, "random", False)
+    K.segment_reduce_sorted(ids, dst, off, n_out, "min", node_vals=vals,
+                            node_mask=node_mask, add=add)
+    counts = K.launch_counts()
+    assert counts["segment_reduce_sorted"] == 0
+    assert counts["segment_reduce_sorted[gather]"] == 0
+    assert real.gather_launches == 0
+
+
+def test_segment_reduce_gather_form_refusals():
+    ids, dst, off, n_out, vals, node_mask, add = gather_case(
+        torch.int32, True, "random", False)
+    tables = dict(node_vals=vals, node_mask=node_mask, add=add)
+    for op in ("add", "max"):
+        with pytest.raises(ValueError):
+            K.segment_reduce_sorted(ids, dst, off, n_out, op, **tables)
+    with pytest.raises(ValueError):     # no lanes in the gather form
+        K.segment_reduce_sorted(ids.expand(2, -1).contiguous(), dst, off,
+                                n_out, "min", **tables)
+    with pytest.raises(ValueError):
+        K.segment_reduce_sorted(ids, dst, off, n_out, "min", node_vals=vals)
+    with pytest.raises(ValueError):
+        K.segment_reduce_sorted(ids, dst, off, n_out, "min",
+                                node_mask=node_mask)
+    with pytest.raises(ValueError):
+        K.segment_reduce_sorted(ids, dst, off, n_out, "min", node_vals=vals,
+                                node_mask=node_mask[:-1])
+    with pytest.raises(ValueError):
+        K.segment_reduce_sorted(ids, dst, off, n_out, "min", node_vals=vals,
+                                node_mask=node_mask, add=add[:-1])
+    with pytest.raises(TypeError):
+        K.segment_reduce_sorted(ids, dst, off, n_out, "min", node_vals=vals,
+                                node_mask=node_mask, add=add.float())
+    with pytest.raises(TypeError):
+        K.segment_reduce_sorted(ids.long(), dst, off, n_out, "min", **tables)
 
 
 def scan_case(n, seed, dtype):
