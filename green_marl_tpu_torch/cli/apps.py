@@ -345,7 +345,6 @@ def make_multi_bfs() -> UserMain:
         import time
 
         from ..models import batched
-        from ..ops import binned
         g = ctx.graph
         B = int(ctx.scalars["num_roots"])
         pb = int(ctx.scalars["plane_bits"])
@@ -354,18 +353,10 @@ def make_multi_bfs() -> UserMain:
         if B > 128 * pb:
             raise SystemExit(f"num_roots <= {128 * pb} at "
                              f"plane_bits={pb}")
-        bp = binned.binned_in(g).to(g.device, with_edges=False)
-        out_deg = g.out_degree().cpu().numpy()
-        deg_rows = np.zeros(bp.n_rows, np.int32)
-        deg_rows[: bp.n_nodes] = out_deg[: bp.n_nodes][bp.perm.cpu().numpy()]
-        deg_rows = torch.from_numpy(deg_rows).to(g.device)
+        bp, deg_rows, chunk = batched.bits_schedule(g, B, pb)
         # the JAX CLI's numpy call on the same int32 degrees: equal ties
-        order = np.argsort(out_deg[: g.num_nodes])
+        order = np.argsort(g.out_degree().cpu().numpy()[: g.num_nodes])
         roots = order[::-1][:B].astype(np.int32)
-        # eager PyTorch writes each gathered bin before reducing it: cap
-        # that transient (the results do not change)
-        lanes = (B + pb - 1) // pb
-        chunk = binned.slot_chunk_for(lanes * pb // 8)
         if g.device.type == "cuda":
             torch.cuda.synchronize(g.device)
         t0 = time.time()

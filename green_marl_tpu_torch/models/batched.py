@@ -11,6 +11,10 @@ one contiguous B-wide row per endpoint.
   ``multi_source_bfs_bits``: the same algorithms on the degree-binned
   engine (``ops/binned.py``); their state lies in binned row order (use
   ``bp.from_binned`` on the results).
+* ``bits_schedule``: what ``multi_source_bfs_bits`` needs of a graph
+  (the binned schedule over in-neighbours on the graph's device, the
+  out-degrees in binned order, the gather's ``slot_chunk``), built once;
+  the ``multi_bfs`` app and the benchmark both call it.
 * ``*_paged``: the JAX package's memory-paged variants.  Eager PyTorch
   loops on the host anyway, so here they differ from the fused forms only
   in what they compute: the paged PageRank folds ``1/out_degree`` into
@@ -22,6 +26,11 @@ Bit planes: ``plane_bits`` instances per lane, instance ``b`` at lane
 or int32: the same bits as JAX's uint8/uint16/uint32 (CPU torch has no
 ``>>`` or ``amax`` for uint16/uint32).  Compare them with ``.view`` as the
 unsigned type.
+
+Under a profiler a ``multi_source_bfs_bits`` call opens ``gm:setup``
+around its seed plane, ``gm:superstep`` a level (``engine/superstep.py``),
+``gm:edge_map`` inside it (``ops/binned.py``) and ``gm:popstats`` around
+the final counts.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from ..engine.superstep import while_loop
 from ..graph.csr import Graph
 from ..ops import binned as _binned
 from ..ops.binned import BinnedPull
+from ..utils.timing import span
 
 INT32_MAX = torch.iinfo(torch.int32).max
 PLANE_DTYPES = {8: torch.uint8, 16: torch.int16, 32: torch.int32}
@@ -56,6 +66,12 @@ class BitBfsResult(NamedTuple):
     levels_run: int
     reached: torch.Tensor    # [B] int64 per-instance reached-node counts
     traversed: torch.Tensor  # [B] int64 per-instance traversed edges
+
+
+class BitSchedule(NamedTuple):
+    bp: BinnedPull           # over in-neighbours, without ``slot_edge``
+    deg_rows: torch.Tensor   # [n_rows] int32 out-degrees, binned order
+    slot_chunk: int          # slots a gather holds (``GATHER_BUDGET``)
 
 
 def _edge_chunks(g: Graph, chunk: int):
@@ -324,6 +340,23 @@ def _bits_seed(bp: BinnedPull, roots, plane_bits: int) -> torch.Tensor:
     return bits0
 
 
+def bits_schedule(g: Graph, num_roots: int, plane_bits: int) -> BitSchedule:
+    """The schedule of ``multi_source_bfs_bits`` over ``g`` for
+    ``num_roots`` instances at ``plane_bits``, on ``g``'s device: the
+    binned pull over in-neighbours (built on the host), the out-degrees in
+    binned order (0 in pad rows) and the ``slot_chunk`` that keeps a gather
+    of the planes' rows within ``binned.GATHER_BUDGET``: eager PyTorch
+    writes each gathered bin before reducing it (the results do not
+    change)."""
+    bp = _binned.binned_in(g).to(g.device, with_edges=False)
+    out_deg = g.out_degree().cpu().numpy()
+    deg_rows = np.zeros(bp.n_rows, np.int32)
+    deg_rows[:bp.n_nodes] = out_deg[:bp.n_nodes][bp.perm.cpu().numpy()]
+    lanes = (num_roots + plane_bits - 1) // plane_bits
+    chunk = _binned.slot_chunk_for(lanes * plane_bits // 8)
+    return BitSchedule(bp, torch.from_numpy(deg_rows).to(g.device), chunk)
+
+
 def multi_source_bfs_bits(bp: BinnedPull, roots, deg_rows: torch.Tensor,
                           max_iter: Optional[int] = None,
                           plane_bits: int = 8,
@@ -340,9 +373,10 @@ def multi_source_bfs_bits(bp: BinnedPull, roots, deg_rows: torch.Tensor,
     if max_iter is None:
         max_iter = bp.n_nodes + 1
     B = len(roots)
-    bits0 = _bits_seed(bp, roots, plane_bits)
-    zero = torch.zeros((), dtype=bits0.dtype, device=bits0.device)
-    node_rows = bp.node_rows_mask()
+    with span("gm:setup"):
+        bits0 = _bits_seed(bp, roots, plane_bits)
+        zero = torch.zeros((), dtype=bits0.dtype, device=bits0.device)
+        node_rows = bp.node_rows_mask()
 
     def step(state):
         visited, frontier, depth = state
@@ -352,8 +386,9 @@ def multi_source_bfs_bits(bp: BinnedPull, roots, deg_rows: torch.Tensor,
 
     (visited, _, _), stats = while_loop(step, lambda st: (st[1] != 0).any(),
                                         (bits0, bits0, 0), max_iter)
-    cnt, trav = _bit_popstats(visited, deg_rows, visited.shape[1],
-                              bits=plane_bits)
+    with span("gm:popstats"):
+        cnt, trav = _bit_popstats(visited, deg_rows, visited.shape[1],
+                                  bits=plane_bits)
     return BitBfsResult(visited=visited, levels_run=stats.iterations,
                         reached=cnt[:B], traversed=trav[:B])
 

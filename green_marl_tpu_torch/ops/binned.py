@@ -19,17 +19,25 @@ The schedule is built on the host and moved to a device with
 left it to XLA, and it has no Pallas kernel.  Unlike XLA, eager PyTorch
 writes every gathered bin before reducing it; ``slot_chunk`` caps that
 transient at ``slot_chunk`` rows with the same results.
+
+Each ``edge_map`` call is a ``gm:edge_map`` span under a profiler
+(``utils/timing.py`` ``span``) and counts its shapes in
+:func:`edge_map_counts`: the calls, the slots it gathers, the output rows,
+and the bytes of the table's rows (``n_rows`` times a row's bytes), which
+give the least bytes an edge map moves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..graph.csr import Graph, round_up
+from ..utils.timing import span
 
 # Top bin width: hubs beyond this get chunked + second-stage reduce.
 W_MAX = 4096
@@ -339,6 +347,33 @@ def _hub_part(chunk_red: torch.Tensor, owners: torch.Tensor, n_hub: int,
 _COMBINE2 = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
              "or": torch.maximum, "bor": torch.bitwise_or}
 
+_COUNT_KEYS = ("calls", "slots", "rows", "table_bytes")
+_COUNTS = dict.fromkeys(_COUNT_KEYS, 0)
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(slots: int, rows: int, table_bytes: int) -> None:
+    with _COUNT_LOCK:
+        _COUNTS["calls"] += 1
+        _COUNTS["slots"] += slots
+        _COUNTS["rows"] += rows
+        _COUNTS["table_bytes"] += table_bytes
+
+
+def reset_edge_map_counts() -> None:
+    """Set every count of :func:`edge_map_counts` to 0."""
+    with _COUNT_LOCK:
+        _COUNTS.update(dict.fromkeys(_COUNT_KEYS, 0))
+
+
+def edge_map_counts() -> dict:
+    """Summed over the ``edge_map`` calls since the last reset: ``calls``,
+    ``slots`` gathered (the schedule's slot ids, each read once a call),
+    ``rows`` written (``n_rows`` a call) and ``table_bytes`` (``n_rows``
+    times the bytes of one row of the call's table)."""
+    with _COUNT_LOCK:
+        return dict(_COUNTS)
+
 
 def edge_map(bp: BinnedPull, table: torch.Tensor, op: str = "sum",
              slot_vals: Optional[torch.Tensor] = None,
@@ -368,6 +403,16 @@ def edge_map(bp: BinnedPull, table: torch.Tensor, op: str = "sum",
                          f"{tuple(table.shape)}")
     if op == "bor" and table.dtype.is_floating_point:
         raise TypeError("op 'bor' needs an integer table")
+    B = table.shape[1]
+    _count(int(bp.slot_src.shape[0]), bp.n_rows,
+           bp.n_rows * B * table.element_size())
+    with span("gm:edge_map"):
+        return _edge_map(bp, table, op, slot_vals, combine, slot_chunk)
+
+
+def _edge_map(bp: BinnedPull, table: torch.Tensor, op: str,
+              slot_vals: Optional[torch.Tensor], combine: Optional[Callable],
+              slot_chunk: Optional[int]) -> torch.Tensor:
     B = table.shape[1]
     dtype = table.dtype
     if combine is None:

@@ -15,9 +15,12 @@ card).
 
 :func:`span` names the program's own ranges in a ``torch.profiler`` trace:
 ``gm:setup`` (a model call's work before its loop), ``gm:superstep`` (one
-pass of a superstep loop) and ``gm:sync:<site>`` (each host wait for the
+pass of a superstep loop), ``gm:sync:<site>`` (each host wait for the
 device: ``predicate``, ``upload``, ``bfs_direction``, ``bfs_push_mark``,
-``bfs_reached``).  They exist only while a profiler records.
+``bfs_reached``), ``gm:edge_map`` (one call of the binned engine's edge
+map, ``ops/binned.py``) and ``gm:popstats`` (the bit BFS's final
+per-instance counts, ``models/batched.py``).  They exist only while a
+profiler records.
 """
 
 from __future__ import annotations

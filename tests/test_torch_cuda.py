@@ -1736,3 +1736,32 @@ def test_bfs_probe_launches_the_prefix_sum(dev):
     fr = PB.pull_frontier(g)
     gd = g.to(dev)
     assert torch.equal(PB.pull(gd, fr.to(dev)).cpu(), PB.pull(g, fr))
+
+
+def test_multi_bfs_kind_on_the_card(dev):
+    """The benchmark's ``multi_bfs`` kind at the cell's shapes (4,096
+    sources, 32 to a lane: 512-byte rows) on a reduced RMAT: its answer on
+    the card equals the CPU path's, and the edge-map counter's bytes equal
+    ``_edge_map_bytes``' count from the schedule."""
+    from gmbench import spec
+    from gmbench.metrics import _edge_map_bytes
+    from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.graph.generate import rmat_edges
+    from green_marl_tpu_torch.ops import binned
+
+    kind = spec.load_module("queries", "multi_bfs")
+    args = spec.load_json("traffic", "msbfs_4096")["kinds"][0]["args"]
+    src, dst = rmat_edges(1 << 16, 1 << 20, seed=3)
+    g, _ = from_edges(src, dst, 1 << 16)
+    on_cpu = kind.prepare(g, None, args)
+    on_card = kind.prepare(g.to(dev), None, args)
+    pivot = int(on_cpu["eligible"][len(on_cpu["eligible"]) // 2])
+    want, want_info = kind.call(on_cpu, pivot)
+    binned.reset_edge_map_counts()
+    got, info = kind.call(on_card, pivot)
+    counts = binned.edge_map_counts()
+    assert torch.equal(got.cpu(), want) and info == want_info
+    bp = on_card["schedule"].bp
+    per_call = 4 * bp.slot_src.numel() + 2 * bp.n_rows * 512
+    assert counts["calls"] == info["steps"] > 1
+    assert _edge_map_bytes.edge_map_bytes(counts) == info["steps"] * per_call
