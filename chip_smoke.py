@@ -45,7 +45,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 6. the batched engine: the ``multi_bfs`` CLI at bench.py's headline
    B=4096, plane_bits=32 on the 1/16-size file, equal to the in-process
    run there; then on the full-size graph, on one binned schedule, the bit
-   BFS (instances 0-3 against hop_dist), the binned BFS at B=8 (distances
+   BFS (instances 0-3 against hop_dist, one ``edge_map_bor`` launch a
+   level; the kernel at level 3 against the plain gather and fold bit for
+   bit, timed beside both and both bounds), the binned BFS at B=8 (distances
    equal hop_dist's) and the binned PageRank at B=128 (the d=0.85 instance
    against pagerank), with aggregate GTEPS, Gedge/s and the memory peak;
 7. triangle counting and the analytics models.  On the full-size directed
@@ -179,8 +181,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    ``probes.prep``'s stages at the 1/16 size.
 
 Each path's kernel launches are counted from 0 just before it and read just
-after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (no
-kernel of the port: the engine's edge map is plain PyTorch), phase 7 (with
+after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (the
+full-size bit BFS on its own: one ``edge_map_bor`` a level, the count that
+the kernels record gives for the edge map), phase 7 (with
 the component and path models and the sampling family counted on their own
 too), phase 8, phase 9 (each compiled call on its own), phase 10,
 phase 11, phase 12 (each batched and single run on its own) and phase 13
@@ -265,6 +268,7 @@ GOLD_SMALL_HOP_CRC16 = "0x0893"
 
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
 MULTI_B, PLANE_BITS = 4096, 32     # bench.py:53-54, the headline
+EDGE_MAP_LEVEL = 3                 # the bit BFS level phase 6 times
 PR_B, PR_ITERS = 128, 20           # bench.py:55-56
 
 REPLACES = {
@@ -347,6 +351,40 @@ def launched_since(K, before):
     """The kernels launched since ``before = K.launch_counts()``, by name."""
     return {name: n - before[name] for name, n in K.launch_counts().items()
             if n != before[name]}
+
+
+def edge_map_level_check(torch, K, batched, bp, roots, chunk):
+    """Phase 6: the bit BFS's edge map at level ``EDGE_MAP_LEVEL`` of the
+    full-size run, on its frontier: the kernel (one launch) against the
+    plain gather-and-fold path bit for bit, both timed beside the bound of
+    the table once (the slot ids, the table and the output once each) and
+    of the gathered bytes (each slot's row read once besides)."""
+    visited = batched._bits_seed(bp, roots, PLANE_BITS)
+    frontier = visited
+    zero = torch.zeros((), dtype=visited.dtype, device=visited.device)
+    node_rows = bp.node_rows_mask()
+    for _ in range(EDGE_MAP_LEVEL):
+        frontier = torch.where(node_rows,
+                               K.edge_map_bor(bp, frontier) & ~visited, zero)
+        visited |= frontier
+    before = K.launch_counts()
+    got = K.edge_map_bor(bp, frontier)
+    launched = launched_since(K, before)
+    same = torch.equal(got, K.edge_map_bor_ref(bp, frontier,
+                                               slot_chunk=chunk))
+    del got
+    slots, row_bytes = bp.slot_src.numel(), MULTI_B // 8
+    table_bytes = 4 * slots + 2 * bp.n_rows * row_bytes
+    gathered_bytes = table_bytes + (slots - bp.n_rows) * row_bytes
+    return dict(
+        same=same, launched=launched,
+        active=float((frontier != 0).any(1).float().mean()),
+        ms=cuda_ms(torch, lambda: K.edge_map_bor(bp, frontier), reps=5),
+        plain_ms=cuda_ms(torch, lambda: K.edge_map_bor_ref(
+            bp, frontier, slot_chunk=chunk), reps=2),
+        bound_ms=table_bytes / HBM_BYTES_PER_MS, bytes=table_bytes,
+        gathered_ms=gathered_bytes / HBM_BYTES_PER_MS,
+        gathered_bytes=gathered_bytes)
 
 
 def relax_form_check(torch, K, g, root, w, sp):
@@ -2277,7 +2315,8 @@ def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
               f"{r['add_max_abs_err']:.3g}), int32 min and max exactly; "
               f"add: kernel {r['ms']:.3f} ms <= plain {r['plain_ms']:.3f} ms")
     # each run's launches, read around it alone: one segment reduce a
-    # superstep (a level), a shard; the bit BFSs' OR is plain PyTorch
+    # superstep (a level), a shard; the one-device bit BFS's OR one
+    # edge_map_bor a level, the sharded one's plain PyTorch
     levels, S = rec["levels"]["hop_dist"], scale.SHARDS
     want = {"pagerank": scale.PR_ITERS, "hop_dist": levels,
             "pagerank.gm": scale.PR_ITERS, "bit_bfs": 0,
@@ -2289,6 +2328,8 @@ def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
         expect = {"segment_reduce_sorted": k} if k else {}
         if run == "hop_dist":           # min_relax: the gather form
             expect["segment_reduce_sorted[gather]"] = k
+        if run == "bit_bfs":
+            expect = {"edge_map_bor": rec["levels"]["bit_bfs"]}
         check(got == expect,
               f"{run}: launches {got}, {k} segment reduces expected")
     check(c["ok"], "every check of the witness")
@@ -3040,6 +3081,7 @@ def main():
     check([int(r) for r in order[:4]] == roots,
           "the engine's four highest-degree roots are phase 4's")
     t0 = time.time()
+    K.reset_launch_counts()
     ev0.record()
     res = batched.multi_source_bfs_bits(bp, order[:MULTI_B], deg_rows,
                                         plane_bits=PLANE_BITS,
@@ -3047,6 +3089,8 @@ def main():
     ev1.record()
     trav = res.traversed.cpu().numpy()      # where the CLI's clock stops
     host_s = time.time() - t0
+    bits_launched = {name: n for name, n in K.launch_counts().items() if n}
+    bits_launches = K.launch_counts()["edge_map_bor"]
     bits_ms = ev0.elapsed_time(ev1)
     reached = res.reached.cpu().numpy()
     gteps = float(trav.sum()) / bits_ms / 1e6
@@ -3057,6 +3101,10 @@ def main():
           f"({float(trav.sum()) / host_s / 1e9:.2f} by the host clock over "
           f"the region the CLI times); peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(bits_launched == {"edge_map_bor": res.levels_run}
+          and bits_launches == res.levels_run,
+          f"multi_source_bfs_bits at the full size: one edge_map_bor "
+          f"launch a level ({res.levels_run} levels; {bits_launched})")
     for b, r in enumerate(roots):
         seen = (hd_dist[r][:n] < INT32_MAX).cpu().numpy()
         check(int(reached[b]) == int(seen.sum())
@@ -3066,6 +3114,18 @@ def main():
               f"and traversed {int(trav[b])} equal hop_dist's reached set "
               f"and its out-degree sum")
     del res
+    em = edge_map_level_check(torch, K, batched, bp, order[:MULTI_B], chunk)
+    check(em["same"] and em["launched"] == {"edge_map_bor": 1}
+          and em["ms"] < em["plain_ms"],
+          f"edge_map_bor at level {EDGE_MAP_LEVEL} of the full-size bit "
+          f"BFS ({em['active']:.3f} of the rows' frontier words set): equal "
+          f"to the plain gather and fold bit for bit, one launch; kernel "
+          f"{em['ms']:.2f} ms, plain {em['plain_ms']:.2f} ms; bound of the "
+          f"table once {em['bound_ms']:.3f} ms ({em['bytes'] / 1e6:.1f} MB, "
+          f"{100 * em['bound_ms'] / em['ms']:.1f}% of it), of the gathered "
+          f"rows {em['gathered_ms']:.2f} ms "
+          f"({em['gathered_bytes'] / 1e9:.2f} GB, "
+          f"{100 * em['gathered_ms'] / em['ms']:.1f}%)")
 
     roots8 = [int(r) for r in order[:8]]
     for r in roots8[4:]:
@@ -3106,8 +3166,10 @@ def main():
     log(f"  engine: bit BFS {gteps:.2f} GTEPS, PageRank {gedges:.2f} "
         f"Gedge/s; device memory peak {engine_peak:.2f} GB "
         f"(graph and phase-4 leftovers {base_gb:.2f} GB); launches "
-        f"{counts_engine} (all by the hop_dist and pagerank references: "
-        f"the edge map is plain PyTorch)")
+        f"{counts_engine} since the full-size bit BFS (its edge maps, "
+        f"level {EDGE_MAP_LEVEL}'s replay and timing, the rest by the "
+        f"hop_dist and pagerank references: the float edge maps are plain "
+        f"PyTorch)")
     del bp, deg_rows
 
     # -- 7. triangle counting and the analytics models ----------------------
@@ -3288,6 +3350,14 @@ def main():
          "max_abs_err": 0.0, "ms": gather_rec[0]["ms"],
          "plain_ms": gather_rec[0]["five_ms"],
          "bound_ms": gather_rec[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "edge_map_bor", "route": "cuda",
+         "source": "green_marl_tpu_torch/csrc/edge_map.cu",
+         "replaces": "none: green_marl_tpu/ops/binned.py edge_map leaves "
+                     "the row gather and the OR to XLA",
+         "launches": bits_launches, "max_abs_err": 0.0,
+         "ms": em["ms"], "plain_ms": em["plain_ms"],
+         "bound_ms": em["bound_ms"], "bound_by": "bytes",
          "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,9 @@ or int32: the same bits as JAX's uint8/uint16/uint32 (CPU torch has no
 ``>>`` or ``amax`` for uint16/uint32).  Compare them with ``.view`` as the
 unsigned type.
 
+On the card a bit BFS level's edge map is one launch of
+``kernels.edge_map_bor`` (``binned.takes_bor_kernel``).
+
 Under a profiler a ``multi_source_bfs_bits`` call opens ``gm:setup``
 around its seed plane, ``gm:superstep`` a level (``engine/superstep.py``),
 ``gm:edge_map`` inside it (``ops/binned.py``) and ``gm:popstats`` around
@@ -345,7 +348,9 @@ def bits_schedule(g: Graph, num_roots: int, plane_bits: int) -> BitSchedule:
     ``num_roots`` instances at ``plane_bits``, on ``g``'s device: the
     binned pull over in-neighbours (built on the host), the out-degrees in
     binned order (0 in pad rows) and the ``slot_chunk`` that keeps a gather
-    of the planes' rows within ``binned.GATHER_BUDGET``: eager PyTorch
+    of the planes' rows within ``binned.GATHER_BUDGET`` where the edge map
+    takes the plain path (the CPU; on the card the kernel
+    ``kernels.edge_map_bor`` gathers nothing into memory): eager PyTorch
     writes each gathered bin before reducing it (the results do not
     change)."""
     bp = _binned.binned_in(g).to(g.device, with_edges=False)

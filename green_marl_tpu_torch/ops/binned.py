@@ -15,10 +15,14 @@ second-stage segment reduction over their chunks.  The node relabelling
 lives only in the slot arrays, so the superstep loop never permutes.
 
 The schedule is built on the host and moved to a device with
-:meth:`BinnedPull.to`.  ``edge_map`` is plain PyTorch: the JAX package
-left it to XLA, and it has no Pallas kernel.  Unlike XLA, eager PyTorch
-writes every gathered bin before reducing it; ``slot_chunk`` caps that
-transient at ``slot_chunk`` rows with the same results.
+:meth:`BinnedPull.to`.  The JAX package left ``edge_map`` to XLA, and it
+has no Pallas kernel.  Here the bitwise OR of bit planes on the card is
+one launch of a hand-written kernel (``kernels.edge_map_bor``), which
+reads each slot's row once and writes each output row once, where the
+table can take it (:func:`takes_bor_kernel`).  Every other call is plain
+PyTorch: unlike XLA, eager PyTorch writes every gathered bin before
+reducing it; ``slot_chunk`` caps that transient at ``slot_chunk`` rows
+with the same results.
 
 Each ``edge_map`` call is a ``gm:edge_map`` span under a profiler
 (``utils/timing.py`` ``span``) and counts its shapes in
@@ -38,6 +42,7 @@ import torch
 
 from ..graph.csr import Graph, round_up
 from ..utils.timing import span
+from . import kernels as _kernels
 
 # Top bin width: hubs beyond this get chunked + second-stage reduce.
 W_MAX = 4096
@@ -389,8 +394,9 @@ def edge_map(bp: BinnedPull, table: torch.Tensor, op: str = "sum",
     edge weights laid out by ``edge_slot_vals``) combined into the
     gathered rows with ``combine`` (default: add for min/max --
     relaxation -- and multiply otherwise).
-    ``slot_chunk``: optional cap on the slots gathered at once; larger
-    bins split along the node axis.  The results do not change.
+    ``slot_chunk``: optional cap on the slots the plain path gathers at
+    once; larger bins split along the node axis.  The results do not
+    change, and the kernel of op ``bor`` has no such transient.
 
     Returns a new [n_rows, B] table: per binned node, the ``op``
     reduction over its neighbours' table rows; pad/identity rows hold the
@@ -403,11 +409,26 @@ def edge_map(bp: BinnedPull, table: torch.Tensor, op: str = "sum",
                          f"{tuple(table.shape)}")
     if op == "bor" and table.dtype.is_floating_point:
         raise TypeError("op 'bor' needs an integer table")
-    B = table.shape[1]
-    _count(int(bp.slot_src.shape[0]), bp.n_rows,
-           bp.n_rows * B * table.element_size())
+    row_bytes = table.shape[1] * table.element_size()
+    _count(int(bp.slot_src.shape[0]), bp.n_rows, bp.n_rows * row_bytes)
     with span("gm:edge_map"):
+        if takes_bor_kernel(op, table.device.type, table.dtype,
+                            table.is_contiguous(), row_bytes,
+                            slot_vals is not None):
+            return _kernels.edge_map_bor(bp, table)
         return _edge_map(bp, table, op, slot_vals, combine, slot_chunk)
+
+
+def takes_bor_kernel(op: str, device_type: str, dtype: torch.dtype,
+                     contiguous: bool, row_bytes: int,
+                     has_slot_vals: bool) -> bool:
+    """Whether :func:`edge_map` takes ``kernels.edge_map_bor``: op ``bor``
+    on a CUDA table, no per-slot values, and a table that the kernel takes
+    (``kernels.edge_map_bor_refusal``: uint8, int16 or int32, contiguous,
+    rows of 16 to 512 bytes in a multiple of 16)."""
+    return (op == "bor" and device_type == "cuda" and not has_slot_vals
+            and _kernels.edge_map_bor_refusal(dtype, contiguous,
+                                              row_bytes) is None)
 
 
 def _edge_map(bp: BinnedPull, table: torch.Tensor, op: str,

@@ -15,7 +15,9 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
 * ``take_along_blocks`` -- the probes' blocked ``take_along_axis`` on
   [*, 128] float32 blocks (``csrc/gather_probe.cu``);
 * ``row_gather_checksum`` -- the probes' K-in-flight row gather, returning
-  ``sweeps * sum(table[idx, 0])`` mod 2^32 (``csrc/gather_probe.cu``).
+  ``sweeps * sum(table[idx, 0])`` mod 2^32 (``csrc/gather_probe.cu``);
+* ``edge_map_bor`` -- the binned edge map's bitwise OR of integer bit
+  planes (``ops/binned.py`` ``edge_map``, op ``"bor"``; ``csrc/edge_map.cu``).
 
 The first two also take lanes, as the TPU kernels take them under
 ``jax.vmap`` (a batched compiled program, ``lang.lower.CompiledProc.batch``):
@@ -37,6 +39,7 @@ kernel: every empty segment and every row from ``len(offsets) - 1`` up to
 
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 from typing import Optional, Tuple
@@ -682,8 +685,94 @@ def row_gather_checksum(table: torch.Tensor, idx: torch.Tensor,
 
 row_gather_checksum.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# The binned edge map's bitwise OR
+# ---------------------------------------------------------------------------
+
+# the bit BFS's plane types (models/batched.py PLANE_DTYPES): OR acts on
+# bytes, whatever they hold
+EDGE_MAP_DTYPES = (torch.uint8, torch.int16, torch.int32)
+EDGE_MAP_MAX_ROW_BYTES = 512     # a warp's 32 lanes, 16 bytes each
+
+
+def edge_map_bor_refusal(dtype: torch.dtype, contiguous: bool,
+                         row_bytes: int) -> Optional[str]:
+    """Why :func:`edge_map_bor`'s kernel cannot take a table of this
+    dtype, layout and row width, or None where it can: the one rule that
+    the wrapper checks and ``binned.edge_map`` routes by."""
+    if dtype not in EDGE_MAP_DTYPES:
+        return f"dtype {dtype} not in {EDGE_MAP_DTYPES}"
+    if not contiguous:
+        return "tensor is not contiguous"
+    if row_bytes % 16 or not 16 <= row_bytes <= EDGE_MAP_MAX_ROW_BYTES:
+        return (f"rows of {row_bytes} bytes: the kernel takes 16 to "
+                f"{EDGE_MAP_MAX_ROW_BYTES} in a multiple of 16")
+    return None
+
+
+def edge_map_bor_ref(bp, table: torch.Tensor,
+                     slot_chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`edge_map_bor`: ``ops/binned.py``'s gather of
+    each bin's rows (``slot_chunk`` slots at a time), their in-place OR
+    fold and the hubs' second stage."""
+    from .binned import _edge_map
+    return _edge_map(bp, table, "bor", None, None, slot_chunk)
+
+
+def edge_map_bor(bp, table: torch.Tensor) -> torch.Tensor:
+    """The bitwise-OR edge map of ``binned.edge_map(bp, table, "bor")``.
+
+    ``bp``: a ``binned.BinnedPull`` on ``table``'s device; ``table``:
+    [n_rows, B] integer planes that :func:`edge_map_bor_refusal` admits
+    (uint8, int16 or int32, contiguous, rows of 16 to 512 bytes in a
+    multiple of 16).  Returns [n_rows, B]: per binned row the OR of its
+    neighbours' rows, pad and identity rows 0.
+
+    On the card one launch (``csrc/edge_map.cu``) reads each slot's row
+    once into registers and writes each output row once; a table that is
+    not 16-byte aligned is copied first.  OR is order-free, so the bits are
+    the plain version's.  The slot ids must lie in ``[0, n_rows)``, as
+    ``build_binned`` makes them: the kernel reads the table there
+    unchecked.
+    """
+    if table.dim() != 2 or table.shape[0] != bp.n_rows:
+        raise ValueError(f"table must be [n_rows={bp.n_rows}, B], got "
+                         f"{tuple(table.shape)}")
+    row_bytes = table.shape[1] * table.element_size()
+    why = edge_map_bor_refusal(table.dtype, table.is_contiguous(), row_bytes)
+    if why:
+        raise ValueError(f"table: {why}")
+    if bp.slot_src.device != table.device:
+        raise ValueError(f"schedule on {bp.slot_src.device}, table on "
+                         f"{table.device}")
+    if table.device.type == "cpu":
+        return edge_map_bor_ref(bp, table)
+    stream = _cuda_stream(table)
+    if table.data_ptr() % 16:
+        table = table.clone()
+    out = torch.empty_like(table)
+    counter = torch.empty(1, dtype=torch.int32, device=table.device)
+    hub_slot_off = bp.slot_src.numel() - bp.n_hub_chunks * bp.w_max
+    # the bins' (width, count, slot_off, row_off) rows, as int64
+    flat = [v for row in bp.bins for v in row]
+    bins = (ctypes.c_int64 * max(1, len(flat)))(*flat)
+    with torch.cuda.device(table.device):
+        err = _build.lib().gm_edge_map_bor(
+            table.data_ptr(), bp.n_rows, row_bytes, bp.slot_src.data_ptr(),
+            bins, len(bp.bins), bp.hub_owner.data_ptr(),
+            bp.n_hub_chunks, bp.w_max, hub_slot_off, bp.hub_row_off,
+            out.data_ptr(), counter.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"gm_edge_map_bor: CUDA error {err}")
+    _count("edge_map_bor")
+    return out
+
+
+edge_map_bor.launches = 0
+
 _WRAPPERS = (segment_reduce_sorted, plain_cumsum, segmented_scan,
-             take_along_blocks, row_gather_checksum)
+             take_along_blocks, row_gather_checksum, edge_map_bor)
 _LANE_WRAPPERS = (segment_reduce_sorted, plain_cumsum)
 
 

@@ -182,7 +182,8 @@ def test_launch_counts_and_checks(dev):
                                  "segment_reduce_sorted[gather]": 0,
                                  "plain_cumsum": 1, "segmented_scan": 0,
                                  "take_along_blocks": 0,
-                                 "row_gather_checksum": 0}
+                                 "row_gather_checksum": 0,
+                                 "edge_map_bor": 0}
     with pytest.raises(TypeError):
         K.plain_cumsum(x.long())
     with pytest.raises(ValueError):
@@ -1765,3 +1766,120 @@ def test_multi_bfs_kind_on_the_card(dev):
     per_call = 4 * bp.slot_src.numel() + 2 * bp.n_rows * 512
     assert counts["calls"] == info["steps"] > 1
     assert _edge_map_bytes.edge_map_bytes(counts) == info["steps"] * per_call
+
+
+@functools.lru_cache(maxsize=1)
+def _bor_graph():
+    """An RMAT of 2^15 nodes and 2^19 edges: in-degrees up to thousands,
+    so that a schedule has hub chunks at ``w_max`` 512 and bins wide
+    enough for a block a row."""
+    return _rmat_graph(1 << 15, 1 << 19, 61)
+
+
+def _bor_planes(bp, dtype, lanes, seed, dev):
+    """[n_rows, lanes] planes of sparse bits (p = 1/16) on ``dev``, pad and
+    identity rows 0."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, (4, bp.n_nodes, lanes * dtype.itemsize),
+                       dtype=np.uint8)
+    rows = torch.from_numpy(raw[0] & raw[1] & raw[2] & raw[3]).view(dtype)
+    return bp.make_table(rows.to(dev), 0)
+
+
+@pytest.mark.parametrize("w_max", [512, 4096])
+@pytest.mark.parametrize("plane_bits", [8, 16, 32])
+@pytest.mark.parametrize("B", [128, 1024, 4096])
+def test_edge_map_bor_kernel_matches_ref(dev, B, plane_bits, w_max):
+    """The kernel equals the plain gather-and-fold path bit for bit at the
+    bit BFS's row widths (B / 8 bytes: 16, 128, 512), with hub chunks, and
+    gives the same bits on every launch."""
+    from green_marl_tpu_torch.models.batched import PLANE_DTYPES
+    from green_marl_tpu_torch.ops import binned
+    bp = binned.binned_in(_bor_graph(), w_max=w_max).to(dev)
+    assert (bp.n_hub_chunks > 0) == (w_max == 512)
+    assert max(w for w, *_ in bp.bins) >= 256        # a block a row at 512 B
+    dtype = PLANE_DTYPES[plane_bits]
+    table = _bor_planes(bp, dtype, B // plane_bits, B + plane_bits, dev)
+    want = K.edge_map_bor_ref(bp, table)
+    K.reset_launch_counts()
+    got = [K.edge_map_bor(bp, table) for _ in range(3)]
+    got.append(binned.edge_map(bp, table, "bor"))
+    torch.cuda.synchronize()
+    assert K.launch_counts()["edge_map_bor"] == 4
+    for out in got:
+        assert out.dtype == dtype and torch.equal(out, want)
+    assert not bool(want[bp.n_nodes:].any())
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("dtype,lanes", [
+    (torch.int32, 8), (torch.int32, 12), (torch.uint8, 64),
+    (torch.int16, 128), (torch.uint8, 16), (torch.int16, 192)])
+def test_edge_map_bor_kernel_row_widths(dev, dtype, lanes):
+    """Rows of 32, 48, 64, 256, 16 and 384 bytes: subgroups of 2, 4 (3 of
+    them reading), 4, 16, 1 and 32 (24 reading) lanes a row."""
+    from green_marl_tpu_torch.ops import binned
+    bp = binned.binned_in(_bor_graph(), w_max=512).to(dev)
+    table = _bor_planes(bp, dtype, lanes, lanes, dev)
+    got = K.edge_map_bor(bp, table)
+    assert torch.equal(got, K.edge_map_bor_ref(bp, table))
+
+
+def test_edge_map_bor_routes(dev):
+    """What the kernel cannot take (strided, 8-byte rows, int64) goes the
+    plain way, with the same bits; the wrapper refuses it; a table that is
+    not 16-byte aligned is copied."""
+    from green_marl_tpu_torch.ops import binned
+    bp = binned.binned_in(_bor_graph(), w_max=512).to(dev)
+    wide = _bor_planes(bp, torch.int32, 8, 5, dev)
+    K.reset_launch_counts()
+    strided = wide[:, ::2]                      # 16-byte rows, strided
+    assert torch.equal(binned.edge_map(bp, strided, "bor"),
+                       K.edge_map_bor_ref(bp, strided))
+    narrow = wide[:, :2].contiguous()           # 8-byte rows
+    assert torch.equal(binned.edge_map(bp, narrow, "bor"),
+                       K.edge_map_bor_ref(bp, narrow))
+    i64 = _bor_planes(bp, torch.int64, 2, 6, dev)    # not a plane type
+    assert torch.equal(binned.edge_map(bp, i64, "bor"),
+                       K.edge_map_bor_ref(bp, i64))
+    assert K.launch_counts()["edge_map_bor"] == 0
+    for bad in (strided, narrow, i64):
+        with pytest.raises(ValueError):
+            K.edge_map_bor(bp, bad)
+    flat = torch.zeros(wide.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(wide.shape)         # contiguous, 4 bytes off
+    shifted.copy_(wide)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(binned.edge_map(bp, shifted, "bor"),
+                       K.edge_map_bor_ref(bp, wide))
+    assert K.launch_counts()["edge_map_bor"] == 1
+
+
+@pytest.mark.parametrize("plane_bits,B", [(8, 1024), (32, 4096)])
+def test_bit_bfs_on_the_kernel(dev, plane_bits, B):
+    """``multi_source_bfs_bits`` on the card (one ``edge_map_bor`` launch a
+    level) equals the paged variant on the card and the CPU path, in
+    planes, levels, reached and traversed."""
+    from green_marl_tpu_torch.models import batched
+    g = _bor_graph()
+    rng = np.random.default_rng(B)
+    roots = rng.choice(np.flatnonzero(g.out_degree()[:g.num_nodes].numpy()),
+                       B, replace=False)
+    runs = {}
+    for name, graph, fn in (
+            ("cpu", g, batched.multi_source_bfs_bits),
+            ("card", g.to(dev), batched.multi_source_bfs_bits),
+            ("paged", g.to(dev), batched.multi_source_bfs_bits_paged)):
+        bp, deg_rows, chunk = batched.bits_schedule(graph, B, plane_bits)
+        K.reset_launch_counts()
+        res = fn(bp, roots, deg_rows, plane_bits=plane_bits,
+                 slot_chunk=chunk)
+        runs[name] = (res, K.launch_counts()["edge_map_bor"])
+    cpu, card, paged = (runs[k][0] for k in ("cpu", "card", "paged"))
+    assert runs["cpu"][1] == 0 and cpu.levels_run > 2
+    assert runs["card"][1] == card.levels_run == cpu.levels_run
+    assert runs["paged"][1] == paged.levels_run == cpu.levels_run
+    for res in (card, paged):
+        assert torch.equal(res.visited.cpu(), cpu.visited)
+        assert torch.equal(res.reached.cpu(), cpu.reached)
+        assert torch.equal(res.traversed.cpu(), cpu.traversed)

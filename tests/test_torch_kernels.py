@@ -170,7 +170,8 @@ def test_wrappers_check_arguments_and_count_only_launches():
                                  "segment_reduce_sorted[gather]": 0,
                                  "plain_cumsum": 0, "segmented_scan": 0,
                                  "take_along_blocks": 0,
-                                 "row_gather_checksum": 0}
+                                 "row_gather_checksum": 0,
+                                 "edge_map_bor": 0}
 
 
 INT32_MAX = torch.iinfo(torch.int32).max
