@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  Phases, each of which raises on failure:
+Run from the root of a checkout.  The card's pass/fail: a kernel's time at
+these shapes comes from its probe (``probes/segment.py``, ``probes/gather.py``,
+``scripts/probe_relax.py``, ``scripts/probe_edge_map.py``), and this script
+times only what no probe does.  Phases, each of which raises on failure:
 
 1. the card's name and power limit; build the CUDA kernels and the native
    host library from the checkout's sources;
@@ -33,23 +36,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    sssp from the first of those roots superstep by superstep with the
    segment reduce's gather form (hop_dist's and sssp's relax step) held
    bit for bit against its plain version at each superstep, with the
-   weights and with unit weights, and timed at the densest and the
-   sparsest superstep beside the five launches it replaced and its bound,
-   the graph's in-degree picture, and each kernel's time at that graph's
-   shapes beside its plain version, its bound (the bytes it must move over
-   the card's 3.35 TB/s) and, where one PyTorch call computes the same
-   function, that call's time (``torch.segment_reduce``, ``torch.cumsum``:
-   yardsticks that the port never calls), with ``segment_sum_by_offsets``
-   (BFS's pull sweep) timed beside its earlier inclusive-scan-and-copy
-   form;
+   weights and with unit weights, the prefix sum, ``segment_sum_by_offsets``
+   (BFS's pull sweep) against its earlier inclusive-scan-and-copy form and
+   the segmented scan at that graph's shapes against their plain versions;
 6. the batched engine: the ``multi_bfs`` CLI at bench.py's headline
    B=4096, plane_bits=32 on the 1/16-size file, equal to the in-process
    run there; then on the full-size graph, on one binned schedule, the bit
    BFS (instances 0-3 against hop_dist, one ``edge_map_bor`` launch a
    level; the kernel at level 3 against the plain gather and fold bit for
-   bit, timed beside both and both bounds), the binned BFS at B=8 (distances
-   equal hop_dist's) and the binned PageRank at B=128 (the d=0.85 instance
-   against pagerank), with aggregate GTEPS, Gedge/s and the memory peak;
+   bit, and faster), the binned BFS at B=8 (distances equal hop_dist's) and
+   the binned PageRank at B=128 (the d=0.85 instance against pagerank),
+   with aggregate GTEPS, Gedge/s and the memory peak;
 7. triangle counting and the analytics models.  On the full-size directed
    graph: weak_cc (its labels' invariants, two segment-reduce launches a
    superstep), conductance of the four cuts of ``conduct_membership``
@@ -160,8 +157,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    and hop_dist.gm;
    then the lane-batched segment reduce and prefix sum against their plain
    versions on the [16, E_pad] values the runs gave them, each lane against
-   the 1-D kernel, and their times beside plain, 16 x the 1-D kernel, the
-   bound and one PyTorch call.
+   the 1-D kernel, each no slower than its plain version.
 13. the harness and the probes of the hot paths, on the card: the placement
    matrix (``harness.matrix_sweep``: pagerank, hop_dist, sssp, conduct,
    avg_teen_cnt and multi_bfs under each placement at 8 shards, the
@@ -188,8 +184,12 @@ the component and path models and the sampling family counted on their own
 too), phase 8, phase 9 (each compiled call on its own), phase 10,
 phase 11, phase 12 (each batched and single run on its own) and phase 13
 (each harness run and probe on its own).
-The last two lines are a JSON record of the kernels and the JSON status
-line.  Exits non-zero, with no result, where CUDA is unavailable.
+Times are CUDA events through ``utils.timing`` (``timed`` around one call,
+``kernel_ms`` for a kernel against its plain version).  The last two lines
+are a JSON record of the kernels (each with the probe that times it) and
+the JSON status line, which names the last phase begun and the exit
+status, also when a phase raises.  Exits non-zero, with no result, where
+CUDA is unavailable.
 """
 
 import concurrent.futures
@@ -199,7 +199,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -266,9 +265,8 @@ GOLD_SMALL_SHA256 = \
 GOLD_PROFILE_STEPS = {"pagerank": 10, "hop_dist": 9}
 GOLD_SMALL_HOP_CRC16 = "0x0893"
 
-HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
 MULTI_B, PLANE_BITS = 4096, 32     # bench.py:53-54, the headline
-EDGE_MAP_LEVEL = 3                 # the bit BFS level phase 6 times
+EDGE_MAP_LEVEL = 3                 # the bit BFS level phase 6 checks
 PR_B, PR_ITERS = 128, 20           # bench.py:55-56
 
 REPLACES = {
@@ -285,16 +283,29 @@ SOURCES = {
     "take_along_blocks": "green_marl_tpu_torch/csrc/gather_probe.cu",
     "row_gather_checksum": "green_marl_tpu_torch/csrc/gather_probe.cu",
 }
-# the probe lines whose times stand in the kernels record
-PROBE_TIMED = {"take_along_blocks": "axis0 [1024,128]",
-               "row_gather_checksum": "rowB=512 K=8"}
+# the probe that times each kernel (and its plain version, its bound and
+# any PyTorch call of the same function) at these phases' shapes
+SEGMENT_PROBE = "python3 green_marl_tpu_torch/probes/segment.py"
+TIMED_BY = {
+    "segment_reduce_sorted": SEGMENT_PROBE,
+    "plain_cumsum": SEGMENT_PROBE,
+    "segmented_scan": SEGMENT_PROBE,
+    "take_along_blocks": "python3 -m green_marl_tpu_torch.probes.gather",
+    "row_gather_checksum": "python3 -m green_marl_tpu_torch.probes.gather",
+    "segment_reduce_sorted[lanes]": SEGMENT_PROBE + " --lanes 16",
+    "plain_cumsum[lanes]": SEGMENT_PROBE + " --lanes 16",
+    "segment_reduce_sorted[gather]": "python3 scripts/probe_relax.py",
+    "edge_map_bor": "python3 scripts/probe_edge_map.py",
+}
 
 
 T_START = time.time()
+PHASE = ["none"]                   # the heading of the phase last begun
 
 
 def log(msg):
     if msg.startswith("== "):     # a phase's heading: when it began
+        PHASE[0] = msg[3:]
         msg += f"  [at {time.time() - T_START:.1f} s]"
     print(msg, flush=True)
 
@@ -305,19 +316,25 @@ def check(cond, what):
     log(f"  ok: {what}")
 
 
-def cuda_ms(torch, fn, reps=10):
-    """Mean device time of ``fn`` in ms over ``reps`` launches (CUDA
-    events), after one warm-up launch."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def mean_ms(fn, calls=10):
+    """Mean device ms of ``calls`` back-to-back calls of ``fn`` after one
+    warm-up call (``utils.timing.kernel_ms``, one group)."""
+    from green_marl_tpu_torch.utils.timing import kernel_ms
+    return kernel_ms(fn, calls, 1)[0]
+
+
+def timed_launches(fn, counts):
+    """``(fn(), CUDA-event ms, host ms, launches by name)`` of one call
+    (``utils.timing.timed``); ``counts()`` gives the launch counts by
+    name."""
+    import torch
+
+    from green_marl_tpu_torch.utils.timing import timed
+    before = counts()
+    out, host, ms = timed(fn, torch.device("cuda"))
+    after = counts()
+    return out, ms, host, {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
 
 
 def run_cli(apps, argv):
@@ -356,9 +373,7 @@ def launched_since(K, before):
 def edge_map_level_check(torch, K, batched, bp, roots, chunk):
     """Phase 6: the bit BFS's edge map at level ``EDGE_MAP_LEVEL`` of the
     full-size run, on its frontier: the kernel (one launch) against the
-    plain gather-and-fold path bit for bit, both timed beside the bound of
-    the table once (the slot ids, the table and the output once each) and
-    of the gathered bytes (each slot's row read once besides)."""
+    plain gather-and-fold path bit for bit, and both timed."""
     visited = batched._bits_seed(bp, roots, PLANE_BITS)
     frontier = visited
     zero = torch.zeros((), dtype=visited.dtype, device=visited.device)
@@ -373,18 +388,12 @@ def edge_map_level_check(torch, K, batched, bp, roots, chunk):
     same = torch.equal(got, K.edge_map_bor_ref(bp, frontier,
                                                slot_chunk=chunk))
     del got
-    slots, row_bytes = bp.slot_src.numel(), MULTI_B // 8
-    table_bytes = 4 * slots + 2 * bp.n_rows * row_bytes
-    gathered_bytes = table_bytes + (slots - bp.n_rows) * row_bytes
     return dict(
         same=same, launched=launched,
         active=float((frontier != 0).any(1).float().mean()),
-        ms=cuda_ms(torch, lambda: K.edge_map_bor(bp, frontier), reps=5),
-        plain_ms=cuda_ms(torch, lambda: K.edge_map_bor_ref(
-            bp, frontier, slot_chunk=chunk), reps=2),
-        bound_ms=table_bytes / HBM_BYTES_PER_MS, bytes=table_bytes,
-        gathered_ms=gathered_bytes / HBM_BYTES_PER_MS,
-        gathered_bytes=gathered_bytes)
+        ms=mean_ms(lambda: K.edge_map_bor(bp, frontier), 5),
+        plain_ms=mean_ms(lambda: K.edge_map_bor_ref(
+            bp, frontier, slot_chunk=chunk), 2))
 
 
 def relax_form_check(torch, K, g, root, w, sp):
@@ -392,11 +401,7 @@ def relax_form_check(torch, K, g, root, w, sp):
     reduce's gather form (the main path's relax step) held bit for bit
     against its plain version at each superstep, with the weights and with
     unit weights (``add=None``); the steps must reach ``sp``, the model's
-    own run.  Then, at the densest superstep and at the sparsest with a
-    source set, each form's time beside the five launches it replaced
-    (two ``index_select``, the add, ``where``, the plain segment min) and
-    its bound: the ids (and the weights) of the slots of a row, the
-    offsets, the rows out, ``dist`` and ``updated`` once each."""
+    own run."""
     src, ids, offs, n_pad = g.r_node_idx, g.r_node_idx_dst, g.r_begin, g.n_pad
     w_csc = w.index_select(0, g.e_rev2idx)
     inf = torch.tensor(torch.iinfo(torch.int32).max, dtype=torch.int32,
@@ -406,7 +411,7 @@ def relax_form_check(torch, K, g, root, w, sp):
     dist[root] = 0
     upd = torch.zeros(n_pad, dtype=torch.bool, device=src.device)
     upd[root] = True
-    states = []                      # (share of slots set, dist, updated)
+    shares = []                      # of the slots whose source is set
     equal = {"weights": True, "unit weights": True}
     while bool(upd.any()):
         for what, add in (("weights", w_csc), ("unit weights", None)):
@@ -417,46 +422,18 @@ def relax_form_check(torch, K, g, root, w, sp):
             equal[what] &= torch.equal(got, want)
             if add is not None:
                 best = got
-        states.append((float(upd.index_select(0, src[:g.num_edges])
-                             .float().mean()), dist, upd))
+        shares.append(round(float(upd.index_select(0, src[:g.num_edges])
+                                  .float().mean()), 4))
         new = torch.minimum(dist, best)
         upd = new < dist
         dist = new
-    shares = [round(s, 4) for s, _, _ in states]
     for what, ok in equal.items():
         check(ok, f"gather form int32 min with {what} on the LJ arrays: "
-              f"kernel == plain at each of sssp's {len(states)} supersteps "
+              f"kernel == plain at each of sssp's {len(shares)} supersteps "
               f"from root {root} (shares of the slots' sources set: "
               f"{shares})")
-    check(len(states) == sp.iterations and torch.equal(dist, sp.dist),
-          f"those {len(states)} supersteps reach sssp's own distances")
-    in_range = int(offs[-1]) - int(offs[0])
-    fixed = 4 * offs.numel() + 4 * n_pad + 5 * n_pad
-    dense = max(range(len(states)), key=lambda i: states[i][0])
-    sparse = min((i for i in range(len(states)) if states[i][0] > 0),
-                 key=lambda i: states[i][0])
-    recs = []
-    for step in (dense, sparse):
-        share, dist, upd = states[step]
-        for what, add, wt in (("weights", w_csc, w_csc),
-                              ("unit weights", None, 1)):
-            def form():
-                return K.segment_reduce_sorted(
-                    src, ids, offs, n_pad, "min", node_vals=dist,
-                    node_mask=upd, add=add)
-
-            def five():
-                cand = torch.where(upd.index_select(0, src),
-                                   dist.index_select(0, src) + wt, inf)
-                return K.segment_reduce_sorted(cand, ids, offs, n_pad, "min")
-
-            ms = cuda_ms(torch, form)
-            nbytes = (8 if add is not None else 4) * in_range + fixed
-            bound = nbytes / HBM_BYTES_PER_MS
-            recs.append(dict(add=what, step=step, share=share, ms=ms,
-                             five_ms=cuda_ms(torch, five), bytes=nbytes,
-                             bound_ms=bound, pct=100 * bound / ms))
-    return recs
+    check(len(shares) == sp.iterations and torch.equal(dist, sp.dist),
+          f"those {len(shares)} supersteps reach sssp's own distances")
 
 
 def timed_calls(module, name, sink):
@@ -498,16 +475,10 @@ def models_phase(torch, K, dev, g, g_host, g16):
     from green_marl_tpu_torch.utils.gm_rand import conduct_membership
 
     n, e = g.num_nodes, g.num_edges
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
 
     def timed(fn):
-        torch.cuda.synchronize()
-        ev0.record()
-        out = fn()
-        ev1.record()
-        ev1.synchronize()
-        return out, ev0.elapsed_time(ev1)
+        """(result, CUDA-event ms) of one call."""
+        return timed_launches(fn, K.launch_counts)[:2]
 
     # weak_cc at the full size
     cc.weak_cc(g, max_iter=2)                         # warm-up
@@ -644,19 +615,11 @@ def paths_phase(torch, K, dev, apps, g, w, roots, bfs_res):
     from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
 
     n, e = g.num_nodes, g.num_edges
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
 
     def timed(fn):
         """(result, CUDA-event ms, segment-reduce launches) of one call."""
-        before = K.launch_counts()["segment_reduce_sorted"]
-        torch.cuda.synchronize()
-        ev0.record()
-        out = fn()
-        ev1.record()
-        ev1.synchronize()
-        return (out, ev0.elapsed_time(ev1),
-                K.launch_counts()["segment_reduce_sorted"] - before)
+        out, ms, _, launched = timed_launches(fn, K.launch_counts)
+        return out, ms, launched.get("segment_reduce_sorted", 0)
 
     # scc at the full size; the four largest components against forward and
     # reverse BFS from their representatives
@@ -839,19 +802,11 @@ def sampling_phase(torch, K, dev, apps, g, g_host, small_path):
     from green_marl_tpu_torch.runtime import rng
 
     n, e = g.num_nodes, g.num_edges
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
 
     def timed(fn):
         """(result, CUDA-event ms, segment-reduce launches) of one call."""
-        before = K.launch_counts()["segment_reduce_sorted"]
-        torch.cuda.synchronize()
-        ev0.record()
-        out = fn()
-        ev1.record()
-        ev1.synchronize()
-        return (out, ev0.elapsed_time(ev1),
-                K.launch_counts()["segment_reduce_sorted"] - before)
+        out, ms, _, launched = timed_launches(fn, K.launch_counts)
+        return out, ms, launched.get("segment_reduce_sorted", 0)
 
     # threefry: the card's bits are the CPU's (the CPU's are JAX's: tests)
     key = rng.PRNGKey(LJ_SEED)
@@ -1376,13 +1331,12 @@ def first_lane_calls(K):
             setattr(K, name, real)
 
 
-def lane_kernel_records(torch, K, inputs, b, smi):
+def lane_kernel_checks(torch, K, inputs, b):
     """Each lane-batched kernel against its plain version on the [B, E]
     values a batched program gave it, every lane against the 1-D kernel on
-    its row, then its time beside the plain version's, B times the 1-D
-    kernel's on one row, its bound and one PyTorch call.  Returns
-    name -> record."""
-    recs = {}
+    its row, and no slower than its plain version.  Returns name -> its
+    largest difference from the plain version."""
+    errs = {}
     prog, v2, args, kw = inputs["segment_reduce_sorted"]
     ids, offs, n_out = args
     op = kw.get("op", "add")
@@ -1396,27 +1350,12 @@ def lane_kernel_records(torch, K, inputs, b, smi):
           f"{list(v2.shape)} values: each lane the bits of the 1-D kernel "
           f"on its row; within rtol 1e-5 of plain (max abs err {err:.3g})")
     del got, want
-    row = v2[0].contiguous()
-    in_range = int(offs[-1]) - int(offs[0])
-    lib = None
-    try:
-        col = v2.t().contiguous()       # [E, B]: the library's layout
-        lib = cuda_ms(torch, lambda: torch.segment_reduce(
-            col, "sum", offsets=offs.long(), axis=0))
-        del col
-    except (RuntimeError, TypeError) as e:
-        log(f"  torch.segment_reduce on the [E, {b}] transpose: refused "
-            f"({str(e).splitlines()[0][:120]})")
-    recs["segment_reduce_sorted[lanes]"] = dict(
-        err=err, ms=cuda_ms(torch, lambda: K.segment_reduce_sorted(
-            v2, ids, offs, n_out, op)),
-        plain_ms=cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
-            v2, ids, offs, n_out, op), reps=3),
-        one_ms=b * cuda_ms(torch, lambda: K.segment_reduce_sorted(
-            row, ids, offs, n_out, op)),
-        bytes=b * (4 * in_range + 4 * n_out) + 4 * offs.numel(),
-        library_ms=lib)
-    del v2, row
+    errs["segment_reduce_sorted[lanes]"] = err
+    ms = {"segment_reduce_sorted[lanes]": (
+        mean_ms(lambda: K.segment_reduce_sorted(v2, ids, offs, n_out, op)),
+        mean_ms(lambda: K.segment_reduce_sorted_ref(v2, ids, offs, n_out,
+                                                    op), 3))}
+    del v2
     prog, v2, args, kw = inputs["plain_cumsum"]
     excl = bool(kw.get("exclusive", False))
     got = K.plain_cumsum(v2, exclusive=excl)
@@ -1427,32 +1366,15 @@ def lane_kernel_records(torch, K, inputs, b, smi):
           f"exclusive={excl} on {prog}'s {list(v2.shape)} values == plain "
           "and each lane == the 1-D kernel, bit for bit")
     del got
-    row = v2[0].contiguous()
-    e = v2.shape[1]
-    recs["plain_cumsum[lanes]"] = dict(
-        err=0.0, ms=cuda_ms(torch, lambda: K.plain_cumsum(
-            v2, exclusive=excl)),
-        plain_ms=cuda_ms(torch, lambda: K.plain_cumsum_ref(
-            v2, exclusive=excl)),
-        one_ms=b * cuda_ms(torch, lambda: K.plain_cumsum(
-            row, exclusive=excl)),
-        bytes=b * (4 * e + 4 * (e + excl)),
-        library_ms=cuda_ms(torch, lambda: torch.cumsum(
-            v2, 1, dtype=torch.int32)))
-    del v2, row
-    for name, r in recs.items():
-        bound = r["bytes"] / HBM_BYTES_PER_MS
-        log(f"  {name} at [{b}, E]: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, {b} x the 1-D kernel on one row "
-            f"{r['one_ms']:.3f} ms, bound {bound:.3f} ms ({r['bytes'] / 1e6:.1f}"
-            f" MB at 3.35 TB/s), one PyTorch "
-            "call " + ("none" if r["library_ms"] is None
-                       else f"{r['library_ms']:.3f} ms") + f" (card: {smi})")
-        log(f"  {name} bound share: {bound / r['ms']:.1%} ({bound:.3f} of "
-            f"{r['ms']:.3f} ms)")
-        check(r["ms"] <= r["plain_ms"], f"{name} at [{b}, E] no slower than "
-              f"its plain version ({r['ms']:.3f} <= {r['plain_ms']:.3f} ms)")
-    return recs
+    errs["plain_cumsum[lanes]"] = 0.0
+    ms["plain_cumsum[lanes]"] = (
+        mean_ms(lambda: K.plain_cumsum(v2, exclusive=excl)),
+        mean_ms(lambda: K.plain_cumsum_ref(v2, exclusive=excl)))
+    del v2
+    for name, (kernel, plain) in ms.items():
+        check(kernel <= plain, f"{name} at [{b}, E] no slower than its "
+              f"plain version ({kernel:.3f} <= {plain:.3f} ms)")
+    return errs
 
 
 def batch_phase(torch, K, dev, g_host, smi):
@@ -1476,22 +1398,9 @@ def batch_phase(torch, K, dev, g_host, smi):
     def counts():
         return {**K.launch_counts(), **K.lane_launch_counts()}
 
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-
     def timed(fn):
         """(result, CUDA-event ms, host ms, launches by name)."""
-        before = counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ev0.record()
-        out = fn()
-        ev1.record()
-        ev1.synchronize()
-        host = 1e3 * (time.time() - t0)
-        after = counts()
-        return out, ev0.elapsed_time(ev1), host, {
-            k: after[k] - before[k] for k in after if after[k] != before[k]}
+        return timed_launches(fn, counts)
 
     b = BATCH_B
     g = g_host.to(dev)
@@ -1583,8 +1492,7 @@ def batch_phase(torch, K, dev, g_host, smi):
                 g, over={arg: vals}, **fixed))
     del g
     torch.cuda.empty_cache()
-    recs = lane_kernel_records(torch, K, inputs, b, smi)
-    return total, recs
+    return total, lane_kernel_checks(torch, K, inputs, b)
 
 
 SHARDS = 4                # phase 10: shards of one program on the card
@@ -1817,20 +1725,9 @@ def compiled_phase(torch, K, dev, apps, g_host, roots, smi):
             warnings.simplefilter("ignore")
             return compile_source(text)
 
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-
     def timed(fn):
         """(result, CUDA-event ms, host ms, launches by name)."""
-        before = K.launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ev0.record()
-        out = fn()
-        ev1.record()
-        ev1.synchronize()
-        return (out, ev0.elapsed_time(ev1), 1e3 * (time.time() - t0),
-                launched_since(K, before))
+        return timed_launches(fn, K.launch_counts)
 
     total = {name: 0 for name in K.launch_counts()}
 
@@ -1975,9 +1872,9 @@ def check_shard_slabs(torch, K, dev, vsg_h, sched_h, g, age):
             ok = ok and torch.equal(
                 K.segment_reduce_sorted(ivals, ids, off, n_out, op=op),
                 K.segment_reduce_sorted_ref(ivals, ids, off, n_out, op))
-        ms = cuda_ms(torch, lambda: K.segment_reduce_sorted(
+        ms = mean_ms(lambda: K.segment_reduce_sorted(
             vals, ids, off, n_out, op="add"))
-        plain = cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
+        plain = mean_ms(lambda: K.segment_reduce_sorted_ref(
             vals, ids, off, n_out, "add"))
         check(ok and ms <= plain,
               f"segment_reduce_sorted on the {what} slab (E_s={e}, "
@@ -2087,18 +1984,10 @@ def sharded_phase(torch, K, dev, apps, g_host, roots, smi):
     w_np[: g.num_edges] = sssp_edge_lengths(g.num_edges)
     w = torch.from_numpy(w_np).to(dev)
     w_slab = comm.place_rows(V.shard_edge_prop(vsg, g_host, w_np), mesh)
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-
     def timed(fn):
         """(result, CUDA-event ms, launches by name)."""
-        before = K.launch_counts()
-        torch.cuda.synchronize()
-        ev0.record()
-        out = fn()
-        ev1.record()
-        ev1.synchronize()
-        return out, ev0.elapsed_time(ev1), launched_since(K, before)
+        out, ms, _, launched = timed_launches(fn, K.launch_counts)
+        return out, ms, launched
 
     total = {name: 0 for name in K.launch_counts()}
 
@@ -2584,16 +2473,14 @@ def main():
     from green_marl_tpu_torch.probes import scale
     from green_marl_tpu_torch.utils.crc import array_checksum_hex
     from green_marl_tpu_torch.utils.gm_rand import sssp_edge_lengths
+    from green_marl_tpu_torch.utils.timing import card, timed
 
     dev = torch.device("cuda")
     t_all = time.time()
 
     # -- 1. card and build ------------------------------------------------
     log("== 1. card and build")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card(dev)
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -2750,8 +2637,6 @@ def main():
     g16 = g16_host.to(dev)
     log(f"  generated, froze and wrote {os.path.relpath(path, ROOT)} "
         f"({os.path.getsize(path) / 1e6:.0f} MB) in {time.time() - t0:.1f} s")
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
 
     def edge_weights(g):
         w = np.zeros(g.e_pad, np.int32)
@@ -2811,15 +2696,13 @@ def main():
         torch.cuda.synchronize()
         before = K.launch_counts()
         t0 = time.time()
-        ev0.record()
-        res = fn()
-        ev1.record()
+        res, _, ms = timed(fn, dev)
         arr = (res.rank if app == "pagerank" else res.dist).cpu().numpy()
         app_ms[app] = 1000 * (time.time() - t0)
         arr = torch.from_numpy(arr[:LJ_N])
         log(f"  {app} at the full size: {app_ms[app]:.1f} ms by the host "
             f"clock (the call to the result on the host), "
-            f"{ev0.elapsed_time(ev1):.1f} ms by CUDA events; "
+            f"{ms:.1f} ms by CUDA events; "
             f"{res.iterations} supersteps; kernel launches in this run "
             f"{launched_since(K, before)}")
         if app == "pagerank":
@@ -2831,31 +2714,21 @@ def main():
     bfs_res = {}
     for r in roots:
         before = K.launch_counts()
-        ev0.record()
-        res = bfs(g, r)
-        ev1.record()
-        ev1.synchronize()
+        res, _, ms = timed(lambda: bfs(g, r), dev)
         bfs_res[r] = res
         log(f"  bfs root={r}: levels={res.levels_run} "
-            f"reached={res.reached} {ev0.elapsed_time(ev1):.1f} ms; kernel "
+            f"reached={res.reached} {ms:.1f} ms; kernel "
             f"launches in this run {launched_since(K, before)}")
     hd_dist = {}
     for r in roots:
-        ev0.record()
-        hd = hop_dist(g, r)
-        ev1.record()
-        ev1.synchronize()
+        hd, _, ms = timed(lambda: hop_dist(g, r), dev)
         hd_dist[r] = hd.dist
         lv = bfs_res[r].level
         same = torch.equal(torch.where(lv >= 0, lv, INT32_MAX), hd.dist)
         check(same, f"root {r}: bfs levels == hop_dist distances "
-              f"(hop_dist {hd.iterations} supersteps, "
-              f"{ev0.elapsed_time(ev1):.1f} ms)")
+              f"(hop_dist {hd.iterations} supersteps, {ms:.1f} ms)")
     before = K.launch_counts()
-    ev0.record()
-    sp = sssp(g, roots[0], w)
-    ev1.record()
-    ev1.synchronize()
+    sp, _, sp_ms = timed(lambda: sssp(g, roots[0], w), dev)
     sp_launches = launched_since(K, before)
     before = K.launch_counts()
     hd = hop_dist(g, roots[0])
@@ -2869,8 +2742,7 @@ def main():
               f"superstep ({res.iterations} supersteps; {got})")
     check(bool((sp.dist >= hd.dist).all()),
           f"root {roots[0]}: sssp >= hop_dist everywhere "
-          f"(sssp {sp.iterations} supersteps, "
-          f"{ev0.elapsed_time(ev1):.1f} ms)")
+          f"(sssp {sp.iterations} supersteps, {sp_ms:.1f} ms)")
     check(torch.equal(sp.dist < INT32_MAX, hd.dist < INT32_MAX),
           f"root {roots[0]}: sssp and hop_dist reach the same nodes")
     torch.cuda.synchronize()
@@ -2886,7 +2758,7 @@ def main():
     check(scan_launches > 0, f"segmented_scan launched in its phase "
           f"({scan_launches} times)")
 
-    # -- 5. LJ shapes: kernel against plain, and times ---------------------
+    # -- 5. LJ shapes: kernel against plain ------------------------------
     log("== 5. kernels at the LiveJournal-scale graph's shapes")
     out_deg = g.out_degree().float()
     contrib = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1), 0.0) \
@@ -2911,7 +2783,7 @@ def main():
                       K.segment_reduce_sorted_ref(cand, ids, offs, n_pad,
                                                   "min")),
           "relax-style int32 min on the LJ arrays: kernel == plain")
-    gather_rec = relax_form_check(torch, K, g, roots[0], w, sp)
+    relax_form_check(torch, K, g, roots[0], w, sp)
     bits = (torch.arange(g.e_pad, device=dev) % 3 == 0).to(torch.int32)
     cs_err = int((K.plain_cumsum(bits) - K.plain_cumsum_ref(bits))
                  .abs().max())
@@ -2951,85 +2823,6 @@ def main():
           "segmented_scan int32 min on the LJ CSC: segment tails == the "
           "segment-reduce kernel's min")
     del scan, tails, nonempty
-    times = {
-        "segmented_scan": (
-            cuda_ms(torch, lambda: K.segmented_scan(pulled, ids)),
-            cuda_ms(torch, lambda: K.segmented_scan_ref(pulled, ids))),
-        "segment_reduce_sorted": (
-            cuda_ms(torch, lambda: K.segment_reduce_sorted(
-                pulled, ids, offs, n_pad, "add")),
-            cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
-                pulled, ids, offs, n_pad, "add"))),
-        "plain_cumsum": (
-            cuda_ms(torch, lambda: K.plain_cumsum(bits)),
-            cuda_ms(torch, lambda: K.plain_cumsum_ref(bits))),
-    }
-    min_ms = (cuda_ms(torch, lambda: K.segment_reduce_sorted(
-                  cand, ids, offs, n_pad, "min")),
-              cuda_ms(torch, lambda: K.segment_reduce_sorted_ref(
-                  cand, ids, offs, n_pad, "min")))
-    sbo_ms = (cuda_ms(torch, lambda: scan_reduce.segment_sum_by_offsets(
-                  bits, offs, n_pad)),
-              cuda_ms(torch, sum_by_offsets_cat))
-    excl_ms = (cuda_ms(torch, lambda: K.plain_cumsum(bits, exclusive=True)),
-               cuda_ms(torch, lambda: K.plain_cumsum_ref(bits,
-                                                         exclusive=True)))
-    # one PyTorch call that computes the same function, where there is one:
-    # timed here as a yardstick, called nowhere in the port
-    offs64 = offs.long()
-    library_ms = {
-        "segment_reduce_sorted": cuda_ms(torch, lambda: torch.segment_reduce(
-            pulled, "sum", offsets=offs64)),
-        "plain_cumsum": cuda_ms(torch, lambda: torch.cumsum(
-            bits, 0, dtype=torch.int32)),
-        "segmented_scan": None,
-    }
-    # the least the card could take: every input read once and every output
-    # written once at the memory's rate (these kernels do no arithmetic to
-    # speak of, so bytes bound them all)
-    in_range = int(offs[-1]) - int(offs[0])     # slots that belong to a row
-    bound_bytes = {
-        "segment_reduce_sorted": 4 * in_range + 4 * offs.numel() + 4 * n_pad,
-        "plain_cumsum": 8 * g.e_pad,
-        "segmented_scan": 12 * g.e_pad,
-    }
-    in_deg = g.r_begin.diff()
-    log(f"  LJ CSC in-degrees: max {int(in_deg.max())}, mean "
-        f"{float(in_deg.float().mean()):.2f}, empty "
-        f"{float((in_deg == 0).float().mean()):.3f}, under 8 slots "
-        f"{float((in_deg < 8).float().mean()):.3f}, under 32 slots "
-        f"{float((in_deg < 32).float().mean()):.3f} of {in_deg.numel()} "
-        "segments")
-    for name in bound_bytes:
-        lib_ms = library_ms[name]
-        log(f"  {name}: bound {bound_bytes[name] / 1e6:.1f} MB = "
-            f"{bound_bytes[name] / HBM_BYTES_PER_MS:.3f} ms at 3.35 TB/s; "
-            f"kernel {times[name][0]:.3f} ms; one PyTorch call "
-            + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
-    del offs64, in_deg
-    log(f"  card: {smi}")
-    log(f"  segment_reduce_sorted float32 add, e_pad={g.e_pad} "
-        f"n_out={n_pad}: kernel {times['segment_reduce_sorted'][0]:.3f} ms, "
-        f"plain {times['segment_reduce_sorted'][1]:.3f} ms")
-    log(f"  segment_reduce_sorted int32 min, same shape: kernel "
-        f"{min_ms[0]:.3f} ms, plain {min_ms[1]:.3f} ms")
-    for r in gather_rec:
-        log(f"  segment_reduce_sorted gather form, int32 {r['add']}, sssp "
-            f"superstep {r['step']} ({r['share']:.4f} of the slots' sources "
-            f"set): kernel {r['ms']:.3f} ms, the five launches it replaced "
-            f"{r['five_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bytes'] / 1e6:.1f} MB), {r['pct']:.1f}% of it")
-    log(f"  plain_cumsum int32 n={g.e_pad}: kernel "
-        f"{times['plain_cumsum'][0]:.3f} ms, plain "
-        f"{times['plain_cumsum'][1]:.3f} ms")
-    log(f"  plain_cumsum exclusive int32, same n: kernel {excl_ms[0]:.3f} "
-        f"ms, plain (torch.cumsum + cat) {excl_ms[1]:.3f} ms")
-    log(f"  segment_sum_by_offsets int32 0/1, e_pad={g.e_pad} n_out={n_pad}"
-        f": {sbo_ms[0]:.3f} ms (exclusive scan); {sbo_ms[1]:.3f} ms "
-        "(inclusive scan + torch.cat copy, the form before)")
-    log(f"  segmented_scan float32 add, n={g.e_pad} CSC ids: kernel "
-        f"{times['segmented_scan'][0]:.3f} ms, plain "
-        f"{times['segmented_scan'][1]:.3f} ms")
     log(f"  LJ app running times (in process, host clock, ms): {app_ms}")
     del pulled, cand, bits, s_kernel, s_ref, s_ref64, contrib, out_deg
 
@@ -3082,16 +2875,13 @@ def main():
           "the engine's four highest-degree roots are phase 4's")
     t0 = time.time()
     K.reset_launch_counts()
-    ev0.record()
-    res = batched.multi_source_bfs_bits(bp, order[:MULTI_B], deg_rows,
-                                        plane_bits=PLANE_BITS,
-                                        slot_chunk=chunk)
-    ev1.record()
+    res, _, bits_ms = timed(lambda: batched.multi_source_bfs_bits(
+        bp, order[:MULTI_B], deg_rows, plane_bits=PLANE_BITS,
+        slot_chunk=chunk), dev)
     trav = res.traversed.cpu().numpy()      # where the CLI's clock stops
     host_s = time.time() - t0
     bits_launched = {name: n for name, n in K.launch_counts().items() if n}
     bits_launches = K.launch_counts()["edge_map_bor"]
-    bits_ms = ev0.elapsed_time(ev1)
     reached = res.reached.cpu().numpy()
     gteps = float(trav.sum()) / bits_ms / 1e6
     check(int(trav.sum()) > 0,
@@ -3119,36 +2909,25 @@ def main():
           and em["ms"] < em["plain_ms"],
           f"edge_map_bor at level {EDGE_MAP_LEVEL} of the full-size bit "
           f"BFS ({em['active']:.3f} of the rows' frontier words set): equal "
-          f"to the plain gather and fold bit for bit, one launch; kernel "
-          f"{em['ms']:.2f} ms, plain {em['plain_ms']:.2f} ms; bound of the "
-          f"table once {em['bound_ms']:.3f} ms ({em['bytes'] / 1e6:.1f} MB, "
-          f"{100 * em['bound_ms'] / em['ms']:.1f}% of it), of the gathered "
-          f"rows {em['gathered_ms']:.2f} ms "
-          f"({em['gathered_bytes'] / 1e9:.2f} GB, "
-          f"{100 * em['gathered_ms'] / em['ms']:.1f}%)")
+          f"to the plain gather and fold bit for bit, one launch, faster "
+          f"(kernel {em['ms']:.2f} ms, plain {em['plain_ms']:.2f} ms)")
 
     roots8 = [int(r) for r in order[:8]]
     for r in roots8[4:]:
         hd_dist[r] = hop_dist(g, r).dist
-    ev0.record()
-    res = batched.multi_source_bfs_binned(bp, roots8, slot_chunk=chunk)
-    ev1.record()
-    ev1.synchronize()
+    res, _, ms = timed(lambda: batched.multi_source_bfs_binned(
+        bp, roots8, slot_chunk=chunk), dev)
     dist = bp.from_binned(res.dist[:n])
     check(all(torch.equal(dist[:, b], hd_dist[r][:n])
               for b, r in enumerate(roots8)),
           f"multi_source_bfs_binned B=8: distances equal hop_dist's "
-          f"exactly ({res.levels_run} levels, {ev0.elapsed_time(ev1):.1f} "
-          f"ms)")
+          f"exactly ({res.levels_run} levels, {ms:.1f} ms)")
     del res, dist, hd_dist
 
     damp = 0.85 + 0.0005 * np.arange(PR_B, dtype=np.float32)
-    ev0.record()
-    res = batched.multi_pagerank_binned(bp, deg_rows[:n], damp, e=0.0,
-                                        max_iter=PR_ITERS, slot_chunk=chunk)
-    ev1.record()
-    ev1.synchronize()
-    pr_ms = ev0.elapsed_time(ev1)
+    res, _, pr_ms = timed(lambda: batched.multi_pagerank_binned(
+        bp, deg_rows[:n], damp, e=0.0, max_iter=PR_ITERS, slot_chunk=chunk),
+        dev)
     gedges = g.num_edges * PR_B * PR_ITERS / pr_ms / 1e6
     rank0 = bp.from_binned(res.rank[:n])[:, 0]
     single = pagerank(g, e=0.0, max_iter=PR_ITERS)
@@ -3167,7 +2946,7 @@ def main():
         f"Gedge/s; device memory peak {engine_peak:.2f} GB "
         f"(graph and phase-4 leftovers {base_gb:.2f} GB); launches "
         f"{counts_engine} since the full-size bit BFS (its edge maps, "
-        f"level {EDGE_MAP_LEVEL}'s replay and timing, the rest by the "
+        f"level {EDGE_MAP_LEVEL}'s replay and check, the rest by the "
         f"hop_dist and pagerank references: the float edge maps are plain "
         f"PyTorch)")
     del bp, deg_rows
@@ -3231,17 +3010,8 @@ def main():
         check(counts_probe[name] > 0, f"{name} launched by the probe "
               f"({counts_probe[name]} times)")
         counts[name] = counts_probe[name]
-        rec = next(r for r in recs if r["probe"] == name
-                   and r["name"] == PROBE_TIMED[name])
-        times[name] = (rec["ms"], rec["plain_ms"])
-        bound_bytes[name] = rec["bound_bytes"]
-        library_ms[name] = rec["library_ms"]
         probe_errs[name] = max(r["max_abs_err"] for r in recs
                                if r["probe"] == name)
-    row = next(r for r in recs if r["name"] == "row-broadcast [1024,128]")
-    log(f"  take_along_blocks row-broadcast [1024,128] (warp per row): "
-        f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, max abs "
-        f"err {row['max_abs_err']}")
 
     # -- 9. compiled .gm programs --------------------------------------------
     log(f"== 9. compiled .gm programs through the lowerer (card: {smi})")
@@ -3294,7 +3064,7 @@ def main():
         f"{BATCH_B} lanes at N={LJ_N} E={LJ_E} (card: {smi})")
     torch.cuda.empty_cache()
     t0 = time.time()
-    counts_batch, lane_recs = batch_phase(torch, K, dev, g_host, smi)
+    counts_batch, lane_errs = batch_phase(torch, K, dev, g_host, smi)
     log(f"  lockstep programs {time.time() - t0:.1f} s; launches "
         f"{counts_batch}")
     for name in LANE_KERNELS:
@@ -3324,45 +3094,42 @@ def main():
 
     errs = {"segment_reduce_sorted": seg_err, "plain_cumsum": float(cs_err),
             "segmented_scan": scan_err, **probe_errs}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": counts[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1],
-         "bound_ms": bound_bytes[name] / HBM_BYTES_PER_MS,
-         "bound_by": "bytes", "library_ms": library_ms[name]}
+    records = [
+        {"name": name, "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": counts[name], "max_abs_err": errs[name]}
         for name in SOURCES] + [
-        {"name": f"{name}[lanes]", "route": "cuda", "source": SOURCES[name],
+        {"name": f"{name}[lanes]", "source": SOURCES[name],
          "replaces": REPLACES[name] + " (under jax.vmap)",
          "launches": counts_batch[f"{name}[lanes]"],
-         "max_abs_err": lane_recs[f"{name}[lanes]"]["err"],
-         "ms": lane_recs[f"{name}[lanes]"]["ms"],
-         "plain_ms": lane_recs[f"{name}[lanes]"]["plain_ms"],
-         "bound_ms": lane_recs[f"{name}[lanes]"]["bytes"] / HBM_BYTES_PER_MS,
-         "bound_by": "bytes",
-         "library_ms": lane_recs[f"{name}[lanes]"]["library_ms"]}
+         "max_abs_err": lane_errs[f"{name}[lanes]"]}
         for name in LANE_KERNELS] + [
-        {"name": "segment_reduce_sorted[gather]", "route": "cuda",
+        {"name": "segment_reduce_sorted[gather]",
          "source": SOURCES["segment_reduce_sorted"],
          "replaces": "green_marl_tpu/models/relax.py:58 (the step's "
                      "gathers, add and mask, then the segment min)",
          "launches": counts["segment_reduce_sorted[gather]"],
-         "max_abs_err": 0.0, "ms": gather_rec[0]["ms"],
-         "plain_ms": gather_rec[0]["five_ms"],
-         "bound_ms": gather_rec[0]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "edge_map_bor", "route": "cuda",
+         "max_abs_err": 0.0},
+        {"name": "edge_map_bor",
          "source": "green_marl_tpu_torch/csrc/edge_map.cu",
          "replaces": "none: green_marl_tpu/ops/binned.py edge_map leaves "
                      "the row gather and the OR to XLA",
-         "launches": bits_launches, "max_abs_err": 0.0,
-         "ms": em["ms"], "plain_ms": em["plain_ms"],
-         "bound_ms": em["bound_ms"], "bound_by": "bytes",
-         "library_ms": None}]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+         "launches": bits_launches, "max_abs_err": 0.0}]
+    print(json.dumps({"kernels": [
+        {**r, "route": "cuda", "timed_by": TIMED_BY[r["name"]]}
+        for r in records]}))
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        device = main()
+    except BaseException as e:
+        status = (e.code if isinstance(e, SystemExit)
+                  and isinstance(e.code, int) else 1)
+        print(json.dumps({"ok": False, "phase": PHASE[0], "exit": status,
+                          "error": f"{type(e).__name__}: {e}"[:500]}),
+              flush=True)
+        raise
+    print(json.dumps({"ok": True, "phase": PHASE[0], "exit": 0,
+                      "device": device}), flush=True)

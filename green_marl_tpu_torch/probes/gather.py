@@ -18,8 +18,9 @@ probe's Pallas kernel has a hand-written CUDA counterpart in
 Before it is timed, each kernel's output on every input it is timed on
 is held against its plain version's, which must be equal (gathers are
 exact); each record keeps the largest difference seen.  Times are CUDA
-events, per call: the median over 3 varied inputs of 10 back-to-back
-calls each.  Run on a machine with an NVIDIA GPU::
+events, per call (``utils.timing.kernel_ms``): the median over 3 varied
+inputs of 10 back-to-back calls each; bounds are ``probes/bounds.py``'s.
+Run on a machine with an NVIDIA GPU::
 
     python -m green_marl_tpu_torch.probes.gather [--quick] [--only TEXT]
         [--parts] [--root DIR]
@@ -41,13 +42,14 @@ import importlib
 import os
 import re
 import statistics
-import subprocess
 import sys
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from ..ops import kernels as K
+from ..utils.timing import card, kernel_ms
+from . import bounds
 from .profile_apps import device_times
 
 E_ROWS = 1 << 17          # idx rows of 128: E = 2^24 (the TPU probes' 16M)
@@ -114,22 +116,10 @@ def gather_grid(quick: bool = False):
 
 def median_ms(fn: Callable[[int], object], reps: int = 3) -> float:
     """Median over ``reps`` inputs of the device time in ms of one call
-    ``fn(rep)``: CUDA events around ``TIMED_CALLS`` back-to-back calls,
-    over their count, after one warm-up call.  Back to back, the host
-    enqueues the next call while the card runs this one, so a kernel of a
-    few tens of microseconds is not timed with the host's launch gap."""
-    fn(reps)
-    times = []
-    for rep in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_CALLS):
-            fn(rep)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / TIMED_CALLS)
-    return statistics.median(times)
+    ``fn(rep)``: ``TIMED_CALLS`` back-to-back calls on each input
+    (``kernel_ms``, one group)."""
+    return statistics.median(kernel_ms(lambda: fn(rep), TIMED_CALLS, 1)[0]
+                             for rep in range(reps))
 
 
 def _max_err(what: str, pairs) -> float:
@@ -195,14 +185,12 @@ def probe_take(case: TakeCase, dev: torch.device,
     plain = median_ms(lambda r: K.take_along_blocks_ref(table, idxs[r],
                                                         *args))
     nbytes = R * K.LANES * 8           # 4-byte index in, 4-byte value out
-    # what the call must move: the table once, each value out, and each
-    # index in (the row mode needs one index per row only)
-    idx_bytes = R * 4 if case.mode == "row" else R * K.LANES * 4
     return dict(probe="take_along_blocks", name=case.name, ms=ms,
                 plain_ms=plain, gbs=nbytes / ms / 1e6,
                 plain_gbs=nbytes / plain / 1e6, max_abs_err=err,
                 route=route_name(case),
-                bound_bytes=table.numel() * 4 + R * K.LANES * 4 + idx_bytes,
+                bound_bytes=bounds.take_along_blocks(table.numel(), R,
+                                                     K.LANES, case.mode),
                 library_ms=_gather_ms(case, table, idxs))
 
 
@@ -223,13 +211,13 @@ def probe_row_gather(roww: int, k: int, dev: torch.device,
     plain = median_ms(lambda r: K.row_gather_checksum_ref(table, idxs[r],
                                                           GATHER_SWEEPS))
     rows = GATHER_IDS * GATHER_SWEEPS
-    # what a call must move: each row that its ids name, once, and the ids
     distinct = max(int(torch.unique(i).numel()) for i in idxs[:3])
     return dict(probe="row_gather_checksum", name=f"rowB={roww * 4} K={k}",
                 ms=ms, plain_ms=plain, ns_row=ms * 1e6 / rows,
                 plain_ns_row=plain * 1e6 / rows,
                 gbs=rows * roww * 4 / ms / 1e6, max_abs_err=err, table=table,
-                bound_bytes=distinct * roww * 4 + GATHER_IDS * 4,
+                bound_bytes=bounds.row_gather_checksum(distinct, roww * 4,
+                                                       GATHER_IDS),
                 library_ms=None)
 
 
@@ -281,15 +269,12 @@ def probe_index_select(dev: torch.device, gen: torch.Generator) -> Dict:
                 gbs=ENGINE_IDS * (2 * row_b + 4) / ms / 1e6)
 
 
-HBM_BYTES_PER_MS = 3.35e9     # H100 SXM data sheet: 3.35 TB/s
-
-
 def _bound(rec: Dict) -> str:
     """The least the card could take for the record's bytes, and the time
     of the one PyTorch call that does the same, where there is one."""
     lib = rec["library_ms"]
     return (f" | bound {rec['bound_bytes'] / 1e6:6.1f} MB "
-            f"{rec['bound_bytes'] / HBM_BYTES_PER_MS:6.3f} ms"
+            f"{bounds.bound_ms(rec['bound_bytes']):6.3f} ms"
             + ("" if lib is None else f" | torch.gather {lib:6.3f} ms"))
 
 
@@ -379,11 +364,7 @@ def main(argv=None) -> int:
     if args.root:
         use_checkout(args.root)
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"# {card}, torch {torch.__version__}, kernels of "
+    print(f"# {card(dev)}, torch {torch.__version__}, kernels of "
           f"{os.path.dirname(os.path.dirname(os.path.dirname(K.__file__)))}",
           flush=True)
     run(dev, quick=args.quick, only=args.only, parts=args.parts)

@@ -25,7 +25,6 @@ Without a GPU the probe exits with an error: it measures the card.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from typing import Dict, List
@@ -130,12 +129,10 @@ def main(argv=None) -> None:
     from ..models.sssp import sssp
     from ..ops import kernels as K
     from ..utils.gm_rand import sssp_edge_lengths
+    from ..utils.timing import card as card_of
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_of(dev)
     src, dst = native.rmat_edges(LJ_N, LJ_E, seed=LJ_SEED)
     g, _ = from_edges(src, dst, LJ_N)
     del src, dst

@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 import warnings
 
@@ -74,14 +73,12 @@ def main(argv=None) -> None:
     from ..ops import kernels as K
     from ..parallel import comm
     from ..parallel import vertex_sharded as V
+    from ..utils.timing import card as card_of
 
     S = args.shards
     os.environ[comm.VIRTUAL_ENV] = str(S)
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_of(dev)
     src, dst = native.rmat_edges(LJ_N, LJ_E, seed=LJ_SEED)
     g_host, _ = from_edges(src, dst, LJ_N)
     del src, dst

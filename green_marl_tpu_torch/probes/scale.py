@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 import warnings
@@ -48,6 +47,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.timing import card, kernel_ms, timed
 from .profile_sharded import PAGERANK_GM
 
 SEED = 77
@@ -152,23 +152,12 @@ def oracles(g, roots) -> Dict:
 
 
 def _timed(dev, fn, ms: Dict, launches: Dict, run: str):
-    """``fn()``; its device ms (CUDA events on the card, None on the CPU)
-    into ``ms[run]`` and the kernel launches it made into
-    ``launches[run]``."""
+    """``fn()``; its device ms (``utils.timing.timed``: CUDA events on the
+    card, None on the CPU) into ``ms[run]`` and the kernel launches it made
+    into ``launches[run]``."""
     from ..ops import kernels as K
     before = K.launch_counts()
-    if dev.type != "cuda":
-        out = fn()
-        ms[run] = None
-    else:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        ms[run] = start.elapsed_time(end)
+    out, _, ms[run] = timed(fn, dev)
     launches[run] = {k: v - before[k] for k, v in K.launch_counts().items()
                      if v != before[k]}
     return out
@@ -286,20 +275,6 @@ def sharded(g_host, roots, dev, shards: int = SHARDS) -> Dict:
             "slabs": slabs}
 
 
-def _median_ms(fn, reps: int = 10) -> float:
-    """Median CUDA-event ms of ``reps`` calls of ``fn``."""
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def slab_checks(slabs: Dict, dev) -> Dict[str, Dict]:
     """The segment reduce against its plain version on each slab
     ``name -> (ids, offsets, n_out)``: float add within rtol 1e-5 of the
@@ -328,10 +303,10 @@ def slab_checks(slabs: Dict, dev) -> Dict[str, Dict]:
                 K.segment_reduce_sorted(ivals, ids, off, n_out, op=op),
                 K.segment_reduce_sorted_ref(ivals, ids, off, n_out, op)))
         if dev.type == "cuda":
-            r["ms"] = _median_ms(lambda: K.segment_reduce_sorted(
-                vals, ids, off, n_out, op="add"))
-            r["plain_ms"] = _median_ms(lambda: K.segment_reduce_sorted_ref(
-                vals, ids, off, n_out, "add"))
+            r["ms"] = kernel_ms(lambda: K.segment_reduce_sorted(
+                vals, ids, off, n_out, op="add"), 1, 10)[0]
+            r["plain_ms"] = kernel_ms(lambda: K.segment_reduce_sorted_ref(
+                vals, ids, off, n_out, "add"), 1, 10)[0]
         res[name] = r
     return res
 
@@ -374,14 +349,6 @@ def _log(msg):
     print(f"# scale: {msg}", file=sys.stderr, flush=True)
 
 
-def card() -> str:
-    """``nvidia-smi``'s name and power limit of the card."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def run(n: int, e: int, b: int, dev: torch.device,
         g_host=None, times: Optional[Dict] = None,
         keep: Optional[Dict] = None) -> Dict:
@@ -398,7 +365,7 @@ def run(n: int, e: int, b: int, dev: torch.device,
     if dev.type == "cuda":
         from ..ops import _build
         _build.lib()                  # the kernels' build is not a run's
-        rec["card"] = card()
+        rec["card"] = card(dev)
         torch.cuda.reset_peak_memory_stats()
     roots = probe_roots(g_host, b)
     orc = oracles(g_host, roots)

@@ -4,14 +4,19 @@ Times ``kernels.segment_reduce_sorted`` (float32 add and int32 min),
 ``kernels.segmented_scan`` (float32 add) and ``kernels.plain_cumsum``
 (int32, inclusive and exclusive) over the CSC of the RMAT graph of
 bench.py's LiveJournal-scale sizes (N=4.8M, E=69M, seed 42, edges from
-``native/gm_io.cc``), beside a ``clone()`` of the values and, for the
-float32 sum, ``torch.segment_reduce`` (a yardstick only: the port never
-calls it).  Then the segment reduce on the edge slab of the second of 4
-shards with its offsets clipped to the slab, as the replicate placement
-gives them (``Graph.csc_offsets``: millions of empty rows at slot 0 and at
-the slab's end), beside its plain version.  Each kernel is first held
-against its plain version.  Times are CUDA events, per call: back-to-back
-launches in groups, the median group and the range over the groups.
+``native/gm_io.cc``), each beside its plain version and its bound
+(``probes/bounds.py``), with a ``clone()`` of the values and, where one
+PyTorch call computes the same function, that call
+(``torch.segment_reduce``, ``torch.cumsum``: yardsticks only, the port
+never calls them); then ``scan_reduce.segment_sum_by_offsets`` (BFS's pull
+sweep: the exclusive scan) beside its earlier inclusive-scan-and-copy
+form.  Then the segment reduce on the edge slab of the second of 4 shards
+with its offsets clipped to the slab, as the replicate placement gives
+them (``Graph.csc_offsets``: millions of empty rows at slot 0 and at the
+slab's end), beside its plain version.  Each kernel is first held against
+its plain version.  Times are CUDA events, per call
+(``utils.timing.kernel_ms``): back-to-back launches in groups, the median
+group and the range over the groups; a plain version one call a group.
 
 ``--lanes B`` times the lane-batched segment reduce instead, at the shape a
 batched compiled program gives it: ``[B, E_pad]`` values (float32 add and
@@ -19,7 +24,11 @@ int32 min) over the same offsets, each lane first held against the 1-D
 kernel on its row (bit for bit) and the whole against the plain version,
 then timed beside B launches of the 1-D kernel, the plain version and
 ``torch.segment_reduce`` on the ``[E_pad, B]`` transpose (a yardstick: the
-transpose itself is not timed).  ``--ptxas`` prints what ``nvcc -Xptxas
+transpose itself is not timed); then the lane-batched exclusive prefix sum
+(the form ``segment_sum_by_offsets`` launches for a batched program's
+``Count``) at ``[B, E_pad]`` int32, checked the same way and timed beside
+B one-row launches, its plain version and ``torch.cumsum``.  ``--ptxas``
+prints what ``nvcc -Xptxas
 -v`` says of each segment-reduce kernel (registers, spills, shared
 memory) and exits.
 
@@ -40,7 +49,6 @@ per line.
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 
@@ -48,25 +56,7 @@ import numpy as np
 import torch
 
 LJ_N, LJ_E, LJ_SEED = 4_800_000, 69_000_000, 42   # bench.py:50-52
-HBM_BYTES_PER_MS = 3.35e9                         # H100 SXM data sheet
-
-
-def timed(fn, calls, groups):
-    """(median, min, max) over ``groups`` of the mean ms of ``calls``
-    back-to-back launches."""
-    fn()
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(groups):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        ms.append(start.elapsed_time(end) / calls)
-    return statistics.median(ms), min(ms), max(ms)
+PLAIN_CALLS, PLAIN_GROUPS = 1, 3    # a plain version takes up to ~250 ms
 
 
 def csc_offsets(native, cache):
@@ -83,29 +73,67 @@ def csc_offsets(native, cache):
 
 
 def time_all(args, K, record, vals_f, vals_i, ids, offs, n_pad, e_pad):
-    """Times each kernel and its yardsticks; one record each."""
+    """Times each kernel and its yardsticks, then the plain versions and
+    the earlier form of ``segment_sum_by_offsets``; one record each."""
+    from green_marl_tpu_torch.ops import scan_reduce
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.utils.timing import kernel_ms
     offs64 = offs.long()
-    reduce_bytes = 4 * e_pad + 4 * offs.numel() + 4 * n_pad
-    for what, fn, nbytes in (
-            ("segment_reduce_sorted float32 add",
-             lambda: K.segment_reduce_sorted(vals_f, ids, offs, n_pad, "add"),
-             reduce_bytes),
-            ("segment_reduce_sorted int32 min",
-             lambda: K.segment_reduce_sorted(vals_i, ids, offs, n_pad, "min"),
-             reduce_bytes),
-            ("segmented_scan float32 add",
-             lambda: K.segmented_scan(vals_f, ids, "add"), 12 * e_pad),
-            ("plain_cumsum int32",
-             lambda: K.plain_cumsum(vals_i), 8 * e_pad),
-            ("plain_cumsum int32 exclusive",
-             lambda: K.plain_cumsum(vals_i, exclusive=True), 8 * e_pad + 4),
-            ("torch.segment_reduce float32 sum (offsets)",
-             lambda: torch.segment_reduce(vals_f, "sum", offsets=offs64),
-             reduce_bytes),
-            ("clone of the values", vals_f.clone, 8 * e_pad)):
-        med, lo, hi = timed(fn, args.calls, args.groups)
-        record(what=what, ms=med, ms_min=lo, ms_max=hi,
-               bound_ms=nbytes / HBM_BYTES_PER_MS)
+    bits = vals_i & 1
+    reduce_bytes = bounds.segment_reduce(int(offs[-1]) - int(offs[0]),
+                                         offs.numel(), n_pad)
+    scan_bytes = bounds.segmented_scan(e_pad)
+    cumsum_bytes = bounds.plain_cumsum(e_pad)
+    excl_bytes = bounds.plain_cumsum(e_pad, exclusive=True)
+
+    def sum_by_offsets_cat():
+        """segment_sum_by_offsets as it was before the exclusive scan: the
+        inclusive scan, then a copy of the prefix behind a 0."""
+        ex = torch.cat([bits.new_zeros(1), K.plain_cumsum(bits)])
+        return ex.index_select(0, offs[1:]) - ex.index_select(0, offs[:-1])
+
+    kernels = (
+        ("segment_reduce_sorted float32 add",
+         lambda: K.segment_reduce_sorted(vals_f, ids, offs, n_pad, "add"),
+         reduce_bytes),
+        ("segment_reduce_sorted int32 min",
+         lambda: K.segment_reduce_sorted(vals_i, ids, offs, n_pad, "min"),
+         reduce_bytes),
+        ("segmented_scan float32 add",
+         lambda: K.segmented_scan(vals_f, ids, "add"), scan_bytes),
+        ("plain_cumsum int32", lambda: K.plain_cumsum(vals_i), cumsum_bytes),
+        ("plain_cumsum int32 exclusive",
+         lambda: K.plain_cumsum(vals_i, exclusive=True), excl_bytes),
+        ("torch.segment_reduce float32 sum (offsets)",
+         lambda: torch.segment_reduce(vals_f, "sum", offsets=offs64),
+         reduce_bytes),
+        ("clone of the values", vals_f.clone, 8 * e_pad),
+        ("torch.cumsum int32",
+         lambda: torch.cumsum(vals_i, 0, dtype=torch.int32), cumsum_bytes),
+        ("segment_sum_by_offsets int32 0/1",
+         lambda: scan_reduce.segment_sum_by_offsets(bits, offs, n_pad), None),
+        ("segment_sum_by_offsets int32 0/1: inclusive scan + copy (the "
+         "form before)", sum_by_offsets_cat, None))
+    plains = (
+        ("segment_reduce_sorted float32 add: plain",
+         lambda: K.segment_reduce_sorted_ref(vals_f, ids, offs, n_pad, "add"),
+         reduce_bytes),
+        ("segment_reduce_sorted int32 min: plain",
+         lambda: K.segment_reduce_sorted_ref(vals_i, ids, offs, n_pad, "min"),
+         reduce_bytes),
+        ("segmented_scan float32 add: plain",
+         lambda: K.segmented_scan_ref(vals_f, ids, "add"), scan_bytes),
+        ("plain_cumsum int32: plain", lambda: K.plain_cumsum_ref(vals_i),
+         cumsum_bytes),
+        ("plain_cumsum int32 exclusive: plain",
+         lambda: K.plain_cumsum_ref(vals_i, exclusive=True), excl_bytes))
+    for group, calls, groups in ((kernels, args.calls, args.groups),
+                                 (plains, PLAIN_CALLS, PLAIN_GROUPS)):
+        for what, fn, nbytes in group:
+            med, lo, hi = kernel_ms(fn, calls, groups)
+            record(what=what, ms=med, ms_min=lo, ms_max=hi,
+                   bound_ms=None if nbytes is None
+                   else bounds.bound_ms(nbytes))
 
 
 def parts(K, record, what, vals, offs, n_out, calls=20):
@@ -130,6 +158,8 @@ def parts(K, record, what, vals, offs, n_out, calls=20):
 def clipped_slab(args, K, record, vals_f, vals_i, offs, n_pad, e_pad):
     """The segment reduce on shard 1 of 4's slab with clipped offsets:
     checked against its plain version, then timed beside it."""
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.utils.timing import kernel_ms
     e_s = -(-e_pad // 4)
     e_s = -(-e_s // 128) * 128                       # pad_edges_for's slab
     off = (offs - e_s).clamp(0, e_s)
@@ -145,7 +175,8 @@ def clipped_slab(args, K, record, vals_f, vals_i, offs, n_pad, e_pad):
     deg = off.diff()
     record(what="clipped slab", e_s=e_s, n_seg=off.numel() - 1,
            empty_rows=int((deg == 0).sum()), ok=True)
-    nbytes = 4 * e_s + 4 * off.numel() + 4 * n_pad
+    bound = bounds.bound_ms(bounds.segment_reduce(
+        int(off[-1]) - int(off[0]), off.numel(), n_pad))
     for what, fn in (
             ("clipped slab: segment_reduce_sorted float32 add",
              lambda: K.segment_reduce_sorted(vf, ids, off, n_pad, "add")),
@@ -154,16 +185,18 @@ def clipped_slab(args, K, record, vals_f, vals_i, offs, n_pad, e_pad):
             ("clipped slab: plain float32 add",
              lambda: K.segment_reduce_sorted_ref(vf, ids, off, n_pad,
                                                  "add"))):
-        med, lo, hi = timed(fn, args.calls, args.groups)
-        record(what=what, ms=med, ms_min=lo, ms_max=hi,
-               bound_ms=nbytes / HBM_BYTES_PER_MS)
+        med, lo, hi = kernel_ms(fn, args.calls, args.groups)
+        record(what=what, ms=med, ms_min=lo, ms_max=hi, bound_ms=bound)
     if args.parts:
         parts(K, record, "clipped slab float32 add", vf, off, n_pad)
 
 
 def lanes(args, K, record, offs, n_pad, e_pad):
     """The lane-batched segment reduce at [B, E_pad]: checked, then timed
-    beside B one-row launches, the plain version and one PyTorch call."""
+    beside B one-row launches, the plain version and one PyTorch call;
+    then the lane-batched exclusive prefix sum the same way."""
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.utils.timing import kernel_ms
     b = args.lanes
     dev = offs.device
     gen = torch.Generator(device=dev).manual_seed(LJ_SEED + b)
@@ -171,15 +204,15 @@ def lanes(args, K, record, offs, n_pad, e_pad):
     vals_i = torch.randint(0, LJ_N, (b, e_pad), device=dev, generator=gen,
                            dtype=torch.int32)
     ids = vals_i[0]                                  # shape only
-    in_range = int(offs[-1]) - int(offs[0])
-    nbytes = b * (4 * in_range + 4 * n_pad) + 4 * offs.numel()
+    bound = bounds.bound_ms(bounds.segment_reduce(
+        int(offs[-1]) - int(offs[0]), offs.numel(), n_pad, lanes=b))
     for what, vals, op in (("float32 add", vals_f, "add"),
                            ("int32 min", vals_i, "min")):
         if args.unchecked:
-            med, lo, hi = timed(lambda: K.segment_reduce_sorted(
+            med, lo, hi = kernel_ms(lambda: K.segment_reduce_sorted(
                 vals, ids, offs, n_pad, op), args.calls, args.groups)
             record(what=f"lanes {what}: kernel, unchecked", b=b, ms=med,
-                   ms_min=lo, ms_max=hi, bound_ms=nbytes / HBM_BYTES_PER_MS)
+                   ms_min=lo, ms_max=hi, bound_ms=bound)
             continue
         got = K.segment_reduce_sorted(vals, ids, offs, n_pad, op)
         rows_equal = all(torch.equal(got[r], K.segment_reduce_sorted(
@@ -211,36 +244,71 @@ def lanes(args, K, record, offs, n_pad, e_pad):
                           lambda: torch.segment_reduce(
                               col, "sum", offsets=offs64, axis=0), 1))
         for name, fn, mult in times:
-            med, lo, hi = timed(fn, args.calls, args.groups)
+            med, lo, hi = kernel_ms(fn, args.calls, args.groups)
             record(what=f"lanes {what}: {name}", b=b, ms=mult * med,
-                   ms_min=mult * lo, ms_max=mult * hi,
-                   bound_ms=nbytes / HBM_BYTES_PER_MS)
-        med, lo, hi = timed(lambda: K.segment_reduce_sorted_ref(
-            vals, ids, offs, n_pad, op), 1, 3)
+                   ms_min=mult * lo, ms_max=mult * hi, bound_ms=bound)
+        med, lo, hi = kernel_ms(lambda: K.segment_reduce_sorted_ref(
+            vals, ids, offs, n_pad, op), PLAIN_CALLS, PLAIN_GROUPS)
         record(what=f"lanes {what}: plain", b=b, ms=med, ms_min=lo,
-               ms_max=hi, bound_ms=nbytes / HBM_BYTES_PER_MS)
+               ms_max=hi, bound_ms=bound)
         if op == "add":
             del col
         del row
+    del vals_f
+    if not args.unchecked:
+        lane_cumsum(args, K, record, vals_i)
 
 
-def ptxas(root):
-    """``nvcc -Xptxas -v`` on csrc/segment_reduce.cu with the build's
-    flags: one record per kernel, its registers, spills and shared memory
-    as ptxas prints them."""
+def lane_cumsum(args, K, record, vals):
+    """The lane-batched exclusive prefix sum on ``[B, E_pad]`` int32 values:
+    each lane against the 1-D kernel on its row and the whole against the
+    plain version (bit for bit), then timed beside B one-row launches, the
+    plain version and ``torch.cumsum``."""
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.utils.timing import kernel_ms
+    b, e = vals.shape
+    got = K.plain_cumsum(vals, exclusive=True)
+    rows_equal = all(torch.equal(got[r], K.plain_cumsum(
+        vals[r].contiguous(), exclusive=True)) for r in range(b))
+    same = bool(torch.equal(got, K.plain_cumsum_ref(vals, exclusive=True)))
+    del got
+    assert rows_equal and same, ("lanes int32 exclusive cumsum", rows_equal,
+                                 same)
+    record(what="lanes int32 exclusive cumsum: checks", b=b, ok=True,
+           rows_equal_1d=rows_equal, max_abs_err=0.0)
+    bound = bounds.bound_ms(bounds.plain_cumsum(e, lanes=b, exclusive=True))
+    row = vals[0].contiguous()
+    for name, fn, mult, calls, groups in (
+            ("kernel", lambda: K.plain_cumsum(vals, exclusive=True), 1,
+             args.calls, args.groups),
+            (f"{b} x the 1-D kernel", lambda: K.plain_cumsum(
+                row, exclusive=True), b, args.calls, args.groups),
+            ("torch.cumsum", lambda: torch.cumsum(vals, 1, dtype=torch.int32),
+             1, args.calls, args.groups),
+            ("plain", lambda: K.plain_cumsum_ref(vals, exclusive=True), 1,
+             PLAIN_CALLS, PLAIN_GROUPS)):
+        med, lo, hi = kernel_ms(fn, calls, groups)
+        record(what=f"lanes int32 exclusive cumsum: {name}", b=b,
+               ms=mult * med, ms_min=mult * lo, ms_max=mult * hi,
+               bound_ms=bound)
+
+
+def ptxas(root, source="segment_reduce.cu"):
+    """``nvcc -Xptxas -v`` on ``csrc/<source>`` with the build's flags:
+    ``(kernel, line)`` for each of its kernels' registers and spills as
+    ptxas prints them."""
     from green_marl_tpu_torch.ops import _build
-    src = os.path.join(root, "green_marl_tpu_torch", "csrc",
-                       "segment_reduce.cu")
+    src = os.path.join(root, "green_marl_tpu_torch", "csrc", source)
     out = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
          os.devnull, src], capture_output=True, text=True, check=True)
-    kernel = None
+    kernel, lines = None, []
     for line in (out.stdout + out.stderr).splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif kernel and ("spill" in line or "Used" in line):
-            print(json.dumps({"kernel": kernel, "ptxas": line.strip()}),
-                  flush=True)
+            lines.append((kernel, line.strip()))
+    return lines
 
 
 def main(argv=None):
@@ -266,15 +334,15 @@ def main(argv=None):
         raise SystemExit("probes/segment.py: needs an NVIDIA GPU")
     sys.path.insert(0, os.path.abspath(args.root))
     if args.ptxas:
-        return ptxas(os.path.abspath(args.root))
+        for kernel, line in ptxas(os.path.abspath(args.root)):
+            print(json.dumps({"kernel": kernel, "ptxas": line}), flush=True)
+        return
     from green_marl_tpu_torch.graph import native
     from green_marl_tpu_torch.ops import kernels as K
+    from green_marl_tpu_torch.utils.timing import card as card_of
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_of(dev)
     off_np = csc_offsets(native, args.cache)
     e_pad = -(-LJ_E // 128) * 128
     n_pad = -(-(LJ_N + 1) // 128) * 128
@@ -294,7 +362,8 @@ def main(argv=None):
               flush=True)
 
     record(what="shape", e_pad=e_pad, n_seg=LJ_N, n_out=n_pad,
-           max_len=int(deg.max()), share_under_8=float((deg < 8).mean()),
+           max_len=int(deg.max()), mean_len=float(deg.mean()),
+           share_under_8=float((deg < 8).mean()),
            share_under_32=float((deg < 32).mean()),
            share_empty=float((deg == 0).mean()))
     if args.lanes:

@@ -21,7 +21,6 @@ stream instead: the same sizes in a few seconds, another graph.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 from ..graph import generate, native
 from ..graph.csr import to_undirected
 from ..models import triangle
+from ..utils.timing import card, timed
 
 GOLDEN = (4_800_000, 69_000_000, 42, 9_346_475)   # bench.py's graph, its T
 
@@ -38,8 +38,6 @@ def count_paths(ctx, paths, log=print):
     """{path: (T, device seconds, peak bytes)} for the DAG ``ctx``; raises
     where two paths disagree."""
     out = {}
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
     dev = ctx.dag_dst.device
     for path in paths:
         fn = {"sortmerge": triangle.count_sortmerge,
@@ -53,11 +51,8 @@ def count_paths(ctx, paths, log=print):
                 f"(gm_desc_layout, numpy, upload) {time.time() - t0:.1f} s")
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ev0.record()
-        t = fn(ctx)
-        ev1.record()
-        ev1.synchronize()
-        secs = ev0.elapsed_time(ev1) / 1e3
+        t, _, ms = timed(lambda: fn(ctx), dev)
+        secs = ms / 1e3
         peak = torch.cuda.max_memory_allocated(dev)
         out[path] = (t, secs, peak)
         log(f"{path}: T={t} in {secs:.3f} s (CUDA events), "
@@ -100,10 +95,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("probes.triangle: needs an NVIDIA GPU")
     dev = torch.device("cuda")
-    print("card:", subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+    print("card:", card(dev), flush=True)
     t0 = time.time()
     gen = generate.rmat_edges if args.generator == "numpy" \
         else native.rmat_edges

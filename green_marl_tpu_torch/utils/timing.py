@@ -7,11 +7,14 @@ Counterpart of ``profile_supersteps`` and ``graph_placement_report`` of
 ``block_until_ready`` does not block; on a local card CUDA events time the
 device, so they have no counterpart here.
 
-The harness and the probes share three helpers: :func:`entry_device` (an
-entry point's ``--device``, which never falls back to the CPU),
-:func:`card` (``nvidia-smi``'s name and power limit) and :func:`timed` (the
-host clock around a call that ends in a synchronize, and CUDA events on the
-card).
+The harness, the probes and ``chip_smoke.py`` share four helpers:
+:func:`entry_device` (an entry point's ``--device``, which never falls back
+to the CPU), :func:`card` (the card's name and power limit),
+:func:`timed` (the host clock around one call that ends in a synchronize,
+and CUDA events on the card) and :func:`kernel_ms` (a kernel's device time
+from groups of back-to-back launches).  Every CUDA-event timer of the
+package is one of these; the bytes a hand kernel must move are counted in
+``probes/bounds.py``.
 
 :func:`span` names the program's own ranges in a ``torch.profiler`` trace:
 ``gm:setup`` (a model call's work before its loop), ``gm:superstep`` (one
@@ -26,6 +29,7 @@ profiler records.
 from __future__ import annotations
 
 import contextlib
+import statistics
 import subprocess
 import time
 
@@ -66,19 +70,11 @@ def profile_supersteps(step, state, cond, max_iter: int = 10 ** 6):
     the host clock on the CPU.  ``step(state) -> state``; ``cond(state)``
     is a bool or a 0-d tensor, read on the host before each step.  Returns
     the final state."""
-    dev = _device_of(state)
-    cuda = dev.type == "cuda"
-    if cuda:
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
+    cuda = _device_of(state).type == "cuda"
     i = 0
     while i < max_iter and bool(cond(state)):
         if cuda:
-            ev0.record()
-            state = step(state)
-            ev1.record()
-            ev1.synchronize()
-            ms = ev0.elapsed_time(ev1)
+            state, ms = _event_ms(lambda: step(state))
         else:
             t0 = time.perf_counter()
             state = step(state)
@@ -114,14 +110,27 @@ def entry_device(name: str, device: str) -> torch.device:
 
 
 def card(dev: torch.device) -> str:
-    """``nvidia-smi``'s name and power limit of the card (``--query-gpu=
-    name,power.limit``), or a line that says the run is on the CPU."""
+    """The card's name and power limit as NVIDIA's management tool prints them
+    (``--query-gpu=name,power.limit``), or a line that says the run is on
+    the CPU."""
     if dev.type != "cuda":
         return f"none ({dev.type}: no device times)"
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _event_ms(fn):
+    """``(fn(), ms)``: CUDA events recorded on the current stream before and
+    after ``fn()``, the host waiting for the second."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def timed(fn, dev: torch.device):
@@ -131,12 +140,25 @@ def timed(fn, dev: torch.device):
         t0 = time.perf_counter()
         out = fn()
         return out, 1000 * (time.perf_counter() - t0), None
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ev0.record()
-    out = fn()
-    ev1.record()
+    out, ms = _event_ms(fn)
     torch.cuda.synchronize()
-    return out, 1000 * (time.perf_counter() - t0), ev0.elapsed_time(ev1)
+    return out, 1000 * (time.perf_counter() - t0), ms
+
+
+def kernel_ms(fn, calls: int, groups: int):
+    """``(median, min, max)`` over ``groups`` groups of the mean device ms
+    of ``calls`` back-to-back calls of ``fn`` on the card (CUDA events
+    around each group), after one warm-up call.  Back to back, the host
+    enqueues the next call while the card runs this one, so a kernel of a
+    few tens of microseconds is not timed with the host's launch gap."""
+    fn()
+    torch.cuda.synchronize()
+
+    def group():
+        for _ in range(calls):
+            fn()
+
+    ms = [_event_ms(group)[1] / calls for _ in range(groups)]
+    return statistics.median(ms), min(ms), max(ms)

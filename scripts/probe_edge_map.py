@@ -11,11 +11,14 @@ schedule is the cell's (``models.batched.bits_schedule`` at 4,096 sources,
 cell's batch rule it runs the BFS level by level, and at each level holds
 the kernel (``kernels.edge_map_bor``, one launch) against the plain
 gather-and-fold path (``kernels.edge_map_bor_ref``) bit for bit and times
-both.  Two bounds a level, at 3.35 TB/s: the table once (the slot ids,
-the table and the output once each: what ``edge_map_roofline_pct``
-counts) and the gathered bytes (each slot's row read once besides).  Then
-the hub chunks alone and the bins alone at the densest level, and the
-kernel's registers.  One JSON record a line.
+both (``utils.timing.kernel_ms``).  Two bounds a level
+(``probes/bounds.py`` ``edge_map_bor``): the table once (the slot ids, the
+table and the output once each: what ``edge_map_roofline_pct`` counts) and
+the gathered bytes (each slot's row read once besides).  Then the hub
+chunks alone and the bins alone at the densest level, and the kernel's
+registers (``probes/segment.py`` ``ptxas``).  One JSON record a line; the
+last, ``"what": "exit"``, names the last record written before the end
+and the exit status, also when a step raises.
 
 Run from the root of a checkout::
 
@@ -31,25 +34,12 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = "lj_msbfs"                  # gmbench/configs/<name>.json
 SEED = 20261018                      # the graph's labels and the pivot
 CALLS, GROUPS = 3, 3
-
-
-def ptxas(root):
-    """What ptxas says of ``csrc/edge_map.cu``'s kernels: registers,
-    shared memory and spills."""
-    from green_marl_tpu_torch.ops import _build
-    src = os.path.join(root, "green_marl_tpu_torch", "csrc", "edge_map.cu")
-    out = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         os.devnull, src], capture_output=True, text=True)
-    return [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
-            if "registers" in ln or "spill" in ln]
 
 
 def main(argv=None):
@@ -60,27 +50,44 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("probe_edge_map: needs an NVIDIA GPU")
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.abspath(args.root))
     sys.path.append(REPO)                                  # gmbench/
+    last = {"what": None}
+    try:
+        probe(args, torch, last)
+    except BaseException as e:
+        status = (e.code if isinstance(e, SystemExit)
+                  and isinstance(e.code, int) else 1)
+        print(json.dumps({"what": "exit", "after": last["what"],
+                          "status": status,
+                          "error": f"{type(e).__name__}: {e}"}), flush=True)
+        raise
+    print(json.dumps({"what": "exit", "after": last["what"], "status": 0}),
+          flush=True)
+
+
+def probe(args, torch, last):
+    """The probe's records, in order; ``last["what"]`` names the last one
+    written."""
     from gmbench import csr as bench_csr
     from gmbench.queries import multi_bfs as kind
     from green_marl_tpu_torch.models import batched
     from green_marl_tpu_torch.ops import binned
     from green_marl_tpu_torch.ops import kernels as K
-    from green_marl_tpu_torch.probes import segment
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.probes.segment import ptxas
+    from green_marl_tpu_torch.utils.timing import card, kernel_ms
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card(dev)
 
     def record(**kw):
-        print(json.dumps({"root": args.root, "card": card, **kw}),
-              flush=True)
+        print(json.dumps({"root": args.root, "card": smi, **kw}), flush=True)
+        last["what"] = " ".join(str(kw[k]) for k in ("what", "level")
+                                if k in kw)
 
-    record(what="ptxas", lines=ptxas(root))
+    record(what="ptxas", lines=[line for _, line in ptxas(
+        os.path.abspath(args.root), "edge_map.cu")])
     with open(os.path.join(REPO, "gmbench", "configs",
                            f"{CONFIG}.json")) as f:
         cfg = json.load(f)
@@ -95,14 +102,13 @@ def main(argv=None):
     pivot = int(nodes[int(torch.randint(len(nodes), (1,), generator=pick))])
     roots = kind.batch(nodes, pivot, size)
     slots = bp.slot_src.numel()
-    row_bytes = size // 8
-    table_bytes = 4 * slots + 2 * bp.n_rows * row_bytes
-    gathered_bytes = table_bytes + slots * row_bytes - bp.n_rows * row_bytes
+    table_bytes, gathered_bytes = bounds.edge_map_bor(slots, bp.n_rows,
+                                                      size // 8)
     record(what="schedule", n=g.num_nodes, e=g.num_edges, slots=slots,
            bins=len(bp.bins), widest=max(w for w, *_ in bp.bins),
            hubs=bp.n_hub, hub_chunks=bp.n_hub_chunks,
-           table_bound_ms=table_bytes / segment.HBM_BYTES_PER_MS,
-           gathered_bound_ms=gathered_bytes / segment.HBM_BYTES_PER_MS,
+           table_bound_ms=bounds.bound_ms(table_bytes),
+           gathered_bound_ms=bounds.bound_ms(gathered_bytes),
            table_bytes=table_bytes, gathered_bytes=gathered_bytes)
 
     visited = batched._bits_seed(bp, roots, pb)
@@ -114,15 +120,15 @@ def main(argv=None):
         active = float((frontier != 0).any(1).float().mean())
         hit = K.edge_map_bor(bp, frontier)
         rec = dict(level=len(levels), active_rows=active)
-        rec["ms"] = segment.timed(lambda: K.edge_map_bor(bp, frontier),
-                                  CALLS, GROUPS)[0]
+        rec["ms"] = kernel_ms(lambda: K.edge_map_bor(bp, frontier), CALLS,
+                              GROUPS)[0]
         if not args.no_ref:
             want = K.edge_map_bor_ref(bp, frontier, slot_chunk=chunk)
             if not torch.equal(hit, want):
                 raise SystemExit(f"probe_edge_map: level {len(levels)}: "
                                  "the kernel differs from the plain path")
             del want
-            rec["ref_ms"] = segment.timed(
+            rec["ref_ms"] = kernel_ms(
                 lambda: K.edge_map_bor_ref(bp, frontier, slot_chunk=chunk),
                 1, GROUPS)[0]
         record(what="level", **rec)
@@ -137,8 +143,8 @@ def main(argv=None):
              "bins": dataclasses.replace(bp, n_hub_chunks=0,
                                          hub_row_off=bp.n_nodes)}
     for name, part in parts.items():
-        ms = segment.timed(lambda: K.edge_map_bor(part, densest[1]), CALLS,
-                           GROUPS)[0]
+        ms = kernel_ms(lambda: K.edge_map_bor(part, densest[1]), CALLS,
+                       GROUPS)[0]
         record(what=f"densest level, {name} alone", active_rows=densest[0],
                ms=ms)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -151,10 +157,10 @@ def main(argv=None):
                 if e.device_time_total > 0})
     total = sum(r["ms"] for r in levels)
     summary = dict(what="call", levels=len(levels), ms=total,
-                   table_bound_share=len(levels) * table_bytes
-                   / segment.HBM_BYTES_PER_MS / total,
-                   gathered_bound_share=len(levels) * gathered_bytes
-                   / segment.HBM_BYTES_PER_MS / total)
+                   table_bound_share=len(levels)
+                   * bounds.bound_ms(table_bytes) / total,
+                   gathered_bound_share=len(levels)
+                   * bounds.bound_ms(gathered_bytes) / total)
     if not args.no_ref:
         summary["ref_ms"] = sum(r["ref_ms"] for r in levels)
     record(**summary)

@@ -11,10 +11,12 @@ runs hop_dist (unit weights) and sssp (the configuration's lengths)
 superstep by superstep, and at each superstep holds the segment reduce's
 gather form (one launch) against the five launches it replaced (two
 ``index_select``, the add, ``where``, the plain segment min) bit for bit,
-times both, and reports the share of the real CSC slots whose source is
-updated.  The bound of a step: the ids (and the weights) once, the
-offsets, the rows out, and ``dist`` and ``updated`` once each.  Then one
-call of each model, its launches and its time.  One JSON record a line.
+times both (``utils.timing.kernel_ms``), and reports the share of the
+real CSC slots whose source is updated.  The bound of a step is
+``probes/bounds.py`` ``relax``: the ids (and the weights) of the slots in
+range once, the offsets, the rows out, and ``dist`` and ``updated`` once
+each.  Then one call of each model, its launches and its time.  One JSON
+record a line.
 
 Run from the root of a checkout::
 
@@ -28,7 +30,6 @@ holds ``green_marl_tpu_torch/``), the graphs still from this one's
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,17 +38,12 @@ SEED = 20260418                      # the labels of the graphs and the root
 CALLS, GROUPS = 3, 3                 # a superstep of g500s24 takes ~2-14 ms
 
 
-def relax_bytes(g, weighted: bool) -> int:
-    """Bound bytes of one relax step: the ids (and the weights), the
-    offsets, the rows out, ``dist`` (4 bytes) and ``updated`` (1) once."""
-    return ((8 if weighted else 4) * g.e_pad + 4 * g.r_begin.numel()
-            + 9 * g.n_pad)
-
-
-def relax_run(torch, K, segment, record, g, root, weights, what):
+def relax_run(torch, K, record, g, root, weights, what):
     """hop_dist (``weights`` None) or sssp from ``root`` superstep by
     superstep: the gather form against the five launches it replaced, bit
     for bit, each timed; the share of real slots whose source is set."""
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.utils.timing import kernel_ms
     ids, dst, off, n_pad = g.r_node_idx, g.r_node_idx_dst, g.r_begin, g.n_pad
     inf = torch.tensor(torch.iinfo(torch.int32).max, dtype=torch.int32,
                        device=ids.device)
@@ -76,14 +72,15 @@ def relax_run(torch, K, segment, record, g, root, weights, what):
                              "the gather form differs from the five launches")
         share = float(updated.index_select(0, ids[:g.num_edges])
                       .float().mean())
-        f_ms = segment.timed(fused, CALLS, GROUPS)[0]
-        p_ms = segment.timed(five, CALLS, GROUPS)[0]
+        f_ms = kernel_ms(fused, CALLS, GROUPS)[0]
+        p_ms = kernel_ms(five, CALLS, GROUPS)[0]
         steps.append((share, f_ms, p_ms))
         new = torch.minimum(dist, best)
         updated = new < dist
         dist = new
-    nbytes = relax_bytes(g, weights is not None)
-    bound = nbytes / segment.HBM_BYTES_PER_MS
+    nbytes = bounds.relax(int(off[-1]) - int(off[0]), off.numel(), n_pad,
+                          weights is not None)
+    bound = bounds.bound_ms(nbytes)
     fused_ms = sum(f for _, f, _ in steps)
     five_ms = sum(p for _, _, p in steps)
     record(what=f"relax {what}", ok=True, root=root, supersteps=len(steps),
@@ -108,13 +105,11 @@ def main(argv=None):
     from gmbench import csr as bench_csr
     from green_marl_tpu_torch.models import hop_dist, sssp
     from green_marl_tpu_torch.ops import kernels as K
-    from green_marl_tpu_torch.probes import segment
+    from green_marl_tpu_torch.utils.timing import card as card_of
+    from green_marl_tpu_torch.utils.timing import timed
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_of(dev)
 
     def record(**kw):
         print(json.dumps({"root": args.root, "card": card, **kw}),
@@ -141,20 +136,13 @@ def main(argv=None):
         for kind, wt, model in (
                 ("hop_dist", None, lambda: hop_dist.hop_dist(g, root)),
                 ("sssp", weights, lambda: sssp.sssp(g, root, lens))):
-            dist = relax_run(torch, K, segment, record, g, root, wt,
-                             f"{name} {kind}")
+            dist = relax_run(torch, K, record, g, root, wt, f"{name} {kind}")
             model()                                        # warm
             before = K.launch_counts()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            res = model()
-            end.record()
-            end.synchronize()
+            res, _, ms = timed(model, dev)
             counts = K.launch_counts()
             record(what=f"relax {name} {kind}: model",
-                   ms=start.elapsed_time(end), iterations=res.iterations,
+                   ms=ms, iterations=res.iterations,
                    gather_launches=counts["segment_reduce_sorted[gather]"]
                    - before["segment_reduce_sorted[gather]"],
                    launches=counts["segment_reduce_sorted"]

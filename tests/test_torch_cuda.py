@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from green_marl_tpu_torch.ops import kernels as K
+from green_marl_tpu_torch.utils.timing import kernel_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -462,23 +463,6 @@ def test_segment_reduce_no_slots(dev):
     assert K.segmented_scan(empty, empty.int()).numel() == 0
 
 
-def _median_ms(fn, reps=10):
-    """Median device time of ``fn`` in ms over ``reps`` launches, each
-    between its own CUDA events, after one warm-up launch."""
-    fn()
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        ms.append(start.elapsed_time(end))
-    return float(np.median(ms))
-
-
 @pytest.mark.parametrize("dtype,op", [(torch.float32, "add"),
                                       (torch.int32, "min"),
                                       (torch.int32, "max")])
@@ -513,10 +497,10 @@ def test_segment_reduce_runs_of_empty_rows(dev, dtype, op):
     else:
         assert torch.equal(got, K.segment_reduce_sorted_ref(
             vals, vals, offsets, n_out, op))
-    ms = _median_ms(lambda: K.segment_reduce_sorted(vals, vals, offsets,
-                                                    n_out, op))
-    plain = _median_ms(lambda: K.segment_reduce_sorted_ref(
-        vals, vals, offsets, n_out, op))
+    ms = kernel_ms(lambda: K.segment_reduce_sorted(vals, vals, offsets,
+                                                   n_out, op), 1, 10)[0]
+    plain = kernel_ms(lambda: K.segment_reduce_sorted_ref(
+        vals, vals, offsets, n_out, op), 1, 10)[0]
     assert ms <= plain, (ms, plain)
 
 

@@ -328,16 +328,101 @@ def test_probe_needs_a_card():
         probe.run(torch.device("cpu"))
 
 
-def test_segment_and_profile_probes_need_a_card():
-    """Both measure the card: without one they exit, and never time the
-    plain versions on the CPU instead."""
+def _script(name):
+    """``scripts/<name>.py`` as a module (its measurement is behind
+    ``main``)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["probes.segment", "probes.profile_apps",
+                                  "probe_relax", "probe_edge_map"])
+def test_segment_and_profile_probes_need_a_card(name):
+    """Each measures the card: without one it exits with a message, and
+    never times the plain versions on the CPU instead."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from green_marl_tpu_torch.probes import profile_apps, segment
-    for mod in (segment, profile_apps):
-        with pytest.raises(SystemExit) as e:
-            mod.main([])
-        assert "GPU" in str(e.value.code)
+    mod = (importlib.import_module(f"green_marl_tpu_torch.{name}")
+           if name.startswith("probes.") else _script(name))
+    with pytest.raises(SystemExit) as e:
+        mod.main([])
+    assert "GPU" in str(e.value.code)
+
+
+# probes/bounds.py against the benchmark's frozen counts, where both count
+# the same thing: the probes and the benchmark's ruler cannot drift apart
+@pytest.mark.parametrize("lanes", [1, 16])
+def test_segment_reduce_bound_is_the_benchmarks(lanes):
+    """With offsets over every slot (parity10k's CSC: 0 to E = e_pad), the
+    slots in range are every value the benchmark counts."""
+    from gmbench.metrics import _roofline
+    from green_marl_tpu_torch.graph import binary_io
+    from green_marl_tpu_torch.probes import bounds
+    g, _, _ = binary_io.load_graph(
+        os.path.join(REPO, "data", "parity", "parity10k.bin"))
+    off = g.r_begin
+    assert int(off[0]) == 0 and int(off[-1]) == g.e_pad
+    got = bounds.segment_reduce(int(off[-1]) - int(off[0]), off.numel(),
+                                g.n_pad, lanes=lanes)
+    assert got == _roofline.segment_reduce_bytes(
+        lanes * g.e_pad, off.numel(), g.n_pad, lanes)
+
+
+@pytest.mark.parametrize("lanes,exclusive", [(1, False), (1, True),
+                                             (16, False), (16, True)])
+def test_cumsum_bound_is_the_benchmarks(lanes, exclusive):
+    from gmbench.metrics import _roofline
+    from green_marl_tpu_torch.probes import bounds
+    n = 69_000_064
+    assert bounds.plain_cumsum(n, lanes=lanes, exclusive=exclusive) == \
+        _roofline.cumsum_bytes(n, lanes, exclusive)
+
+
+def test_edge_map_bound_is_the_benchmarks():
+    """The table-once bound of one ``edge_map`` call is what the benchmark
+    counts from that call's counter; the gathered-rows bound adds a row a
+    slot past the table's own rows."""
+    from gmbench.metrics import _edge_map_bytes
+    from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.graph.generate import rmat_edges
+    from green_marl_tpu_torch.models import batched
+    from green_marl_tpu_torch.ops import binned
+    from green_marl_tpu_torch.probes import bounds
+    src, dst = rmat_edges(2000, 14000, seed=11)
+    g, _ = from_edges(src, dst, 2000)
+    bp, _, chunk = batched.bits_schedule(g, 64, 32)
+    table = torch.zeros((bp.n_rows, 2), dtype=torch.int32)
+    binned.reset_edge_map_counts()
+    binned.edge_map(bp, table, "bor", slot_chunk=chunk)
+    counts = binned.edge_map_counts()
+    binned.reset_edge_map_counts()
+    slots, row_bytes = bp.slot_src.numel(), 8
+    table_once, gathered = bounds.edge_map_bor(slots, bp.n_rows, row_bytes)
+    assert counts["calls"] == 1
+    assert table_once == _edge_map_bytes.edge_map_bytes(counts)
+    assert gathered - table_once == (slots - bp.n_rows) * row_bytes
+
+
+@pytest.mark.parametrize("weighted,want", [(False, 451_012),
+                                           (True, 771_012)])
+def test_relax_bound_on_parity10k(weighted, want):
+    """By hand, parity10k (N = 10,000, E = e_pad = 80,000, n_pad = 10,112):
+    4 bytes of id (8 with the weight) a slot, 4 a CSC offset (10,001), and
+    4 + 4 + 1 a node for the rows out, ``dist`` and ``updated``."""
+    from green_marl_tpu_torch.graph import binary_io
+    from green_marl_tpu_torch.probes import bounds
+    g, _, _ = binary_io.load_graph(
+        os.path.join(REPO, "data", "parity", "parity10k.bin"))
+    off = g.r_begin
+    assert (g.num_edges, g.e_pad, off.numel(), g.n_pad) == \
+        (80_000, 80_000, 10_001, 10_112)
+    assert bounds.relax(int(off[-1]) - int(off[0]), off.numel(), g.n_pad,
+                        weighted) == want
+    assert want == (8 if weighted else 4) * 80_000 + 4 * 10_001 \
+        + 9 * 10_112
 
 
 def test_profile_groups_name_the_ports_kernels():
