@@ -296,6 +296,7 @@ TIMED_BY = {
     "plain_cumsum[lanes]": SEGMENT_PROBE + " --lanes 16",
     "segment_reduce_sorted[gather]": "python3 scripts/probe_relax.py",
     "edge_map_bor": "python3 scripts/probe_edge_map.py",
+    "bit_popstats": "python3 scripts/probe_edge_map.py",
 }
 
 
@@ -368,6 +369,22 @@ def launched_since(K, before):
     """The kernels launched since ``before = K.launch_counts()``, by name."""
     return {name: n - before[name] for name, n in K.launch_counts().items()
             if n != before[name]}
+
+
+def popstats_check(torch, K, visited, deg_rows):
+    """Phase 6: the popcount of the full-size bit BFS's visited plane, the
+    kernel (one launch) against the plain version, its largest difference
+    (0 where they agree bit for bit), and both timed."""
+    before = K.launch_counts()
+    got = K.bit_popstats(visited, deg_rows)
+    launched = launched_since(K, before)
+    want = K.bit_popstats_ref(visited, deg_rows)
+    max_err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    return dict(
+        max_err=max_err, launched=launched,
+        ms=mean_ms(lambda: K.bit_popstats(visited, deg_rows), 5),
+        plain_ms=mean_ms(lambda: K.bit_popstats_ref(visited, deg_rows), 1))
 
 
 def edge_map_level_check(torch, K, batched, bp, roots, chunk):
@@ -2218,7 +2235,8 @@ def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
         if run == "hop_dist":           # min_relax: the gather form
             expect["segment_reduce_sorted[gather]"] = k
         if run == "bit_bfs":
-            expect = {"edge_map_bor": rec["levels"]["bit_bfs"]}
+            expect = {"edge_map_bor": rec["levels"]["bit_bfs"],
+                      "bit_popstats": 1}
         check(got == expect,
               f"{run}: launches {got}, {k} segment reduces expected")
     check(c["ok"], "every check of the witness")
@@ -2882,6 +2900,7 @@ def main():
     host_s = time.time() - t0
     bits_launched = {name: n for name, n in K.launch_counts().items() if n}
     bits_launches = K.launch_counts()["edge_map_bor"]
+    pop_launches = K.launch_counts()["bit_popstats"]
     reached = res.reached.cpu().numpy()
     gteps = float(trav.sum()) / bits_ms / 1e6
     check(int(trav.sum()) > 0,
@@ -2891,10 +2910,12 @@ def main():
           f"({float(trav.sum()) / host_s / 1e9:.2f} by the host clock over "
           f"the region the CLI times); peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    check(bits_launched == {"edge_map_bor": res.levels_run}
+    check(bits_launched == {"edge_map_bor": res.levels_run,
+                            "bit_popstats": 1}
           and bits_launches == res.levels_run,
           f"multi_source_bfs_bits at the full size: one edge_map_bor "
-          f"launch a level ({res.levels_run} levels; {bits_launched})")
+          f"launch a level and one bit_popstats launch ({res.levels_run} "
+          f"levels; {bits_launched})")
     for b, r in enumerate(roots):
         seen = (hd_dist[r][:n] < INT32_MAX).cpu().numpy()
         check(int(reached[b]) == int(seen.sum())
@@ -2903,6 +2924,13 @@ def main():
               f"bit BFS instance {b} (root {r}): reached {int(reached[b])} "
               f"and traversed {int(trav[b])} equal hop_dist's reached set "
               f"and its out-degree sum")
+    pop = popstats_check(torch, K, res.visited, deg_rows)
+    check(pop["max_err"] == 0 and pop["launched"] == {"bit_popstats": 1}
+          and pop["ms"] <= pop["plain_ms"],
+          f"bit_popstats on the full-size bit BFS's visited plane "
+          f"({tuple(res.visited.shape)}): equal to the plain version bit "
+          f"for bit, one launch, no slower (kernel {pop['ms']:.2f} ms, "
+          f"plain {pop['plain_ms']:.2f} ms)")
     del res
     em = edge_map_level_check(torch, K, batched, bp, order[:MULTI_B], chunk)
     check(em["same"] and em["launched"] == {"edge_map_bor": 1}
@@ -3113,7 +3141,13 @@ def main():
          "source": "green_marl_tpu_torch/csrc/edge_map.cu",
          "replaces": "none: green_marl_tpu/ops/binned.py edge_map leaves "
                      "the row gather and the OR to XLA",
-         "launches": bits_launches, "max_abs_err": 0.0}]
+         "launches": bits_launches, "max_abs_err": 0.0},
+        {"name": "bit_popstats",
+         "source": "green_marl_tpu_torch/csrc/popstats.cu",
+         "replaces": "none: green_marl_tpu/models/batched.py:340 "
+                     "_bit_popstats leaves the bit expansion and the sums "
+                     "to XLA",
+         "launches": pop_launches, "max_abs_err": float(pop["max_err"])}]
     print(json.dumps({"kernels": [
         {**r, "route": "cuda", "timed_by": TIMED_BY[r["name"]]}
         for r in records]}))

@@ -28,7 +28,8 @@ or int32: the same bits as JAX's uint8/uint16/uint32 (CPU torch has no
 unsigned type.
 
 On the card a bit BFS level's edge map is one launch of
-``kernels.edge_map_bor`` (``binned.takes_bor_kernel``).
+``kernels.edge_map_bor`` (``binned.takes_bor_kernel``), and its final
+counts one of ``kernels.bit_popstats``.
 
 Under a profiler a ``multi_source_bfs_bits`` call opens ``gm:setup``
 around its seed plane, ``gm:superstep`` a level (``engine/superstep.py``),
@@ -46,11 +47,12 @@ import torch
 from ..engine.superstep import while_loop
 from ..graph.csr import Graph
 from ..ops import binned as _binned
+from ..ops import kernels as _kernels
 from ..ops.binned import BinnedPull
 from ..utils.timing import span
 
 INT32_MAX = torch.iinfo(torch.int32).max
-PLANE_DTYPES = {8: torch.uint8, 16: torch.int16, 32: torch.int32}
+PLANE_DTYPES = {torch.iinfo(d).bits: d for d in _kernels.PLANE_DTYPES}
 
 
 class MultiBfsResult(NamedTuple):
@@ -295,9 +297,8 @@ def multi_pagerank_binned_paged(bp: BinnedPull, out_deg_binned: torch.Tensor,
     return MultiPageRankResult(rank=rank, diff=diff, iterations=it)
 
 
-# Row-chunk size for the popstats bit expansion: the per-bit int32 view of
-# a chunk costs 4x its bytes; chunking caps that transient.
-_POP_CH = 1 << 20
+# Row-chunk size of the plain popcount's bit expansion (the CPU's path)
+_POP_CH = _kernels.POP_CHUNK
 
 
 def _bit_popstats(visited: torch.Tensor, deg_rows: torch.Tensor, lanes: int,
@@ -305,21 +306,18 @@ def _bit_popstats(visited: torch.Tensor, deg_rows: torch.Tensor, lanes: int,
     """Per-instance (``lane * bits + bit``) counts and out-degree-weighted
     counts from a [n_rows, lanes] plane, as int64 (exact).
 
-    The bit planes are widened to int64 once: torch sums integers into
-    int64 and would widen an int32 input itself, on each of the two sums
-    (slower on an H100: 509 ms against 467 ms at B=4096, LJ scale)."""
-    n_rows = visited.shape[0]
-    cnt = torch.zeros((lanes, bits), dtype=torch.int64,
-                      device=visited.device)
-    trav = torch.zeros_like(cnt)
-    for s in range(0, n_rows, _POP_CH):
-        blk = visited[s:s + _POP_CH]
-        dblk = deg_rows[s:s + _POP_CH].to(torch.int64)[:, None]
-        for i in range(bits):
-            p = ((blk >> i) & 1).to(torch.int64)          # [<=CH, lanes]
-            cnt[:, i] += p.sum(0)
-            trav[:, i] += (p * dblk).sum(0)
-    return cnt.reshape(-1), trav.reshape(-1)
+    ``bits`` is the plane dtype's width.  On the card the plane takes
+    ``kernels.bit_popstats`` (one launch), which raises on a plane its
+    rule refuses; on the CPU the plain version, ``_POP_CH`` rows a pass."""
+    if visited.shape[1] != lanes:
+        raise ValueError(f"visited has {visited.shape[1]} lanes, not {lanes}")
+    if bits != torch.iinfo(visited.dtype).bits:
+        raise ValueError(f"bits={bits}: the counts cover all "
+                         f"{torch.iinfo(visited.dtype).bits} bits of a "
+                         f"{visited.dtype} lane")
+    if visited.device.type == "cuda":
+        return _kernels.bit_popstats(visited, deg_rows)
+    return _kernels.bit_popstats_ref(visited, deg_rows, _POP_CH)
 
 
 def _bits_seed(bp: BinnedPull, roots, plane_bits: int) -> torch.Tensor:

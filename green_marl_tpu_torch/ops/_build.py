@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "green_marl_tpu_torch")
 SOURCES = ("segment_reduce.cu", "cumsum.cu", "segmented_scan.cu",
-           "gather_probe.cu", "edge_map.cu")
+           "gather_probe.cu", "edge_map.cu", "popstats.cu")
 HEADERS = ("lookback.cuh",)     # included by the sources: rebuild on change
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -130,4 +130,6 @@ def _load() -> ctypes.CDLL:
     cdll.gm_edge_map_bor.restype = cint
     cdll.gm_edge_map_bor.argtypes = [vp, i64, cint, vp, vp, cint, vp, i64,
                                      i64, i64, i64, vp, vp, vp]
+    cdll.gm_bit_popstats.restype = cint
+    cdll.gm_bit_popstats.argtypes = [vp, i64, cint, vp, vp, vp]
     return cdll

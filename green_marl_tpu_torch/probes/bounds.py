@@ -78,3 +78,11 @@ def edge_map_bor(slots: int, n_rows: int, row_bytes: int) -> Tuple[int, int]:
     table once holds."""
     table = 4 * slots + 2 * n_rows * row_bytes
     return table, table + (slots - n_rows) * row_bytes
+
+
+def bit_popstats(n_rows: int, lanes: int, plane_bytes: int) -> int:
+    """``bit_popstats``: the [n_rows, lanes] plane of ``plane_bytes``-byte
+    lanes and the 4-byte degrees once, and the two int64 outputs of
+    ``lanes * 8 * plane_bytes`` instances each."""
+    row_bytes = lanes * plane_bytes
+    return n_rows * row_bytes + 4 * n_rows + 2 * 8 * 8 * row_bytes

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the bit BFS's edge map (``ops/binned.py`` ``edge_map``, op
-``"bor"``) on an NVIDIA GPU, level by level, at the shapes of the
-benchmark's cell ``lj.multi_bfs``.
+``"bor"``) on an NVIDIA GPU, level by level, and its final popcount, at the
+shapes of the benchmark's cell ``lj.multi_bfs``.
 
 The graph is the benchmark's configuration ``lj_msbfs`` (soc-LiveJournal1's
 sizes), drawn and built on the card by the benchmark's own builders
@@ -15,10 +15,16 @@ both (``utils.timing.kernel_ms``).  Two bounds a level
 (``probes/bounds.py`` ``edge_map_bor``): the table once (the slot ids, the
 table and the output once each: what ``edge_map_roofline_pct`` counts) and
 the gathered bytes (each slot's row read once besides).  Then the hub
-chunks alone and the bins alone at the densest level, and the kernel's
-registers (``probes/segment.py`` ``ptxas``).  One JSON record a line; the
-last, ``"what": "exit"``, names the last record written before the end
-and the exit status, also when a step raises.
+chunks alone and the bins alone at the densest level, and the kernels'
+registers (``probes/segment.py`` ``ptxas``).  On the batch's final plane,
+the popcount (``kernels.bit_popstats``, ``csrc/popstats.cu``) held against
+its plain version (``kernels.bit_popstats_ref``) bit for bit and timed
+beside it and its bound (``probes/bounds.py`` ``bit_popstats``), with the
+share of the plane's 32-bit words that are 0 or all ones and the share of
+a word's 32-row blocks whose nonzero words differ (the blocks the kernel
+transposes; read here, not on the main path, where it would cost a sync).
+One JSON record a line; the last, ``"what": "exit"``, names the last record
+written before the end and the exit status, also when a step raises.
 
 Run from the root of a checkout::
 
@@ -27,7 +33,8 @@ Run from the root of a checkout::
 ``--root DIR`` takes the port's package from another checkout (``DIR``
 holds ``green_marl_tpu_torch/``), the graph still from this one's
 ``gmbench/``; ``--no-ref`` times the kernel alone (no plain path, no
-check).  Last, the device work of one profiled ``edge_map`` call.
+check).  Last, the device work of one profiled ``edge_map`` call and of one
+``_bit_popstats`` call.
 """
 
 import argparse
@@ -86,8 +93,10 @@ def probe(args, torch, last):
         last["what"] = " ".join(str(kw[k]) for k in ("what", "level")
                                 if k in kw)
 
-    record(what="ptxas", lines=[line for _, line in ptxas(
-        os.path.abspath(args.root), "edge_map.cu")])
+    for source in ("edge_map.cu", "popstats.cu"):
+        record(what=f"ptxas {source}", lines=[
+            f"{kernel}: {line}" for kernel, line in ptxas(
+                os.path.abspath(args.root), source)])
     with open(os.path.join(REPO, "gmbench", "configs",
                            f"{CONFIG}.json")) as f:
         cfg = json.load(f)
@@ -139,6 +148,7 @@ def probe(args, torch, last):
         visited = visited | newly
         frontier = newly
     del frontier, hit
+    popstats(args, torch, K, bounds, kernel_ms, record, visited, deg_rows)
     parts = {"hub chunks": dataclasses.replace(bp, bins=()),
              "bins": dataclasses.replace(bp, n_hub_chunks=0,
                                          hub_row_off=bp.n_nodes)}
@@ -155,6 +165,13 @@ def probe(args, torch, last):
     record(what="device work of one edge_map call (the gm:edge_map span)",
            ops={e.key: e.device_time_total for e in prof.key_averages()
                 if e.device_time_total > 0})
+    with torch.profiler.profile(activities=acts) as prof:
+        batched._bit_popstats(visited, deg_rows, visited.shape[1], pb)
+        torch.cuda.synchronize()
+    record(what="device work of one _bit_popstats call (the gm:popstats "
+                "span)",
+           ops={e.key: e.device_time_total for e in prof.key_averages()
+                if e.device_time_total > 0})
     total = sum(r["ms"] for r in levels)
     summary = dict(what="call", levels=len(levels), ms=total,
                    table_bound_share=len(levels)
@@ -164,6 +181,40 @@ def probe(args, torch, last):
     if not args.no_ref:
         summary["ref_ms"] = sum(r["ref_ms"] for r in levels)
     record(**summary)
+
+
+def popstats(args, torch, K, bounds, kernel_ms, record, visited, deg_rows):
+    """The popcount of the batch's final plane: the kernel against the
+    plain version, both timed, the bound, and how uniform the words are."""
+    n_rows, lanes = visited.shape
+    words = visited.view(torch.int32)            # 32-bit words, [n_rows, W]
+    ends = (words == 0) | (words == -1)
+    # a lane's block of 32 rows is transposed where its nonzero words differ
+    tiles = torch.cat([words, words.new_zeros((-n_rows % 32, words.shape[1]))])
+    tiles = tiles.view(-1, 32, words.shape[1])
+    nz = tiles != 0
+    lo = torch.where(nz, tiles, torch.iinfo(torch.int32).max).amin(1)
+    hi = torch.where(nz, tiles, torch.iinfo(torch.int32).min).amax(1)
+    transposed = nz.any(1) & (lo != hi)
+    nbytes = bounds.bit_popstats(n_rows, lanes, visited.element_size())
+    rec = dict(what="popstats", n_rows=n_rows, lanes=lanes, bytes=nbytes,
+               bound_ms=bounds.bound_ms(nbytes),
+               words_0_or_ones=float(ends.float().mean()),
+               blocks_transposed=float(transposed.float().mean()))
+    del words, ends, tiles, nz, lo, hi, transposed
+    got = K.bit_popstats(visited, deg_rows)
+    rec["ms"] = kernel_ms(lambda: K.bit_popstats(visited, deg_rows),
+                          CALLS, GROUPS)[0]
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if not args.no_ref:
+        want = K.bit_popstats_ref(visited, deg_rows)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit("probe_edge_map: the popcount kernel differs "
+                             "from the plain version")
+        del want
+        rec["ref_ms"] = kernel_ms(
+            lambda: K.bit_popstats_ref(visited, deg_rows), 1, GROUPS)[0]
+    record(**rec)
 
 
 if __name__ == "__main__":

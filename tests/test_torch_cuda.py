@@ -184,7 +184,7 @@ def test_launch_counts_and_checks(dev):
                                  "plain_cumsum": 1, "segmented_scan": 0,
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0,
-                                 "edge_map_bor": 0}
+                                 "edge_map_bor": 0, "bit_popstats": 0}
     with pytest.raises(TypeError):
         K.plain_cumsum(x.long())
     with pytest.raises(ValueError):
@@ -1842,8 +1842,9 @@ def test_edge_map_bor_routes(dev):
 @pytest.mark.parametrize("plane_bits,B", [(8, 1024), (32, 4096)])
 def test_bit_bfs_on_the_kernel(dev, plane_bits, B):
     """``multi_source_bfs_bits`` on the card (one ``edge_map_bor`` launch a
-    level) equals the paged variant on the card and the CPU path, in
-    planes, levels, reached and traversed."""
+    level, one ``bit_popstats`` launch a call) equals the paged variant on
+    the card and the CPU path, in planes, levels, reached and
+    traversed."""
     from green_marl_tpu_torch.models import batched
     g = _bor_graph()
     rng = np.random.default_rng(B)
@@ -1858,12 +1859,121 @@ def test_bit_bfs_on_the_kernel(dev, plane_bits, B):
         K.reset_launch_counts()
         res = fn(bp, roots, deg_rows, plane_bits=plane_bits,
                  slot_chunk=chunk)
-        runs[name] = (res, K.launch_counts()["edge_map_bor"])
+        counts = K.launch_counts()
+        runs[name] = (res, counts["edge_map_bor"], counts["bit_popstats"])
     cpu, card, paged = (runs[k][0] for k in ("cpu", "card", "paged"))
-    assert runs["cpu"][1] == 0 and cpu.levels_run > 2
+    assert runs["cpu"][1:] == (0, 0) and cpu.levels_run > 2
     assert runs["card"][1] == card.levels_run == cpu.levels_run
     assert runs["paged"][1] == paged.levels_run == cpu.levels_run
+    assert runs["card"][2] == runs["paged"][2] == 1    # one popcount a call
     for res in (card, paged):
         assert torch.equal(res.visited.cpu(), cpu.visited)
         assert torch.equal(res.reached.cpu(), cpu.reached)
         assert torch.equal(res.traversed.cpu(), cpu.traversed)
+
+
+# -- the bit BFS's final popcount (csrc/popstats.cu) ---------------------
+
+POP_ROWS = 70_001          # not a multiple of the kernel's 32-row tile
+
+
+def _pop_case(kind, dtype, lanes, seed, n_rows=POP_ROWS):
+    """A [n_rows, lanes] plane and [n_rows] int32 degrees, on the CPU.
+
+    ``random``: every bit drawn, degrees over all of int32 (negative too);
+    ``zero`` and ``ones``: every bit 0 or 1; ``mixed``: what the end of a
+    bit BFS looks like, runs of rows reached by no source, by every
+    source, or by all but a few (one mask repeated), with rows of sparse
+    bits between, and five rows of degree 2^31 - 1 with every bit set, so
+    that each instance's traversed count passes 2^32."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, (n_rows, lanes * dtype.itemsize),
+                       dtype=np.uint8)
+    deg = rng.integers(0, 1 << 12, n_rows).astype(np.int32)
+    if kind == "random":
+        deg = rng.integers(-(1 << 31), 1 << 31, n_rows).astype(np.int32)
+    elif kind == "zero":
+        raw[:] = 0
+    elif kind == "ones":
+        raw[:] = 255
+    else:
+        most = np.full(raw.shape[1], 255, np.uint8)
+        most[rng.integers(0, raw.shape[1], 3)] = 0b1011_1111
+        cut = np.sort(rng.integers(0, n_rows, 6))
+        raw[cut[0]:cut[1]] = 0
+        raw[cut[1]:cut[2]] = 255
+        raw[cut[2]:cut[3]] = most
+        raw[cut[4]:cut[5]] &= rng.integers(0, 256, raw[cut[4]:cut[5]].shape,
+                                           dtype=np.uint8)
+        raw[:5] = 255
+        deg[:5] = (1 << 31) - 1
+    return torch.from_numpy(raw).view(dtype), torch.from_numpy(deg)
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "ones", "mixed"])
+@pytest.mark.parametrize("lanes", [1, 3, 8, 32, 128])
+@pytest.mark.parametrize("plane_bits", [8, 16, 32])
+def test_bit_popstats_kernel_matches_ref(dev, plane_bits, lanes, kind):
+    """The kernel equals the plain version bit for bit for each plane type
+    and lane count (rows of 1 to 512 bytes, some not a multiple of 4), on
+    70,001 rows, one launch a call."""
+    from green_marl_tpu_torch.models.batched import PLANE_DTYPES
+    plane, deg = _pop_case(kind, PLANE_DTYPES[plane_bits], lanes,
+                           plane_bits * 1000 + lanes)
+    want = K.bit_popstats_ref(plane, deg)
+    K.reset_launch_counts()
+    got = K.bit_popstats(plane.to(dev), deg.to(dev))
+    assert K.launch_counts()["bit_popstats"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and g.shape == (lanes * plane_bits,)
+        assert torch.equal(g.cpu(), w)
+    if kind == "mixed":
+        assert bool((want[1] > 1 << 32).all())
+    if kind == "ones":
+        assert bool((want[0] == POP_ROWS).all())
+
+
+@pytest.mark.parametrize("dtype,lanes,offset", [(torch.uint8, 8, 1),
+                                                (torch.uint8, 12, 3),
+                                                (torch.int16, 6, 2)])
+def test_bit_popstats_unaligned_plane(dev, dtype, lanes, offset):
+    """A plane whose rows are whole 4-byte words but that starts off a
+    4-byte boundary is read a byte at a time: the same counts."""
+    plane, deg = _pop_case("mixed", dtype, lanes, lanes)
+    nbytes = plane.numel() * dtype.itemsize
+    flat = torch.zeros(nbytes + offset, dtype=torch.uint8, device=dev)
+    shifted = flat[offset:].view(dtype).view(plane.shape)
+    shifted.copy_(plane.to(dev))
+    assert shifted.data_ptr() % 4
+    got = K.bit_popstats(shifted, deg.to(dev))
+    want = K.bit_popstats_ref(plane, deg)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_bit_popstats_refusals_and_routes(dev):
+    """What the rule refuses raises, in the wrapper and in
+    ``_bit_popstats`` on the card, and launches nothing; what it admits
+    launches once a call."""
+    from green_marl_tpu_torch.models import batched
+    plane, deg = _pop_case("mixed", torch.int32, 8, 3, n_rows=5000)
+    plane, deg = plane.to(dev), deg.to(dev)
+    strided = plane[:, ::2]
+    K.reset_launch_counts()
+    for bad in (strided, plane.long(), plane != 0):
+        with pytest.raises(ValueError):
+            K.bit_popstats(bad, deg)
+    with pytest.raises(TypeError):
+        K.bit_popstats(plane, deg.long())
+    with pytest.raises(ValueError):
+        K.bit_popstats(plane, deg[1:])
+    with pytest.raises(ValueError):
+        K.bit_popstats(plane, deg.cpu())
+    for bad, bits in ((strided, 32), (plane, 8)):
+        with pytest.raises(ValueError):
+            batched._bit_popstats(bad, deg, bad.shape[1], bits)
+    assert K.launch_counts()["bit_popstats"] == 0
+    got = batched._bit_popstats(plane, deg, 8, 32)
+    want = K.bit_popstats_ref(plane.cpu(), deg.cpu())
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert K.launch_counts()["bit_popstats"] == 1

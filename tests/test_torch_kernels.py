@@ -171,10 +171,93 @@ def test_wrappers_check_arguments_and_count_only_launches():
                                  "plain_cumsum": 0, "segmented_scan": 0,
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0,
-                                 "edge_map_bor": 0}
+                                 "edge_map_bor": 0, "bit_popstats": 0}
 
 
 INT32_MAX = torch.iinfo(torch.int32).max
+
+
+# -- the bit BFS's final popcount: the rule, the wrapper's checks, the CPU --
+
+U8, I16, I32 = torch.uint8, torch.int16, torch.int32
+
+
+@pytest.mark.parametrize("dtype,contiguous,takes", [
+    (U8, True, True), (I16, True, True), (I32, True, True),
+    (U8, False, False), (I16, False, False), (I32, False, False),
+    (torch.int8, True, False), (torch.int64, True, False),
+    (torch.bool, True, False), (torch.float32, True, False),
+    (torch.float16, True, False), (torch.float64, True, False),
+])
+def test_bit_popstats_rule(dtype, contiguous, takes):
+    why = K.bit_popstats_refusal(dtype, contiguous)
+    assert (why is None) is takes
+    assert takes or isinstance(why, str) and why
+
+
+def _numpy_popstats(plane, deg, bits):
+    """Instance ``lane * bits + bit``: its rows and their degree sum, one
+    bit at a time in numpy int64 (independent of both torch versions)."""
+    v = plane.numpy().astype(np.int64)
+    d = deg.numpy().astype(np.int64)
+    cnt = np.zeros((v.shape[1], bits), np.int64)
+    trav = np.zeros_like(cnt)
+    for i in range(bits):
+        b = (v >> i) & 1
+        cnt[:, i] = b.sum(0)
+        trav[:, i] = (b * d[:, None]).sum(0)
+    return cnt.reshape(-1), trav.reshape(-1)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [U8, I16, I32])
+def test_bit_popstats_plain_on_the_cpu(dtype, lanes, monkeypatch):
+    """On the CPU the wrapper takes the plain version and launches nothing;
+    it equals ``_bit_popstats`` (chunked or not) and a numpy count, with
+    degrees over all of int32 and counts past 2^32."""
+    from green_marl_tpu_torch.models import batched
+    rng = np.random.default_rng(lanes)
+    bits = torch.iinfo(dtype).bits
+    raw = rng.integers(0, 256, (1000, lanes * dtype.itemsize), dtype=np.uint8)
+    raw[:300] = 255
+    raw[300:500] = 0
+    plane = T(raw).view(dtype)
+    deg = T(rng.integers(-(1 << 31), 1 << 31, 1000).astype(np.int32))
+    deg[:300] = (1 << 31) - 1
+    K.reset_launch_counts()
+    got = K.bit_popstats(plane, deg)
+    want = _numpy_popstats(plane, deg, bits)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert (want[1] > 1 << 32).any()
+    via = batched._bit_popstats(plane, deg, lanes, bits)
+    monkeypatch.setattr(batched, "_POP_CH", 37)     # many chunks
+    chunked = batched._bit_popstats(plane, deg, lanes, bits)
+    for g, a, b in zip(got, via, chunked):
+        assert torch.equal(g, a) and torch.equal(g, b)
+    assert K.launch_counts()["bit_popstats"] == 0
+
+
+def test_bit_popstats_checks():
+    from green_marl_tpu_torch.models import batched
+    plane = torch.zeros((64, 4), dtype=torch.int32)
+    deg = torch.zeros(64, dtype=torch.int32)
+    for bad in (plane[:, ::2], plane.long(), plane.float(), plane[0]):
+        with pytest.raises(ValueError):
+            K.bit_popstats(bad, deg)
+    with pytest.raises(TypeError):
+        K.bit_popstats(plane, deg.long())
+    with pytest.raises(ValueError):
+        K.bit_popstats(plane, deg[1:])
+    with pytest.raises(ValueError):                 # strided degrees
+        K.bit_popstats(plane, torch.zeros(128, dtype=torch.int32)[::2])
+    with pytest.raises(ValueError):                 # lanes: the plane's
+        batched._bit_popstats(plane, deg, 3, 32)
+    with pytest.raises(ValueError):                 # bits: the dtype's
+        batched._bit_popstats(plane, deg, 4, 8)
+    empty = K.bit_popstats(plane[:0], deg[:0])
+    assert [t.tolist() for t in empty] == [[0] * 128] * 2
 
 
 def gather_case(dtype, weighted, mask, wrap, seed=5):
