@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import warnings
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -66,6 +67,7 @@ from ..runtime import rng as R
 from ..runtime.collections import (DenseNodeMap, NodeOrder, NodeSeq,
                                    NodeSet, put, put2, take,
                                    tree_leaves, tree_map)
+from ..utils.timing import span
 
 _I32 = torch.int32
 _BOOL = torch.bool
@@ -461,6 +463,33 @@ _RET = "__ret__"
 _DONE = "__done__"
 _RNG = "__rng$"    # counter-based RNG draw counter (gm_rand.h analog)
 
+PASS_SPAN = "gm:lower:pass"   # one pass of a traced While (utils.timing.span)
+_PASS_KEYS = ("loops", "passes", "lanes_computed", "lanes_live")
+_PASS_COUNTS = dict.fromkeys(_PASS_KEYS, 0)
+_PASS_LOCK = threading.Lock()      # a sharded run lowers on a thread a shard
+
+
+def _count_passes(**more: int) -> None:
+    with _PASS_LOCK:
+        for k, v in more.items():
+            _PASS_COUNTS[k] += v
+
+
+def lane_pass_counts() -> Dict[str, int]:
+    """The traced ``While`` loops run since the last reset: ``loops``,
+    ``passes`` (bodies run, a ``Do``'s first one included), and for the
+    passes of a loop whose predicate is a lane value ``lanes_computed`` (B
+    a pass) and ``lanes_live`` (the lanes whose predicate held for it).  In
+    a batched run ``passes`` is the longest lane's single-run count and
+    ``lanes_live`` the sum of the lanes' counts."""
+    with _PASS_LOCK:
+        return dict(_PASS_COUNTS)
+
+
+def reset_lane_pass_counts() -> None:
+    with _PASS_LOCK:
+        _PASS_COUNTS.update(dict.fromkeys(_PASS_KEYS, 0))
+
 
 # --------------------------------------------------------------------------
 # Static write-set / decl-set analysis (while-loop carry discovery)
@@ -607,6 +636,39 @@ def declared_keys(stmt) -> Set[str]:
 # --------------------------------------------------------------------------
 # The lowerer
 # --------------------------------------------------------------------------
+
+class _LoopTally:
+    """One traced ``While``'s share of :func:`lane_pass_counts`."""
+
+    def __init__(self):
+        _count_passes(loops=1)
+        self.unread = 0      # passes run before the predicate was a lane value
+        self.live = None     # (B, lanes whose predicate held) at the last read
+
+    def ran(self) -> None:
+        """A pass's body ran."""
+        if self.live is None:
+            self.unread += 1
+            _count_passes(passes=1)
+        else:
+            _count_passes(passes=1, lanes_computed=self.live[0],
+                          lanes_live=self.live[1])
+
+    def runs(self, go) -> bool:
+        """Does a pass run: the host predicate, or any lane's, the lanes
+        read to the host once (the passes before the predicate was a lane
+        value ran every lane)."""
+        if not LN.is_lanes(go):
+            self.live = None
+            return go
+        held = LN.plain(go).cpu()
+        b = held.shape[0]
+        _count_passes(lanes_computed=b * self.unread,
+                      lanes_live=b * self.unread)
+        self.unread = 0
+        self.live = (b, int(held.sum()))
+        return bool(held.any())
+
 
 class Lowerer:
     """Executes one procedure on one graph (one device)."""
@@ -2371,11 +2433,6 @@ class Lowerer:
             return torch.where(g, n, o)
         return tuple(tree_map(sel, n, o) for n, o in zip(new, old))
 
-    @staticmethod
-    def _runs(go) -> bool:
-        """Does a pass run: the host predicate, or any lane's."""
-        return bool(LN.plain(go).any()) if LN.is_lanes(go) else go
-
     def _exec_while_traced(self, s: A.While, env):
         """The ``lax.while_loop`` lowering: the body runs once per pass in
         a traced region, and its draw sites keep the numbers of the first
@@ -2383,57 +2440,70 @@ class Lowerer:
         when the loop never runs).  A predicate that depends on the lanes
         of a batched run is read once a pass as ``any`` over them; every
         carry entry is then per lane and a lane whose predicate is false
-        keeps its carry."""
+        keeps its carry.
+
+        Under a profiler each pass is a ``gm:lower:pass`` span: the body,
+        then the predicate read that decides whether another pass runs
+        (a ``While``'s first read comes before its first pass)."""
         carry_keys = self._carry_keys(
             s, env, "Return inside While not lowerable yet")
-        if s.do_while:
-            self.exec_stmt(s.body, env, None)
-        init, shapes = self._carry_init(env, carry_keys)
+        tally = _LoopTally()
+        with contextlib.ExitStack() as first_pass:
+            if s.do_while:
+                first_pass.enter_context(span(PASS_SPAN))
+                self.exec_stmt(s.body, env, None)
+                tally.ran()
+            init, shapes = self._carry_init(env, carry_keys)
 
-        def overlay(carry):
-            e2 = dict(env)
-            e2.update(zip(carry_keys, carry))
-            return e2
+            def overlay(carry):
+                e2 = dict(env)
+                e2.update(zip(carry_keys, carry))
+                return e2
 
-        def cond(carry):
-            c = self._a(self.eval(s.cond, overlay(carry), None), _BOOL)
-            if LN.is_lanes(c):
-                return c
-            b = bool(c.reshape(()))
-            # a sharded run reads the predicate on every shard: they must
-            # agree (it comes out of collectives)
-            return self.axis.agree(b) if self.axis is not None else b
+            def cond(carry):
+                c = self._a(self.eval(s.cond, overlay(carry), None), _BOOL)
+                if LN.is_lanes(c):
+                    return c
+                b = bool(c.reshape(()))
+                # a sharded run reads the predicate on every shard: they
+                # must agree (it comes out of collectives)
+                return self.axis.agree(b) if self.axis is not None else b
 
-        with self._trace(env, set(carry_keys)):
-            carry = self._fresh(init)
-            cond_base = self._rng_site
-            go = cond(carry)
-            body_base = self._rng_site
-            body_end = None
-            while self._runs(go):  # each condition pass ends at body_base
+            with self._trace(env, set(carry_keys)):
+                carry = self._fresh(init)
+                cond_base = self._rng_site
+                go = cond(carry)
+                runs = tally.runs(go)
+                first_pass.close()
+                body_base = self._rng_site
+                body_end = None
+                while runs:  # each condition pass ends at body_base
+                    with span(PASS_SPAN):
+                        if LN.is_lanes(go):
+                            carry = self._spread(carry, go.shape[0])
+                        e2 = overlay(carry)
+                        self.exec_stmt(s.body, e2, None)
+                        tally.ran()
+                        body_end = self._rng_site
+                        new = self._carry_out(e2, carry_keys, shapes)
+                        carry = self._keep(go, new, carry) \
+                            if LN.is_lanes(go) else new
+                        self._rng_site = cond_base
+                        go = cond(carry)
+                        runs = tally.runs(go)
+                if body_end is None:
+                    self._rng_site = body_base
+                    e2 = overlay(carry)
+                    self.exec_stmt(s.body, e2, None)
+                    dry = self._carry_out(e2, carry_keys, shapes)
+                    body_end = self._rng_site
+                    # what the body makes a lane value stays one
+                    carry = tuple(
+                        self._spread((c,), LN.lanes_of(d))[0]
+                        if LN.lanes_of(d) else c for c, d in zip(carry, dry))
                 if LN.is_lanes(go):
                     carry = self._spread(carry, go.shape[0])
-                e2 = overlay(carry)
-                self.exec_stmt(s.body, e2, None)
-                body_end = self._rng_site
-                new = self._carry_out(e2, carry_keys, shapes)
-                carry = self._keep(go, new, carry) if LN.is_lanes(go) \
-                    else new
-                self._rng_site = cond_base
-                go = cond(carry)
-            if body_end is None:
-                self._rng_site = body_base
-                e2 = overlay(carry)
-                self.exec_stmt(s.body, e2, None)
-                dry = self._carry_out(e2, carry_keys, shapes)
-                body_end = self._rng_site
-                # what the body makes a lane value stays one
-                carry = tuple(
-                    self._spread((c,), LN.lanes_of(d))[0]
-                    if LN.lanes_of(d) else c for c, d in zip(carry, dry))
-            if LN.is_lanes(go):
-                carry = self._spread(carry, go.shape[0])
-            self._rng_site = body_end
+                self._rng_site = body_end
         for k, v in zip(carry_keys, carry):
             env[k] = v
 
