@@ -42,9 +42,10 @@ times only what no probe does.  Phases, each of which raises on failure:
 6. the batched engine: the ``multi_bfs`` CLI at bench.py's headline
    B=4096, plane_bits=32 on the 1/16-size file, equal to the in-process
    run there; then on the full-size graph, on one binned schedule, the bit
-   BFS (instances 0-3 against hop_dist, one ``edge_map_bor`` launch a
-   level; the kernel at level 3 against the plain gather and fold bit for
-   bit, and faster), the binned BFS at B=8 (distances equal hop_dist's) and
+   BFS (instances 0-3 against hop_dist, one ``edge_map_bor_level`` launch
+   a level; at level 3 the edge-map kernel against the plain gather and
+   fold bit for bit, and faster, and the level kernel against its plain
+   version: the next frontier, ``visited`` and the row count), the binned BFS at B=8 (distances equal hop_dist's) and
    the binned PageRank at B=128 (the d=0.85 instance against pagerank),
    with aggregate GTEPS, Gedge/s and the memory peak;
 7. triangle counting and the analytics models.  On the full-size directed
@@ -170,20 +171,22 @@ times only what no probe does.  Phases, each of which raises on failure:
    NCCL rank of 4 shards, the same checksums; the 2- and 4-rank rows not
    run on one card); the Twitter-class bit BFS at B=1024
    (``probes.twitter_scale``) on phase 11's graph and schedule, fused ==
-   paged, the instances whose roots phase 11 held against scipy reaching
-   scipy's sets; ``probes.bfs``'s pull sweep, push tiers and auto BFS on
+   paged, one ``edge_map_bor_level`` launch a fused level and one
+   ``edge_map_bor`` a paged level, the instances whose roots phase 11 held
+   against scipy reaching scipy's sets; ``probes.bfs``'s pull sweep, push tiers and auto BFS on
    phase 4's graph (the BFS's reached set == hop_dist's), then the prefix
    sum against its plain version on the pull sweep's values; and
    ``probes.prep``'s stages at the 1/16 size.
 
 Each path's kernel launches are counted from 0 just before it and read just
 after: phase 2's segmented scan, phases 3-4 (the main path), phase 6 (the
-full-size bit BFS on its own: one ``edge_map_bor`` a level, the count that
-the kernels record gives for the edge map), phase 7 (with
+full-size bit BFS on its own: one ``edge_map_bor_level`` a level, the
+count that the kernels record gives for the level kernel), phase 7 (with
 the component and path models and the sampling family counted on their own
 too), phase 8, phase 9 (each compiled call on its own), phase 10,
 phase 11, phase 12 (each batched and single run on its own) and phase 13
-(each harness run and probe on its own).
+(each harness run and probe on its own; the paged bit BFS's there, the
+count that the kernels record gives for the edge map).
 Times are CUDA events through ``utils.timing`` (``timed`` around one call,
 ``kernel_ms`` for a kernel against its plain version).  The last two lines
 are a JSON record of the kernels (each with the probe that times it) and
@@ -296,6 +299,7 @@ TIMED_BY = {
     "plain_cumsum[lanes]": SEGMENT_PROBE + " --lanes 16",
     "segment_reduce_sorted[gather]": "python3 scripts/probe_relax.py",
     "edge_map_bor": "python3 scripts/probe_edge_map.py",
+    "edge_map_bor_level": "python3 scripts/probe_edge_map.py",
     "bit_popstats": "python3 scripts/probe_edge_map.py",
 }
 
@@ -390,7 +394,10 @@ def popstats_check(torch, K, visited, deg_rows):
 def edge_map_level_check(torch, K, batched, bp, roots, chunk):
     """Phase 6: the bit BFS's edge map at level ``EDGE_MAP_LEVEL`` of the
     full-size run, on its frontier: the kernel (one launch) against the
-    plain gather-and-fold path bit for bit, and both timed."""
+    plain gather-and-fold path bit for bit, and both timed; then the level
+    kernel (one launch) against its plain version on copies of that
+    level's ``visited``: the next frontier, ``visited`` and the row count
+    equal."""
     visited = batched._bits_seed(bp, roots, PLANE_BITS)
     frontier = visited
     zero = torch.zeros((), dtype=visited.dtype, device=visited.device)
@@ -405,8 +412,19 @@ def edge_map_level_check(torch, K, batched, bp, roots, chunk):
     same = torch.equal(got, K.edge_map_bor_ref(bp, frontier,
                                                slot_chunk=chunk))
     del got
+    before = K.launch_counts()
+    vis = visited.clone()
+    got, rows = K.edge_map_bor_level(bp, frontier, vis)
+    level_launched = launched_since(K, before)
+    want_vis = visited.clone()
+    want, want_rows = K.edge_map_bor_level_ref(bp, frontier, want_vis,
+                                               slot_chunk=chunk)
+    level_same = (torch.equal(got, want) and torch.equal(vis, want_vis)
+                  and int(rows) == int(want_rows))
+    del got, want, vis, want_vis
     return dict(
-        same=same, launched=launched,
+        same=same, launched=launched, level_same=level_same,
+        level_launched=level_launched,
         active=float((frontier != 0).any(1).float().mean()),
         ms=mean_ms(lambda: K.edge_map_bor(bp, frontier), 5),
         plain_ms=mean_ms(lambda: K.edge_map_bor_ref(
@@ -2222,7 +2240,7 @@ def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
               f"add: kernel {r['ms']:.3f} ms <= plain {r['plain_ms']:.3f} ms")
     # each run's launches, read around it alone: one segment reduce a
     # superstep (a level), a shard; the one-device bit BFS's OR one
-    # edge_map_bor a level, the sharded one's plain PyTorch
+    # edge_map_bor_level a level, the sharded one's plain PyTorch
     levels, S = rec["levels"]["hop_dist"], scale.SHARDS
     want = {"pagerank": scale.PR_ITERS, "hop_dist": levels,
             "pagerank.gm": scale.PR_ITERS, "bit_bfs": 0,
@@ -2235,7 +2253,7 @@ def scale_phase(torch, K, dev, scale, g_host, times, keep=None):
         if run == "hop_dist":           # min_relax: the gather form
             expect["segment_reduce_sorted[gather]"] = k
         if run == "bit_bfs":
-            expect = {"edge_map_bor": rec["levels"]["bit_bfs"],
+            expect = {"edge_map_bor_level": rec["levels"]["bit_bfs"],
                       "bit_popstats": 1}
         check(got == expect,
               f"{run}: launches {got}, {k} segment reduces expected")
@@ -2359,8 +2377,11 @@ def multihost_part(torch, K, dev, add):
 
 def twitter_part(torch, K, dev, g_scale, scale_keep, add):
     """Phase 13, the Twitter-class bit BFS at B=1024 on phase 11's graph
-    and schedule, fused and paged: equal, and the instances whose roots
-    phase 11 held against scipy reach what scipy reached."""
+    and schedule, fused and paged: equal, one ``edge_map_bor_level`` launch
+    a fused level and one ``edge_map_bor`` a paged level, and the instances
+    whose roots phase 11 held against scipy reach what scipy reached.
+    Keeps the paged runs' ``edge_map_bor`` launches in
+    ``scale_keep["edge_map_bor"]``."""
     from green_marl_tpu_torch.probes import twitter_scale as TW
 
     bp = scale_keep["binned"]
@@ -2370,7 +2391,19 @@ def twitter_part(torch, K, dev, g_scale, scale_keep, add):
     torch.cuda.empty_cache()
     before = K.launch_counts()
     res = TW.run(bp, TW.degree_rows(bp, out_deg), roots, dev, keep=planes)
-    add(launched_since(K, before))
+    launched = add(launched_since(K, before))
+    # each variant runs once from the roots and once from each of their
+    # rolls: the same set of sources, so as many levels each time
+    runs = {name: 1 + len(res[name]["run_times_ms"]) for name in TW.VARIANTS}
+    want = {"edge_map_bor_level": runs["fused"] * res["fused"]["levels"],
+            "edge_map_bor": runs["paged"] * res["paged"]["levels"]}
+    got = {name: launched.get(name, 0) for name in want}
+    check(got == want,
+          f"bit BFS B={TW.B}: {runs['fused']} fused runs of "
+          f"{res['fused']['levels']} levels, one edge_map_bor_level launch "
+          f"a level; {runs['paged']} paged runs of {res['paged']['levels']} "
+          f"levels, one edge_map_bor launch a level ({got})")
+    scale_keep["edge_map_bor"] = got["edge_map_bor"]
     for name in TW.VARIANTS:
         r = res[name]
         log(f"  {name}: B={TW.B} levels={r['levels']} traversed="
@@ -2899,7 +2932,7 @@ def main():
     trav = res.traversed.cpu().numpy()      # where the CLI's clock stops
     host_s = time.time() - t0
     bits_launched = {name: n for name, n in K.launch_counts().items() if n}
-    bits_launches = K.launch_counts()["edge_map_bor"]
+    bits_launches = K.launch_counts()["edge_map_bor_level"]
     pop_launches = K.launch_counts()["bit_popstats"]
     reached = res.reached.cpu().numpy()
     gteps = float(trav.sum()) / bits_ms / 1e6
@@ -2910,10 +2943,10 @@ def main():
           f"({float(trav.sum()) / host_s / 1e9:.2f} by the host clock over "
           f"the region the CLI times); peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    check(bits_launched == {"edge_map_bor": res.levels_run,
+    check(bits_launched == {"edge_map_bor_level": res.levels_run,
                             "bit_popstats": 1}
           and bits_launches == res.levels_run,
-          f"multi_source_bfs_bits at the full size: one edge_map_bor "
+          f"multi_source_bfs_bits at the full size: one edge_map_bor_level "
           f"launch a level and one bit_popstats launch ({res.levels_run} "
           f"levels; {bits_launched})")
     for b, r in enumerate(roots):
@@ -2939,6 +2972,11 @@ def main():
           f"BFS ({em['active']:.3f} of the rows' frontier words set): equal "
           f"to the plain gather and fold bit for bit, one launch, faster "
           f"(kernel {em['ms']:.2f} ms, plain {em['plain_ms']:.2f} ms)")
+    check(em["level_same"]
+          and em["level_launched"] == {"edge_map_bor_level": 1},
+          f"edge_map_bor_level at level {EDGE_MAP_LEVEL} of the full-size "
+          f"bit BFS: the next frontier, visited and the row count equal "
+          f"the plain version's, one launch")
 
     roots8 = [int(r) for r in order[:8]]
     for r in roots8[4:]:
@@ -3110,6 +3148,7 @@ def main():
     t0 = time.time()
     counts_harness = harness_phase(torch, K, dev, native, g_host, g_scale,
                                    scale_keep)
+    paged_launches = scale_keep["edge_map_bor"]
     del g_host, g_scale, scale_keep
     log(f"  harness and probes {time.time() - t0:.1f} s; launches "
         f"{counts_harness}")
@@ -3141,6 +3180,12 @@ def main():
          "source": "green_marl_tpu_torch/csrc/edge_map.cu",
          "replaces": "none: green_marl_tpu/ops/binned.py edge_map leaves "
                      "the row gather and the OR to XLA",
+         "launches": paged_launches, "max_abs_err": 0.0},
+        {"name": "edge_map_bor_level",
+         "source": "green_marl_tpu_torch/csrc/edge_map.cu",
+         "replaces": "none: green_marl_tpu/models/batched.py:370 "
+                     "multi_source_bfs_bits leaves a level's edge map and "
+                     "its update to XLA",
          "launches": bits_launches, "max_abs_err": 0.0},
         {"name": "bit_popstats",
          "source": "green_marl_tpu_torch/csrc/popstats.cu",

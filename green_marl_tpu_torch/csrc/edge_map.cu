@@ -34,6 +34,23 @@
 //     parameters), zeroes the item counter and the rows from the hubs' first
 //     to the last (hub rows take `atomicOr`; pad and identity rows hold 0,
 //     the identity), and allocates nothing.
+//
+// The level form (`gm_edge_map_bor_level`) is a whole level of the bit BFS
+// (models/batched.py `multi_source_bfs_bits`): where a node row's OR `r` is
+// final it reads that row of `visited`, stores `n = r & ~visited` to `out`
+// as the next frontier, stores `visited | n` back where `n != 0`, and counts
+// the rows whose `n` is nonzero into a device word (one atomic a warp at
+// its exit), which is the loop's predicate.  Torch took six plane-wide
+// passes a level for that (`~`, `&`, `where`, `|`, `!= 0`, `any`, ~10 ms
+// at 512-byte rows), each near its own bytes' bound; here the update costs
+// a read of `visited` and a conditional write beside the gathered rows.  A
+// lane reads its piece of a `visited` row only where its piece of the OR
+// has a bit (elsewhere the next frontier is 0 whatever `visited` holds),
+// when the row is final: most rows of a sparse level read nothing.  Hub
+// rows are final only after their last chunk's `atomicOr`: a second, small
+// launch (a warp a hub row) updates them.  The gather reads only the
+// frontier, and `visited` is read and written only at the row being
+// stored, so the two must not share storage (the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,14 +59,24 @@ namespace {
 
 // Shapes tried on one NVIDIA H100 80GB HBM3 at 700.00 W
 // (`scripts/probe_edge_map.py`: the 11 levels of one 4,096-source batch on
-// the LiveJournal-scale graph, 512-byte rows; ms a call): kept 127.3
-// (11.5-11.6 a level whatever the frontier; 109% of the bound of the
-// gathered rows, 13.6% of the table once); 4 loads in flight 126.5;
+// the LiveJournal-scale graph, 512-byte rows; ms a call): 8 loads in
+// flight 127.3 (11.5-11.6 a level whatever the frontier; 109% of the bound
+// of the gathered rows, 13.6% of the table once); kept, 4 loads 126.5;
 // at most 3 blocks an SM (80 registers) 127.4; 4 blocks and 4 loads 126.5;
 // row loads past L1 (`ld.global.nc.L1::no_allocate`) 137.4; 1,024 slots a
 // subgroup's tile 127.9.  The random row reads bound it, not the shape.
+// The level form, the same batch (ms a call; the edge map alone 122.0 in
+// the same runs): kept, `visited` read at the row end where the OR has a
+// bit, 133.9 (11.5 a sparse level, 12.9 a dense one); 8 loads in flight
+// 135.2, and with at most 3 blocks an SM 135.2; that read deferred to the
+// next row end 133.8; `visited` read for every row beside the window's row
+// loads 154.8 (13.7 a level where hardly a row has a bit), with 8 loads
+// 160.9-170.6; no `visited` read at all (wrong results, timing only)
+// 127.2.  The hub rows' launch takes ~1.6 us, so a countdown that updates
+// each hub in its last chunk's block could gain no more than that and the
+// launch gap; it was not tried.
 constexpr int kThreads = 256;
-constexpr int kUnroll = 8;       // row loads in flight per lane
+constexpr int kUnroll = 4;       // row loads in flight per lane
 constexpr int kSubSlots = 256;   // slots a subgroup takes in a narrow tile
 constexpr int kMaxBins = 96;     // the width ladder of any int32 w_max: 95
 
@@ -78,20 +105,56 @@ __device__ __forceinline__ void or_into(uint4& a, const uint4& b) {
   a.w |= b.w;
 }
 
+// The level form's row store of piece `at` of a final row `r`: the next
+// frontier `n = r & ~v` (v: that piece of `visited`, read only where `r`
+// has a bit), `visited` there ORed with `n` where `n` has a bit, and `rows`
+// counting the row once (lane `lead` of the `mask` lanes that hold it) if
+// any of its pieces has.  Every lane of `mask` calls it.
+__device__ __forceinline__ void level_store(uint4* __restrict__ out,
+                                            uint4* __restrict__ visited,
+                                            int64_t at, const uint4& r,
+                                            bool act, unsigned mask,
+                                            bool lead, unsigned& rows) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 v = act && (r.x | r.y | r.z | r.w) != 0u
+                      ? __ldcs(visited + at) : zero;
+  const uint4 n = make_uint4(r.x & ~v.x, r.y & ~v.y, r.z & ~v.z, r.w & ~v.w);
+  const bool set = act && (n.x | n.y | n.z | n.w) != 0u;
+  if (act) __stcs(out + at, n);
+  if (set) __stcs(visited + at, make_uint4(v.x | n.x, v.y | n.y, v.z | n.z,
+                                           v.w | n.w));
+  if (__any_sync(mask, set) && lead) ++rows;
+}
+
+// The lanes of this lane's subgroup of P (a power of two) in its warp.
+template <int P>
+__device__ __forceinline__ unsigned sub_mask() {
+  if constexpr (P == 32) {
+    return 0xffffffffu;
+  } else {
+    const unsigned first = (threadIdx.x % 32) & ~(unsigned)(P - 1);
+    return ((1u << P) - 1u) << first;
+  }
+}
+
 // The OR of the table rows at slots [s0, s0 + n) by a subgroup of P lanes,
 // lane `sl` holding piece `sl` of a row of `g` pieces.  kRows: the run is
 // whole rows of `width` slots, from binned row `row` on, each stored to
 // `out` where it ends (the result is then 0); else the run's OR is
-// returned.  Every lane of the warp calls it (the ids go round by shuffles).
-template <int P, bool kRows>
+// returned.  kLevel (with kRows): each row is stored by `level_store`.
+// Every lane of the warp calls it (the ids go round by shuffles).
+template <int P, bool kRows, bool kLevel>
 __device__ __forceinline__ uint4 walk(const uint4* __restrict__ table, int g,
                                       const int32_t* __restrict__ slot_src,
                                       int64_t s0, int n, int width,
                                       int64_t row, uint4* __restrict__ out,
-                                      int sl) {
+                                      uint4* __restrict__ visited,
+                                      unsigned& rows, int sl) {
   constexpr int Q = 32 / P;      // ids a lane loads of a window of 32
+  static_assert(!kLevel || kRows, "the level form stores whole rows");
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   const bool act = sl < g;
+  const unsigned mask = sub_mask<P>();
   uint4 acc = zero;
   int rem = width;
   const int windows = (int)__reduce_max_sync(0xffffffffu,
@@ -127,7 +190,11 @@ __device__ __forceinline__ uint4 walk(const uint4* __restrict__ table, int g,
       for (int u = 0; u < kUnroll; ++u) {
         or_into(acc, v[u]);
         if (kRows && b + u < cnt && --rem == 0) {
-          if (act) __stcs(out + row * g + sl, acc);
+          if (kLevel)
+            level_store(out, visited, row * g + sl, acc, act, mask, sl == 0,
+                        rows);
+          else if (act)
+            __stcs(out + row * g + sl, acc);
           acc = zero;
           rem = width;
           ++row;
@@ -161,12 +228,16 @@ __device__ __forceinline__ uint4 block_or(uint4 acc, uint4* s_acc) {
   return r;
 }
 
-template <int P>
+// kLevel: the level form (`visited`, and `counter[1]` counting the node
+// rows of the next frontier that have a bit); the hub rows are left to
+// `level_hubs_kernel`.
+template <int P, bool kLevel>
 __global__ void __launch_bounds__(kThreads)
 edge_map_bor_kernel(const uint4* __restrict__ table, int g,
                     const int32_t* __restrict__ slot_src,
                     const int32_t* __restrict__ hub_owner,
-                    uint4* __restrict__ out, unsigned* __restrict__ counter,
+                    uint4* __restrict__ out, uint4* __restrict__ visited,
+                    unsigned* __restrict__ counter,
                     const __grid_constant__ Plan plan) {
   constexpr int kSubs = kThreads / P;
   __shared__ BinEntry s_bins[kMaxBins];
@@ -175,20 +246,21 @@ edge_map_bor_kernel(const uint4* __restrict__ table, int g,
                                    // next while slow warps read this one
   const int tid = threadIdx.x;
   const int sub = tid / P, sl = tid % P;
+  unsigned rows = 0;               // kLevel: rows this thread counted
   for (int i = tid; i < plan.n_bins; i += kThreads) s_bins[i] = plan.bins[i];
   for (int it = 0;; ++it) {
     if (tid == 0) s_item[it & 1] = atomicAdd(counter, 1u);
     __syncthreads();
     const unsigned item = s_item[it & 1];
-    if (item >= plan.n_items) return;
+    if (item >= plan.n_items) break;
     if (item < plan.hub_items) {   // a hub chunk: its part of the hub's row
       const int piece = (plan.w_max + kSubs - 1) / kSubs;
       const int lo = min(sub * piece, plan.w_max);
       const int hi = min(lo + piece, plan.w_max);
-      const uint4 acc = walk<P, false>(
+      const uint4 acc = walk<P, false, false>(
           table, g, slot_src,
           plan.hub_slot_off + (int64_t)item * plan.w_max + lo, hi - lo, 0,
-          0, out, sl);
+          0, out, visited, rows, sl);
       const uint4 r = block_or<P>(acc, s_acc);
       if (tid < g) {
         unsigned* dst = reinterpret_cast<unsigned*>(
@@ -205,32 +277,61 @@ edge_map_bor_kernel(const uint4* __restrict__ table, int g,
     const BinEntry bin = s_bins[k];
     const int j = (int)(item - bin.first_item);
     if (bin.per_sub == 0) {        // a wide row, split over the subgroups
+      const int64_t row = bin.row_off + j;
       const int piece = (bin.width + kSubs - 1) / kSubs;
       const int lo = min(sub * piece, bin.width);
       const int hi = min(lo + piece, bin.width);
-      const uint4 acc = walk<P, false>(
+      const uint4 acc = walk<P, false, false>(
           table, g, slot_src, bin.slot_off + (int64_t)j * bin.width + lo,
-          hi - lo, 0, 0, out, sl);
+          hi - lo, 0, 0, out, visited, rows, sl);
       const uint4 r = block_or<P>(acc, s_acc);
-      if (tid < g) __stcs(out + (int64_t)(bin.row_off + j) * g + tid, r);
+      if (kLevel) {
+        if (tid < 32)
+          level_store(out, visited, row * g + tid, r, tid < g, 0xffffffffu,
+                      tid == 0, rows);
+      } else if (tid < g) {
+        __stcs(out + row * g + tid, r);
+      }
     } else {                       // a tile of whole rows, per_sub a subgroup
       const int r0 = min(j * kSubs * bin.per_sub + sub * bin.per_sub,
                          bin.rows);
       const int r1 = min(r0 + bin.per_sub, bin.rows);
-      walk<P, true>(table, g, slot_src,
-                    bin.slot_off + (int64_t)r0 * bin.width,
-                    (r1 - r0) * bin.width, bin.width, bin.row_off + r0, out,
-                    sl);
+      walk<P, true, kLevel>(table, g, slot_src,
+                            bin.slot_off + (int64_t)r0 * bin.width,
+                            (r1 - r0) * bin.width, bin.width,
+                            bin.row_off + r0, out, visited, rows, sl);
     }
+  }
+  if (kLevel) {                    // one atomic a warp
+    rows = __reduce_add_sync(0xffffffffu, rows);
+    if (tid % 32 == 0 && rows) atomicAdd(counter + 1, rows);
   }
 }
 
-template <int P>
+// The level form's hub rows [row0, row0 + n_hub), once every chunk's
+// `atomicOr` is in: a warp a row, lane L piece L.
+__global__ void __launch_bounds__(kThreads)
+level_hubs_kernel(uint4* __restrict__ out, uint4* __restrict__ visited,
+                  int g, int64_t row0, int64_t n_hub,
+                  unsigned* __restrict__ counter) {
+  const int lane = threadIdx.x % 32;
+  const int64_t h = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (h >= n_hub) return;          // a whole warp
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int64_t at = (row0 + h) * g + lane;
+  const bool act = lane < g;
+  const uint4 r = act ? __ldcg(out + at) : zero;
+  unsigned rows = 0;
+  level_store(out, visited, at, r, act, 0xffffffffu, lane == 0, rows);
+  if (rows) atomicAdd(counter + 1, 1u);
+}
+
+template <int P, bool kLevel>
 cudaError_t launch(const uint4* table, int g, const int32_t* slot_src,
                    const int64_t* bins, int n_bins, const int32_t* hub_owner,
                    int64_t n_hub_chunks, int64_t w_max, int64_t hub_slot_off,
-                   int64_t hub_row_off, uint4* out, unsigned* counter,
-                   cudaStream_t s) {
+                   int64_t hub_row_off, uint4* out, uint4* visited,
+                   unsigned* counter, cudaStream_t s) {
   constexpr int kSubs = kThreads / P;
   Plan plan = {};
   plan.n_bins = n_bins;
@@ -255,7 +356,7 @@ cudaError_t launch(const uint4* table, int g, const int32_t* slot_src,
   }
   if (items >= (int64_t)UINT32_MAX) return cudaErrorInvalidValue;
   plan.n_items = (uint32_t)items;
-  auto kernel = edge_map_bor_kernel<P>;
+  auto kernel = edge_map_bor_kernel<P, kLevel>;
   static int resident = 0;
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -269,7 +370,56 @@ cudaError_t launch(const uint4* table, int g, const int32_t* slot_src,
   }
   const int64_t blocks = items < 1 ? 1 : items < resident ? items : resident;
   kernel<<<(unsigned)blocks, kThreads, 0, s>>>(table, g, slot_src, hub_owner,
-                                               out, counter, plan);
+                                               out, visited, counter, plan);
+  return cudaGetLastError();
+}
+
+// Both C entries: the checks, the memsets, the launch for the row width and,
+// in the level form (`visited` not null), the hub rows' launch.
+cudaError_t run(const void* table, int64_t n_rows, int row_bytes,
+                const void* slot_src, const int64_t* bins, int n_bins,
+                const void* hub_owner, int64_t n_hub_chunks, int64_t w_max,
+                int64_t hub_slot_off, int64_t hub_row_off, int64_t n_nodes,
+                void* visited, void* out, void* counter, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool level = visited != nullptr;
+  if (row_bytes < 16 || row_bytes > 512 || row_bytes % 16 != 0 ||
+      n_bins < 0 || n_bins > kMaxBins || hub_row_off < 0 ||
+      hub_row_off > n_nodes || n_nodes > n_rows || n_rows > 0x7fffffff ||
+      w_max < 1 || w_max > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(counter, 0,
+                                  (level ? 2 : 1) * sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  if (n_rows > hub_row_off) {
+    e = cudaMemsetAsync((char*)out + hub_row_off * row_bytes, 0,
+                        (size_t)(n_rows - hub_row_off) * row_bytes, s);
+    if (e != cudaSuccess) return e;
+  }
+  const int g = row_bytes / 16;
+  const uint4* t = (const uint4*)table;
+  const int32_t* src = (const int32_t*)slot_src;
+  const int32_t* own = (const int32_t*)hub_owner;
+  uint4* o = (uint4*)out;
+  uint4* vis = (uint4*)visited;
+  unsigned* c = (unsigned*)counter;
+#define GM_EDGE_MAP_LAUNCH(P)                                               \
+  (level ? launch<P, true>(t, g, src, bins, n_bins, own, n_hub_chunks, w_max, \
+                           hub_slot_off, hub_row_off, o, vis, c, s)           \
+         : launch<P, false>(t, g, src, bins, n_bins, own, n_hub_chunks,       \
+                            w_max, hub_slot_off, hub_row_off, o, vis, c, s))
+  e = g == 1    ? GM_EDGE_MAP_LAUNCH(1)
+      : g == 2  ? GM_EDGE_MAP_LAUNCH(2)
+      : g <= 4  ? GM_EDGE_MAP_LAUNCH(4)
+      : g <= 8  ? GM_EDGE_MAP_LAUNCH(8)
+      : g <= 16 ? GM_EDGE_MAP_LAUNCH(16)
+                : GM_EDGE_MAP_LAUNCH(32);
+#undef GM_EDGE_MAP_LAUNCH
+  const int64_t n_hub = n_nodes - hub_row_off;
+  if (e != cudaSuccess || !level || n_hub == 0) return e;
+  constexpr int kWarps = kThreads / 32;
+  level_hubs_kernel<<<(unsigned)((n_hub + kWarps - 1) / kWarps), kThreads, 0,
+                      s>>>(o, vis, g, hub_row_off, n_hub, c);
   return cudaGetLastError();
 }
 
@@ -290,35 +440,29 @@ int gm_edge_map_bor(const void* table, int64_t n_rows, int row_bytes,
                     const void* hub_owner, int64_t n_hub_chunks,
                     int64_t w_max, int64_t hub_slot_off, int64_t hub_row_off,
                     void* out, void* counter, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (row_bytes < 16 || row_bytes > 512 || row_bytes % 16 != 0 ||
-      n_bins < 0 || n_bins > kMaxBins || hub_row_off < 0 ||
-      hub_row_off > n_rows || n_rows > 0x7fffffff || w_max < 1 ||
-      w_max > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return (int)e;
-  if (n_rows > hub_row_off) {
-    e = cudaMemsetAsync((char*)out + hub_row_off * row_bytes, 0,
-                        (size_t)(n_rows - hub_row_off) * row_bytes, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int g = row_bytes / 16;
-  const uint4* t = (const uint4*)table;
-  const int32_t* src = (const int32_t*)slot_src;
-  const int32_t* own = (const int32_t*)hub_owner;
-  uint4* o = (uint4*)out;
-  unsigned* c = (unsigned*)counter;
-#define GM_EDGE_MAP_LAUNCH(P)                                              \
-  launch<P>(t, g, src, bins, n_bins, own, n_hub_chunks, w_max, hub_slot_off, \
-            hub_row_off, o, c, s)
-  if (g == 1) return (int)GM_EDGE_MAP_LAUNCH(1);
-  if (g == 2) return (int)GM_EDGE_MAP_LAUNCH(2);
-  if (g <= 4) return (int)GM_EDGE_MAP_LAUNCH(4);
-  if (g <= 8) return (int)GM_EDGE_MAP_LAUNCH(8);
-  if (g <= 16) return (int)GM_EDGE_MAP_LAUNCH(16);
-  return (int)GM_EDGE_MAP_LAUNCH(32);
-#undef GM_EDGE_MAP_LAUNCH
+  return (int)run(table, n_rows, row_bytes, slot_src, bins, n_bins,
+                  hub_owner, n_hub_chunks, w_max, hub_slot_off, hub_row_off,
+                  n_rows, nullptr, out, counter, stream);
+}
+
+// A level of the bit BFS: with `table` the frontier, as gm_edge_map_bor,
+// then on the node rows [0, n_nodes) (hubs from hub_row_off on)
+// out = OR & ~visited and visited |= out, in place (`visited`: n_rows rows
+// of row_bytes, 16-byte aligned, sharing no memory with `table`; rows from
+// n_nodes on are neither read nor written), and counter[1] = the node rows
+// of `out` with a bit set.  `counter`: two words.  Two memsets and one
+// launch, and one more for the hub rows where there are any.
+int gm_edge_map_bor_level(const void* table, int64_t n_rows, int row_bytes,
+                          const void* slot_src, const int64_t* bins,
+                          int n_bins, const void* hub_owner,
+                          int64_t n_hub_chunks, int64_t w_max,
+                          int64_t hub_slot_off, int64_t hub_row_off,
+                          int64_t n_nodes, void* visited, void* out,
+                          void* counter, void* stream) {
+  if (visited == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(table, n_rows, row_bytes, slot_src, bins, n_bins,
+                  hub_owner, n_hub_chunks, w_max, hub_slot_off, hub_row_off,
+                  n_nodes, visited, out, counter, stream);
 }
 
 }  // extern "C"

@@ -25,10 +25,16 @@ Bit planes: ``plane_bits`` instances per lane, instance ``b`` at lane
 ``b // plane_bits``, bit ``b % plane_bits``.  The planes are uint8, int16
 or int32: the same bits as JAX's uint8/uint16/uint32 (CPU torch has no
 ``>>`` or ``amax`` for uint16/uint32).  Compare them with ``.view`` as the
-unsigned type.
+unsigned type.  Inside a call a row has zero lanes past the last
+instance's up to a multiple of 16 bytes, at least 16 (the rows the
+edge-map kernels take, so that every batch of up to 4,096 instances runs
+on them); the result's planes have ``ceil(B / plane_bits)`` lanes, as the
+JAX package's.
 
-On the card a bit BFS level's edge map is one launch of
-``kernels.edge_map_bor`` (``binned.takes_bor_kernel``), and its final
+On the card a bit BFS level is one launch of
+``kernels.edge_map_bor_level`` (``binned.edge_map_level``: the edge map
+with the frontier's update and the count of its rows in its row writes;
+the paged form's edge map is ``kernels.edge_map_bor``), and its final
 counts one of ``kernels.bit_popstats``.
 
 Under a profiler a ``multi_source_bfs_bits`` call opens ``gm:setup``
@@ -320,8 +326,25 @@ def _bit_popstats(visited: torch.Tensor, deg_rows: torch.Tensor, lanes: int,
     return _kernels.bit_popstats_ref(visited, deg_rows, _POP_CH)
 
 
+def _plane_lanes(B: int, plane_bits: int) -> int:
+    """Lanes of a call's planes for ``B`` instances: ``ceil(B /
+    plane_bits)`` up to a multiple of 16 bytes, at least 16."""
+    per_16 = 128 // plane_bits
+    return max(1, -(-B // (plane_bits * per_16))) * per_16
+
+
+def _unpadded(visited: torch.Tensor, B: int, plane_bits: int
+              ) -> torch.Tensor:
+    """``visited`` without the lanes past instance ``B - 1``'s."""
+    lanes = -(-B // plane_bits)
+    if visited.shape[1] == lanes:
+        return visited
+    return visited[:, :lanes].contiguous()
+
+
 def _bits_seed(bp: BinnedPull, roots, plane_bits: int) -> torch.Tensor:
-    """[n_rows, lanes] plane with instance b's bit set in its root's row.
+    """[n_rows, _plane_lanes(B, plane_bits)] plane with instance b's bit
+    set in its root's row, the pad lanes 0.
 
     A scatter-add is exact: every instance owns a distinct bit (a
     scatter-max would keep only the highest bit where two roots share a
@@ -332,7 +355,7 @@ def _bits_seed(bp: BinnedPull, roots, plane_bits: int) -> torch.Tensor:
     dev = bp.device
     root_rows = bp.inv_perm.index_select(0, _roots(roots, dev)).long()
     B = root_rows.shape[0]
-    lanes = (B + plane_bits - 1) // plane_bits
+    lanes = _plane_lanes(B, plane_bits)
     b_ix = torch.arange(B, device=dev)
     bits0 = torch.zeros((bp.n_rows, lanes), dtype=dt, device=dev)
     one = torch.ones(B, dtype=dt, device=dev)
@@ -347,15 +370,16 @@ def bits_schedule(g: Graph, num_roots: int, plane_bits: int) -> BitSchedule:
     binned pull over in-neighbours (built on the host), the out-degrees in
     binned order (0 in pad rows) and the ``slot_chunk`` that keeps a gather
     of the planes' rows within ``binned.GATHER_BUDGET`` where the edge map
-    takes the plain path (the CPU; on the card the kernel
-    ``kernels.edge_map_bor`` gathers nothing into memory): eager PyTorch
+    takes the plain path (the CPU; on the card the kernels
+    ``kernels.edge_map_bor_level`` and ``kernels.edge_map_bor`` gather
+    nothing into memory): eager PyTorch
     writes each gathered bin before reducing it (the results do not
     change)."""
     bp = _binned.binned_in(g).to(g.device, with_edges=False)
     out_deg = g.out_degree().cpu().numpy()
     deg_rows = np.zeros(bp.n_rows, np.int32)
     deg_rows[:bp.n_nodes] = out_deg[:bp.n_nodes][bp.perm.cpu().numpy()]
-    lanes = (num_roots + plane_bits - 1) // plane_bits
+    lanes = _plane_lanes(num_roots, plane_bits)
     chunk = _binned.slot_chunk_for(lanes * plane_bits // 8)
     return BitSchedule(bp, torch.from_numpy(deg_rows).to(g.device), chunk)
 
@@ -377,22 +401,26 @@ def multi_source_bfs_bits(bp: BinnedPull, roots, deg_rows: torch.Tensor,
         max_iter = bp.n_nodes + 1
     B = len(roots)
     with span("gm:setup"):
-        bits0 = _bits_seed(bp, roots, plane_bits)
-        zero = torch.zeros((), dtype=bits0.dtype, device=bits0.device)
-        node_rows = bp.node_rows_mask()
+        # two planes: a level gathers the frontier and rewrites visited (a
+        # second seed writes 2.48 GB at the cell's shape, a clone 4.96)
+        visited, frontier = (_bits_seed(bp, roots, plane_bits)
+                             for _ in range(2))
 
     def step(state):
-        visited, frontier, depth = state
-        hit = _binned.edge_map(bp, frontier, "bor", slot_chunk=slot_chunk)
-        newly = torch.where(node_rows, hit & ~visited, zero)
-        return visited | newly, newly, depth + 1
+        visited, frontier, depth, _ = state
+        nxt, rows = _binned.edge_map_level(bp, frontier, visited,
+                                           slot_chunk=slot_chunk)
+        return visited, nxt, depth + 1, rows
 
-    (visited, _, _), stats = while_loop(step, lambda st: (st[1] != 0).any(),
-                                        (bits0, bits0, 0), max_iter)
+    # the predicate is the level's count of frontier rows: one 4-byte read
+    (visited, _, _, _), stats = while_loop(step, lambda st: st[3],
+                                           (visited, frontier, 0, B > 0),
+                                           max_iter)
     with span("gm:popstats"):
         cnt, trav = _bit_popstats(visited, deg_rows, visited.shape[1],
                                   bits=plane_bits)
-    return BitBfsResult(visited=visited, levels_run=stats.iterations,
+    return BitBfsResult(visited=_unpadded(visited, B, plane_bits),
+                        levels_run=stats.iterations,
                         reached=cnt[:B], traversed=trav[:B])
 
 
@@ -423,5 +451,6 @@ def multi_source_bfs_bits_paged(bp: BinnedPull, roots,
             break
     cnt, trav = _bit_popstats(visited, deg_rows, visited.shape[1],
                               bits=plane_bits)
-    return BitBfsResult(visited=visited, levels_run=depth,
+    return BitBfsResult(visited=_unpadded(visited, B, plane_bits),
+                        levels_run=depth,
                         reached=cnt[:B], traversed=trav[:B])

@@ -130,6 +130,10 @@ def _load() -> ctypes.CDLL:
     cdll.gm_edge_map_bor.restype = cint
     cdll.gm_edge_map_bor.argtypes = [vp, i64, cint, vp, vp, cint, vp, i64,
                                      i64, i64, i64, vp, vp, vp]
+    cdll.gm_edge_map_bor_level.restype = cint
+    cdll.gm_edge_map_bor_level.argtypes = [vp, i64, cint, vp, vp, cint, vp,
+                                           i64, i64, i64, i64, i64, vp, vp,
+                                           vp, vp]
     cdll.gm_bit_popstats.restype = cint
     cdll.gm_bit_popstats.argtypes = [vp, i64, cint, vp, vp, vp]
     return cdll

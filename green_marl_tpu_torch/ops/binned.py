@@ -19,13 +19,15 @@ The schedule is built on the host and moved to a device with
 has no Pallas kernel.  Here the bitwise OR of bit planes on the card is
 one launch of a hand-written kernel (``kernels.edge_map_bor``), which
 reads each slot's row once and writes each output row once, where the
-table can take it (:func:`takes_bor_kernel`).  Every other call is plain
+table can take it (:func:`takes_bor_kernel`); :func:`edge_map_level` is a
+whole bit-BFS level, the frontier's update taken into that kernel's row
+writes (``kernels.edge_map_bor_level``).  Every other call is plain
 PyTorch: unlike XLA, eager PyTorch writes every gathered bin before
 reducing it; ``slot_chunk`` caps that transient at ``slot_chunk`` rows
 with the same results.
 
-Each ``edge_map`` call is a ``gm:edge_map`` span under a profiler
-(``utils/timing.py`` ``span``) and counts its shapes in
+Each ``edge_map`` and ``edge_map_level`` call is a ``gm:edge_map`` span
+under a profiler (``utils/timing.py`` ``span``) and counts its shapes in
 :func:`edge_map_counts`: the calls, the slots it gathers, the output rows,
 and the bytes of the table's rows (``n_rows`` times a row's bytes), which
 give the least bytes an edge map moves.
@@ -417,6 +419,36 @@ def edge_map(bp: BinnedPull, table: torch.Tensor, op: str = "sum",
                             slot_vals is not None):
             return _kernels.edge_map_bor(bp, table)
         return _edge_map(bp, table, op, slot_vals, combine, slot_chunk)
+
+
+def edge_map_level(bp: BinnedPull, frontier: torch.Tensor,
+                   visited: torch.Tensor,
+                   slot_chunk: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level of the bit BFS: ``(next_frontier, rows)``, where
+    ``next_frontier`` is ``edge_map(bp, frontier, "bor") & ~visited`` on
+    the node rows (0 on the pad and identity rows), ``visited`` is ORed
+    with it in place, and ``rows`` (a 0-d int32 tensor) counts its node
+    rows that have a bit set.
+
+    ``frontier`` and ``visited``: [n_rows, B] integer planes of one dtype,
+    in separate storage.  A ``gm:edge_map`` span and one count of
+    :func:`edge_map_counts`, as :func:`edge_map`.  On the card one launch
+    of ``kernels.edge_map_bor_level`` does the whole level, and a plane its
+    rule refuses raises there; on the CPU its plain version,
+    ``slot_chunk`` slots gathered at a time."""
+    if frontier.dim() != 2 or frontier.shape[0] != bp.n_rows:
+        raise ValueError(f"frontier must be [n_rows={bp.n_rows}, B], got "
+                         f"{tuple(frontier.shape)}")
+    if frontier.dtype.is_floating_point:
+        raise TypeError("a bit-BFS level needs integer planes")
+    row_bytes = frontier.shape[1] * frontier.element_size()
+    _count(int(bp.slot_src.shape[0]), bp.n_rows, bp.n_rows * row_bytes)
+    with span("gm:edge_map"):
+        if frontier.device.type == "cuda":
+            return _kernels.edge_map_bor_level(bp, frontier, visited)
+        return _kernels.edge_map_bor_level_ref(bp, frontier, visited,
+                                               slot_chunk)
 
 
 def takes_bor_kernel(op: str, device_type: str, dtype: torch.dtype,

@@ -18,6 +18,10 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
   ``sweeps * sum(table[idx, 0])`` mod 2^32 (``csrc/gather_probe.cu``);
 * ``edge_map_bor`` -- the binned edge map's bitwise OR of integer bit
   planes (``ops/binned.py`` ``edge_map``, op ``"bor"``; ``csrc/edge_map.cu``);
+* ``edge_map_bor_level`` -- a bit-BFS level: that edge map with the
+  frontier's update (``hit & ~visited``, ORed into ``visited``) and the
+  count of its nonzero rows taken into its row writes (``ops/binned.py``
+  ``edge_map_level``; ``csrc/edge_map.cu``);
 * ``bit_popstats`` -- the bit BFS's per-instance reached and traversed
   counts from its final plane (``models/batched.py`` ``_bit_popstats``;
   ``csrc/popstats.cu``).
@@ -723,6 +727,34 @@ def edge_map_bor_ref(bp, table: torch.Tensor,
     return _edge_map(bp, table, "bor", None, None, slot_chunk)
 
 
+def _bor_table(bp, table: torch.Tensor, name: str = "table") -> int:
+    """The checks of :func:`edge_map_bor` and :func:`edge_map_bor_level` on
+    a plane; returns its row's bytes."""
+    if table.dim() != 2 or table.shape[0] != bp.n_rows:
+        raise ValueError(f"{name} must be [n_rows={bp.n_rows}, B], got "
+                         f"{tuple(table.shape)}")
+    row_bytes = table.shape[1] * table.element_size()
+    why = edge_map_bor_refusal(table.dtype, table.is_contiguous(), row_bytes)
+    if why:
+        raise ValueError(f"{name}: {why}")
+    if bp.slot_src.device != table.device:
+        raise ValueError(f"schedule on {bp.slot_src.device}, {name} on "
+                         f"{table.device}")
+    return row_bytes
+
+
+def _bor_schedule(bp) -> tuple:
+    """The schedule's C arguments after the slot ids: the bins' (width,
+    count, slot_off, row_off) rows as int64, their count, the hub owners,
+    the hub chunks, ``w_max``, the hub chunks' first slot and the hubs'
+    first row."""
+    flat = [v for row in bp.bins for v in row]
+    bins = (ctypes.c_int64 * max(1, len(flat)))(*flat)
+    hub_slot_off = bp.slot_src.numel() - bp.n_hub_chunks * bp.w_max
+    return (bins, len(bp.bins), bp.hub_owner.data_ptr(), bp.n_hub_chunks,
+            bp.w_max, hub_slot_off, bp.hub_row_off)
+
+
 def edge_map_bor(bp, table: torch.Tensor) -> torch.Tensor:
     """The bitwise-OR edge map of ``binned.edge_map(bp, table, "bor")``.
 
@@ -739,16 +771,7 @@ def edge_map_bor(bp, table: torch.Tensor) -> torch.Tensor:
     ``build_binned`` makes them: the kernel reads the table there
     unchecked.
     """
-    if table.dim() != 2 or table.shape[0] != bp.n_rows:
-        raise ValueError(f"table must be [n_rows={bp.n_rows}, B], got "
-                         f"{tuple(table.shape)}")
-    row_bytes = table.shape[1] * table.element_size()
-    why = edge_map_bor_refusal(table.dtype, table.is_contiguous(), row_bytes)
-    if why:
-        raise ValueError(f"table: {why}")
-    if bp.slot_src.device != table.device:
-        raise ValueError(f"schedule on {bp.slot_src.device}, table on "
-                         f"{table.device}")
+    row_bytes = _bor_table(bp, table)
     if table.device.type == "cpu":
         return edge_map_bor_ref(bp, table)
     stream = _cuda_stream(table)
@@ -756,16 +779,10 @@ def edge_map_bor(bp, table: torch.Tensor) -> torch.Tensor:
         table = table.clone()
     out = torch.empty_like(table)
     counter = torch.empty(1, dtype=torch.int32, device=table.device)
-    hub_slot_off = bp.slot_src.numel() - bp.n_hub_chunks * bp.w_max
-    # the bins' (width, count, slot_off, row_off) rows, as int64
-    flat = [v for row in bp.bins for v in row]
-    bins = (ctypes.c_int64 * max(1, len(flat)))(*flat)
     with torch.cuda.device(table.device):
         err = _build.lib().gm_edge_map_bor(
             table.data_ptr(), bp.n_rows, row_bytes, bp.slot_src.data_ptr(),
-            bins, len(bp.bins), bp.hub_owner.data_ptr(),
-            bp.n_hub_chunks, bp.w_max, hub_slot_off, bp.hub_row_off,
-            out.data_ptr(), counter.data_ptr(), stream)
+            *_bor_schedule(bp), out.data_ptr(), counter.data_ptr(), stream)
     if err:
         raise RuntimeError(f"gm_edge_map_bor: CUDA error {err}")
     _count("edge_map_bor")
@@ -773,6 +790,69 @@ def edge_map_bor(bp, table: torch.Tensor) -> torch.Tensor:
 
 
 edge_map_bor.launches = 0
+
+
+def edge_map_bor_level_ref(bp, frontier: torch.Tensor,
+                           visited: torch.Tensor,
+                           slot_chunk: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`edge_map_bor_level`: the plain edge map,
+    then ``hit & ~visited`` on the node rows (0 on the others), ORed into
+    ``visited`` in place, and the count of its nonzero node rows."""
+    hit = edge_map_bor_ref(bp, frontier, slot_chunk)
+    hit &= ~visited
+    hit[bp.n_nodes:] = 0
+    visited |= hit
+    rows = (hit[:bp.n_nodes] != 0).any(1).sum().to(torch.int32)
+    return hit, rows
+
+
+def edge_map_bor_level(bp, frontier: torch.Tensor, visited: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level of the bit BFS: ``(next_frontier, rows)``, where
+    ``next_frontier`` is ``edge_map_bor(bp, frontier) & ~visited`` on the
+    node rows and 0 on the pad and identity rows, ``visited`` is ORed with
+    it in place, and ``rows`` (a 0-d int32 tensor on ``frontier``'s
+    device) counts its node rows that have a bit set.
+
+    ``frontier`` and ``visited``: [n_rows, B] planes of one dtype that
+    :func:`edge_map_bor_refusal` admits; they must not share storage (the
+    kernel gathers from the one while it rewrites the other).  On the card
+    both must start on a 16-byte boundary, as the planes of
+    ``models/batched.py`` do; one launch (``csrc/edge_map.cu``, its level
+    form) and one more over the hub rows where the schedule has hubs: the
+    edge map, with the update taken into its row writes; ``rows`` is the
+    count the loop's predicate reads.  The bits are the plain version's.
+    """
+    row_bytes = _bor_table(bp, frontier, "frontier")
+    _bor_table(bp, visited, "visited")
+    if visited.dtype != frontier.dtype or visited.shape != frontier.shape:
+        raise ValueError(f"visited is {visited.dtype} "
+                         f"{tuple(visited.shape)}, frontier "
+                         f"{frontier.dtype} {tuple(frontier.shape)}")
+    if (visited.untyped_storage().data_ptr()
+            == frontier.untyped_storage().data_ptr()):
+        raise ValueError("visited shares storage with frontier")
+    if frontier.device.type == "cpu":
+        return edge_map_bor_level_ref(bp, frontier, visited)
+    for name, t in (("frontier", frontier), ("visited", visited)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
+    stream = _cuda_stream(frontier)
+    out = torch.empty_like(frontier)
+    counter = torch.empty(2, dtype=torch.int32, device=frontier.device)
+    with torch.cuda.device(frontier.device):
+        err = _build.lib().gm_edge_map_bor_level(
+            frontier.data_ptr(), bp.n_rows, row_bytes,
+            bp.slot_src.data_ptr(), *_bor_schedule(bp), bp.n_nodes,
+            visited.data_ptr(), out.data_ptr(), counter.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"gm_edge_map_bor_level: CUDA error {err}")
+    _count("edge_map_bor_level")
+    return out, counter[1]
+
+
+edge_map_bor_level.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -872,7 +952,7 @@ bit_popstats.launches = 0
 
 _WRAPPERS = (segment_reduce_sorted, plain_cumsum, segmented_scan,
              take_along_blocks, row_gather_checksum, edge_map_bor,
-             bit_popstats)
+             edge_map_bor_level, bit_popstats)
 _LANE_WRAPPERS = (segment_reduce_sorted, plain_cumsum)
 
 

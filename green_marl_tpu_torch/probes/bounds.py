@@ -80,6 +80,21 @@ def edge_map_bor(slots: int, n_rows: int, row_bytes: int) -> Tuple[int, int]:
     return table, table + (slots - n_rows) * row_bytes
 
 
+def edge_map_bor_level(slots: int, n_rows: int, row_bytes: int,
+                       visited_read: int,
+                       visited_written: int) -> Tuple[int, int]:
+    """``edge_map_bor_level``, one call (a bit-BFS level): ``(table once,
+    gathered rows)`` of :func:`edge_map_bor`, each with the bytes of
+    ``visited`` that the level needs besides: ``visited_read`` where the
+    OR has a bit (elsewhere the next frontier is 0 whatever ``visited``
+    holds) and ``visited_written`` where the next frontier has one, as the
+    level's OR and next frontier count them (``scripts/probe_edge_map.py``:
+    the 16-byte pieces, a lane's, with a bit)."""
+    table, gathered = edge_map_bor(slots, n_rows, row_bytes)
+    visited = visited_read + visited_written
+    return table + visited, gathered + visited
+
+
 def bit_popstats(n_rows: int, lanes: int, plane_bytes: int) -> int:
     """``bit_popstats``: the [n_rows, lanes] plane of ``plane_bytes``-byte
     lanes and the 4-byte degrees once, and the two int64 outputs of

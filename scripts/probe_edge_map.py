@@ -14,9 +14,19 @@ gather-and-fold path (``kernels.edge_map_bor_ref``) bit for bit and times
 both (``utils.timing.kernel_ms``).  Two bounds a level
 (``probes/bounds.py`` ``edge_map_bor``): the table once (the slot ids, the
 table and the output once each: what ``edge_map_roofline_pct`` counts) and
-the gathered bytes (each slot's row read once besides).  Then the hub
-chunks alone and the bins alone at the densest level, and the kernels'
-registers (``probes/segment.py`` ``ptxas``).  On the batch's final plane,
+the gathered bytes (each slot's row read once besides).  At each level
+too the whole level in its two forms: the level kernel
+(``kernels.edge_map_bor_level``: the edge map with ``hit & ~visited``, the
+OR into ``visited`` and the count of the new frontier's rows in its row
+writes; its hub rows updated by a second, small launch) held bit for bit
+against the steps the model ran before it (the edge map, ``~``, ``&``,
+``where``, ``|``, and the predicate's ``!= 0`` and ``any`` read to the
+host), each timed on a fresh copy of ``visited``, with the level's own
+bounds (``probes/bounds.py`` ``edge_map_bor_level``: the edge map's, and
+the 16-byte pieces of ``visited`` that the level reads, where the OR has a
+bit, and writes, where the next frontier has one).  Then the hub chunks alone
+and the bins alone at the densest level, and the kernels' registers
+(``probes/segment.py`` ``ptxas``).  On the batch's final plane,
 the popcount (``kernels.bit_popstats``, ``csrc/popstats.cu``) held against
 its plain version (``kernels.bit_popstats_ref``) bit for bit and timed
 beside it and its bound (``probes/bounds.py`` ``bit_popstats``), with the
@@ -33,8 +43,8 @@ Run from the root of a checkout::
 ``--root DIR`` takes the port's package from another checkout (``DIR``
 holds ``green_marl_tpu_torch/``), the graph still from this one's
 ``gmbench/``; ``--no-ref`` times the kernel alone (no plain path, no
-check).  Last, the device work of one profiled ``edge_map`` call and of one
-``_bit_popstats`` call.
+check).  Last, the device work of one profiled ``edge_map`` call, of one
+``edge_map_level`` call and of one ``_bit_popstats`` call.
 """
 
 import argparse
@@ -83,7 +93,7 @@ def probe(args, torch, last):
     from green_marl_tpu_torch.ops import kernels as K
     from green_marl_tpu_torch.probes import bounds
     from green_marl_tpu_torch.probes.segment import ptxas
-    from green_marl_tpu_torch.utils.timing import card, kernel_ms
+    from green_marl_tpu_torch.utils.timing import card, kernel_ms, timed
 
     dev = torch.device("cuda")
     smi = card(dev)
@@ -118,14 +128,40 @@ def probe(args, torch, last):
            hubs=bp.n_hub, hub_chunks=bp.n_hub_chunks,
            table_bound_ms=bounds.bound_ms(table_bytes),
            gathered_bound_ms=bounds.bound_ms(gathered_bytes),
-           table_bytes=table_bytes, gathered_bytes=gathered_bytes)
+           table_bytes=table_bytes, gathered_bytes=gathered_bytes,
+           hub_epilogue="a second launch, a warp a hub row")
 
     visited = batched._bits_seed(bp, roots, pb)
-    frontier = visited
+    frontier = visited.clone()
     zero = torch.zeros((), dtype=visited.dtype, device=dev)
     node_rows = bp.node_rows_mask()
-    levels, densest = [], None
-    while bool((frontier != 0).any()):
+
+    def steps(vis):
+        """The level as the model ran it before the level kernel; the
+        predicate read to the host."""
+        hit = K.edge_map_bor(bp, frontier)
+        newly = torch.where(node_rows, hit & ~vis, zero)
+        return newly, vis | newly, bool((newly != 0).any())
+
+    def pieces(t):
+        """Bytes of the node rows' 16-byte pieces (a lane's) of ``t`` that
+        have a bit: where the level kernel reads ``visited`` (``t``: the
+        OR) or writes it (``t``: the next frontier)."""
+        raw = t[:bp.n_nodes].contiguous().view(torch.uint8)
+        return 16 * int((raw.reshape(-1, 16) != 0).any(1).sum())
+
+    def level_ms(fn):
+        """The median device ms of ``fn(v)`` over GROUPS calls, each on a
+        fresh copy ``v`` of ``visited`` (the level rewrites it)."""
+        ms = []
+        for _ in range(GROUPS + 1):            # the first: a warm-up
+            vis = visited.clone()
+            ms.append(timed(lambda: fn(vis), dev)[2])
+            del vis
+        return sorted(ms[1:])[GROUPS // 2]
+
+    levels, densest, rows = [], None, len(roots)
+    while rows:
         active = float((frontier != 0).any(1).float().mean())
         hit = K.edge_map_bor(bp, frontier)
         rec = dict(level=len(levels), active_rows=active)
@@ -140,14 +176,34 @@ def probe(args, torch, last):
             rec["ref_ms"] = kernel_ms(
                 lambda: K.edge_map_bor_ref(bp, frontier, slot_chunk=chunk),
                 1, GROUPS)[0]
+        read = pieces(hit)
+        del hit
+        want, want_vis, _ = steps(visited)
+        vis = visited.clone()
+        nxt, rows = K.edge_map_bor_level(bp, frontier, vis)
+        rows = int(rows)
+        if not (torch.equal(nxt, want) and torch.equal(vis, want_vis)
+                and rows == int((want != 0).any(1).sum())):
+            raise SystemExit(f"probe_edge_map: level {len(levels)}: the "
+                             "level kernel differs from the steps")
+        del want, want_vis
+        rec["level_ms"] = level_ms(
+            lambda v: int(K.edge_map_bor_level(bp, frontier, v)[1]))
+        rec["steps_ms"] = level_ms(steps)
+        rec["new_rows"] = rows
+        rec["visited_read_bytes"] = read
+        rec["visited_written_bytes"] = pieces(nxt)
+        rec["level_table_bound_ms"], rec["level_gathered_bound_ms"] = (
+            bounds.bound_ms(b) for b in bounds.edge_map_bor_level(
+                slots, bp.n_rows, size // 8, read,
+                rec["visited_written_bytes"]))
         record(what="level", **rec)
         levels.append(rec)
         if densest is None or active > densest[0]:
-            densest = (active, frontier.clone())
-        newly = torch.where(node_rows, hit & ~visited, zero)
-        visited = visited | newly
-        frontier = newly
-    del frontier, hit
+            densest = (active, frontier.clone(), visited.clone())
+        visited, frontier = vis, nxt
+        del vis, nxt
+    del frontier
     popstats(args, torch, K, bounds, kernel_ms, record, visited, deg_rows)
     parts = {"hub chunks": dataclasses.replace(bp, bins=()),
              "bins": dataclasses.replace(bp, n_hub_chunks=0,
@@ -166,6 +222,14 @@ def probe(args, torch, last):
            ops={e.key: e.device_time_total for e in prof.key_averages()
                 if e.device_time_total > 0})
     with torch.profiler.profile(activities=acts) as prof:
+        binned.edge_map_level(bp, densest[1], densest[2].clone(),
+                              slot_chunk=chunk)
+        torch.cuda.synchronize()
+    record(what="device work of one edge_map_level call (the gm:edge_map "
+                "span of a level)",
+           ops={e.key: e.device_time_total for e in prof.key_averages()
+                if e.device_time_total > 0})
+    with torch.profiler.profile(activities=acts) as prof:
         batched._bit_popstats(visited, deg_rows, visited.shape[1], pb)
         torch.cuda.synchronize()
     record(what="device work of one _bit_popstats call (the gm:popstats "
@@ -173,11 +237,20 @@ def probe(args, torch, last):
            ops={e.key: e.device_time_total for e in prof.key_averages()
                 if e.device_time_total > 0})
     total = sum(r["ms"] for r in levels)
+    level_total = sum(r["level_ms"] for r in levels)
     summary = dict(what="call", levels=len(levels), ms=total,
                    table_bound_share=len(levels)
                    * bounds.bound_ms(table_bytes) / total,
                    gathered_bound_share=len(levels)
-                   * bounds.bound_ms(gathered_bytes) / total)
+                   * bounds.bound_ms(gathered_bytes) / total,
+                   level_ms=level_total,
+                   steps_ms=sum(r["steps_ms"] for r in levels),
+                   level_table_bound_share=sum(
+                       r["level_table_bound_ms"] for r in levels)
+                   / level_total,
+                   level_gathered_bound_share=sum(
+                       r["level_gathered_bound_ms"] for r in levels)
+                   / level_total)
     if not args.no_ref:
         summary["ref_ms"] = sum(r["ref_ms"] for r in levels)
     record(**summary)

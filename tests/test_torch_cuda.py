@@ -184,7 +184,8 @@ def test_launch_counts_and_checks(dev):
                                  "plain_cumsum": 1, "segmented_scan": 0,
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0,
-                                 "edge_map_bor": 0, "bit_popstats": 0}
+                                 "edge_map_bor": 0,
+                                 "edge_map_bor_level": 0, "bit_popstats": 0}
     with pytest.raises(TypeError):
         K.plain_cumsum(x.long())
     with pytest.raises(ValueError):
@@ -1839,12 +1840,118 @@ def test_edge_map_bor_routes(dev):
     assert K.launch_counts()["edge_map_bor"] == 1
 
 
-@pytest.mark.parametrize("plane_bits,B", [(8, 1024), (32, 4096)])
+def _level_case(bp, dtype, lanes, seed, dev):
+    """A sparse frontier (p = 1/16 a bit) and a denser ``visited`` (p =
+    1/4) on ``dev``, the latter with bits in its pad and identity rows that
+    a level must leave alone."""
+    frontier = _bor_planes(bp, dtype, lanes, seed, dev)
+    rng = np.random.default_rng(seed + 1)
+    raw = rng.integers(0, 256, (2, bp.n_rows, lanes * dtype.itemsize),
+                       dtype=np.uint8)
+    return frontier, torch.from_numpy(raw[0] & raw[1]).view(dtype).to(dev)
+
+
+def _level_equal(bp, frontier, visited, level=None):
+    """The level kernel (``level``: the call, by default the wrapper)
+    against its plain version on copies of ``visited``: the next frontier,
+    ``visited`` (its pad rows untouched) and the row count equal; returns
+    the count."""
+    want_vis = visited.clone()
+    want, want_rows = K.edge_map_bor_level_ref(bp, frontier, want_vis)
+    vis = visited.clone()
+    got, rows = (level or K.edge_map_bor_level)(bp, frontier, vis)
+    torch.cuda.synchronize()
+    assert got.dtype == frontier.dtype and torch.equal(got, want)
+    assert torch.equal(vis, want_vis)
+    assert torch.equal(vis[bp.n_nodes:], visited[bp.n_nodes:])
+    assert rows.dtype == torch.int32 and rows.dim() == 0
+    assert rows.device == frontier.device and int(rows) == int(want_rows)
+    return int(rows)
+
+
+@pytest.mark.parametrize("w_max", [64, 512, 4096])
+@pytest.mark.parametrize("plane_bits", [8, 16, 32])
+@pytest.mark.parametrize("B", [128, 1024, 4096])
+def test_edge_map_bor_level_kernel_matches_ref(dev, B, plane_bits, w_max):
+    """The level kernel equals its plain version bit for bit at the bit
+    BFS's row widths (16, 128, 512 bytes), with thousands of hub rows (w_max
+    64), a few (512) and none (4096): the next frontier, ``visited`` and
+    the count of nonzero node rows, on every launch, one launch a call; an
+    empty frontier gives zeros, no row and ``visited`` unchanged."""
+    from green_marl_tpu_torch.models.batched import PLANE_DTYPES
+    from green_marl_tpu_torch.ops import binned
+    bp = binned.binned_in(_bor_graph(), w_max=w_max).to(dev)
+    assert (bp.n_hub > 1000) == (w_max == 64)
+    assert (bp.n_hub_chunks > 0) == (w_max < 4096)
+    dtype = PLANE_DTYPES[plane_bits]
+    frontier, visited = _level_case(bp, dtype, B // plane_bits,
+                                     B + plane_bits + w_max, dev)
+    K.reset_launch_counts()
+    counts = [_level_equal(bp, frontier, visited) for _ in range(2)]
+    counts.append(_level_equal(
+        bp, frontier, visited,
+        lambda *a: binned.edge_map_level(*a, slot_chunk=None)))
+    assert K.launch_counts()["edge_map_bor_level"] == 3
+    assert K.launch_counts()["edge_map_bor"] == 0
+    assert len(set(counts)) == 1 and 0 < counts[0] < bp.n_nodes
+    assert _level_equal(bp, torch.zeros_like(frontier), visited) == 0
+
+
+@pytest.mark.parametrize("dtype,lanes", [
+    (torch.int32, 8), (torch.int32, 12), (torch.uint8, 64),
+    (torch.int16, 128), (torch.uint8, 16), (torch.int16, 192)])
+def test_edge_map_bor_level_kernel_row_widths(dev, dtype, lanes):
+    """Rows of 32, 48, 64, 256, 16 and 384 bytes (subgroups of 2, 4 with 3
+    reading, 4, 16, 1 and 32 with 24 reading lanes a row), with hubs: the
+    level kernel equals its plain version."""
+    from green_marl_tpu_torch.ops import binned
+    bp = binned.binned_in(_bor_graph(), w_max=512).to(dev)
+    frontier, visited = _level_case(bp, dtype, lanes, lanes, dev)
+    assert _level_equal(bp, frontier, visited) > 0
+
+
+def test_edge_map_bor_level_routes(dev):
+    """Planes off a 16-byte boundary, planes in one storage and planes the
+    rule refuses (8-byte rows) raise on the card, in the wrapper and in
+    ``binned.edge_map_level``, and launch nothing; aligned planes launch
+    once."""
+    from green_marl_tpu_torch.ops import binned
+    bp = binned.binned_in(_bor_graph(), w_max=512).to(dev)
+    frontier, visited = _level_case(bp, torch.int32, 8, 9, dev)
+    flat = torch.zeros(2 * visited.numel() + 1, dtype=torch.int32,
+                       device=dev)
+    shifted_f = flat[1:1 + frontier.numel()].view(frontier.shape)
+    other = torch.zeros(visited.numel() + 1, dtype=torch.int32, device=dev)
+    shifted_v = other[1:].view(visited.shape)
+    shifted_f.copy_(frontier)
+    shifted_v.copy_(visited)
+    assert shifted_f.data_ptr() % 16 and shifted_v.data_ptr() % 16
+    K.reset_launch_counts()
+    narrow_f, narrow_v = (t[:, :2].contiguous() for t in (frontier, visited))
+    for level in (K.edge_map_bor_level, binned.edge_map_level):
+        for f, v in ((shifted_f, visited), (frontier, shifted_v),
+                     (shifted_f, shifted_v),            # off 16 bytes
+                     (frontier, frontier),
+                     (shifted_f, flat[-visited.numel():]
+                      .view(visited.shape)),            # one storage
+                     (narrow_f, narrow_v)):             # 8-byte rows
+            with pytest.raises(ValueError):
+                level(bp, f, v)
+    assert K.launch_counts()["edge_map_bor_level"] == 0
+    assert torch.equal(shifted_v, visited)
+    _level_equal(bp, frontier, visited)
+    assert K.launch_counts()["edge_map_bor_level"] == 1
+
+
+@pytest.mark.parametrize("plane_bits,B", [(8, 1024), (32, 4096), (8, 40),
+                                          (16, 200), (32, 100)])
 def test_bit_bfs_on_the_kernel(dev, plane_bits, B):
-    """``multi_source_bfs_bits`` on the card (one ``edge_map_bor`` launch a
-    level, one ``bit_popstats`` launch a call) equals the paged variant on
-    the card and the CPU path, in planes, levels, reached and
-    traversed."""
+    """``multi_source_bfs_bits`` on the card (one ``edge_map_bor_level``
+    launch a level and no ``edge_map_bor``, one ``bit_popstats`` launch a
+    call) equals the paged variant on the card (one ``edge_map_bor`` launch
+    a level) and the CPU path (no launch), in planes, levels, reached and
+    traversed; also where the planes' rows are padded to 16 bytes (B =
+    40, 200, 100: 5, 26 and 16 bytes of instances)."""
     from green_marl_tpu_torch.models import batched
     g = _bor_graph()
     rng = np.random.default_rng(B)
@@ -1860,12 +1967,15 @@ def test_bit_bfs_on_the_kernel(dev, plane_bits, B):
         res = fn(bp, roots, deg_rows, plane_bits=plane_bits,
                  slot_chunk=chunk)
         counts = K.launch_counts()
-        runs[name] = (res, counts["edge_map_bor"], counts["bit_popstats"])
+        runs[name] = (res, counts["edge_map_bor"],
+                      counts["edge_map_bor_level"], counts["bit_popstats"])
     cpu, card, paged = (runs[k][0] for k in ("cpu", "card", "paged"))
-    assert runs["cpu"][1:] == (0, 0) and cpu.levels_run > 2
-    assert runs["card"][1] == card.levels_run == cpu.levels_run
-    assert runs["paged"][1] == paged.levels_run == cpu.levels_run
-    assert runs["card"][2] == runs["paged"][2] == 1    # one popcount a call
+    assert runs["cpu"][1:] == (0, 0, 0) and cpu.levels_run > 2
+    assert runs["card"][1:3] == (0, card.levels_run)
+    assert card.levels_run == cpu.levels_run
+    assert runs["paged"][1:3] == (paged.levels_run, 0)
+    assert paged.levels_run == cpu.levels_run
+    assert runs["card"][3] == runs["paged"][3] == 1    # one popcount a call
     for res in (card, paged):
         assert torch.equal(res.visited.cpu(), cpu.visited)
         assert torch.equal(res.reached.cpu(), cpu.reached)

@@ -2,9 +2,11 @@
 "bor")``, ``kernels.edge_map_bor`` and its plain version
 ``kernels.edge_map_bor_ref`` against an OR over each node's in-neighbours
 computed with numpy from the graph's CSC; the rule by which ``edge_map``
-takes the kernel; the wrapper's checks.  The kernel itself runs on the card
-(``tests/test_torch_cuda.py``).  This file imports neither JAX nor
-``green_marl_tpu``."""
+takes the kernel; the wrapper's checks.  The bit-BFS level
+(``binned.edge_map_level``, ``kernels.edge_map_bor_level`` and its plain
+version) against the model's earlier steps, and its wrapper's checks.  The
+kernels themselves run on the card (``tests/test_torch_cuda.py``).  This
+file imports neither JAX nor ``green_marl_tpu``."""
 
 import numpy as np
 import pytest
@@ -129,3 +131,83 @@ def test_wrapper_checks(graph):
     with pytest.raises(ValueError):                 # not n_rows rows
         K.edge_map_bor(bp, table[1:])
     assert K.edge_map_bor(bp, table).shape == table.shape
+
+
+def _level_steps(bp, frontier, visited):
+    """The bit BFS level as ``multi_source_bfs_bits`` took it before the
+    level form: the edge map, ``hit & ~visited`` through ``where`` on the
+    node rows, ``visited | newly``; and the nonzero node rows of
+    ``newly``."""
+    hit = binned.edge_map(bp, frontier, "bor")
+    zero = torch.zeros((), dtype=hit.dtype)
+    newly = torch.where(bp.node_rows_mask(), hit & ~visited, zero)
+    return newly, visited | newly, int((newly != 0).any(1).sum())
+
+
+def _level_planes(bp, dtype, lanes, seed):
+    """A sparse frontier and a denser ``visited`` (each bit set with p =
+    1/4), whose pad and identity rows hold bits that a level must leave
+    alone."""
+    rng = np.random.default_rng(seed)
+    frontier = _planes(rng, bp, dtype, lanes)
+    raw = rng.integers(0, 256, (2, bp.n_rows, lanes * dtype.itemsize),
+                       dtype=np.uint8)
+    visited = torch.from_numpy(raw[0] & raw[1]).view(dtype)
+    return frontier, visited
+
+
+@pytest.mark.parametrize("w_max", [8, binned.W_MAX])
+@pytest.mark.parametrize("dtype,lanes", CASES)
+def test_level_equals_the_steps(graph, dtype, lanes, w_max):
+    """The level's plain version, ``binned.edge_map_level`` and the wrapper
+    (the plain version on the CPU) give the earlier steps' next frontier
+    and ``visited`` bit for bit, update ``visited`` in place, leave its pad
+    and identity rows as they were, and count the nonzero node rows."""
+    bp = binned.binned_in(graph, w_max=w_max)
+    frontier, visited = _level_planes(bp, dtype, lanes, lanes + w_max)
+    want, want_vis, want_rows = _level_steps(bp, frontier, visited)
+    assert 0 < want_rows < bp.n_nodes
+    assert bool((want_vis != visited).any())
+    row_bytes = lanes * frontier.element_size()
+    runs = [lambda f, v: K.edge_map_bor_level_ref(bp, f, v),
+            lambda f, v: K.edge_map_bor_level_ref(bp, f, v, slot_chunk=333),
+            lambda f, v: binned.edge_map_level(bp, f, v, slot_chunk=1000)]
+    if row_bytes % 16 == 0:
+        runs.append(lambda f, v: K.edge_map_bor_level(bp, f, v))
+    K.reset_launch_counts()
+    for run in runs:
+        vis = visited.clone()
+        ptr = vis.data_ptr()
+        got, rows = run(frontier.clone(), vis)
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert vis.data_ptr() == ptr and torch.equal(vis, want_vis)
+        assert torch.equal(vis[bp.n_nodes:], visited[bp.n_nodes:])
+        assert rows.dtype == torch.int32 and rows.dim() == 0
+        assert int(rows) == want_rows
+    assert K.launch_counts()["edge_map_bor_level"] == 0   # the CPU: plain
+
+
+def test_level_wrapper_checks(graph):
+    """The level wrapper refuses what ``edge_map_bor`` refuses, planes of
+    two dtypes or shapes, and a ``visited`` that shares storage with the
+    frontier, whichever view of it."""
+    bp = binned.binned_in(graph, w_max=8)
+    frontier = torch.zeros((bp.n_rows, 4), dtype=torch.int32)
+    visited = torch.zeros_like(frontier)
+    for f, v in ((frontier.float(), visited.float()),      # not int planes
+                 (frontier[:, :2].contiguous(),
+                  visited[:, :2].contiguous()),             # 8-byte rows
+                 (frontier, visited.view(torch.uint8)),     # two dtypes
+                 (frontier, visited[:, :2].contiguous()),   # two shapes
+                 (frontier[1:], visited[1:]),               # not n_rows rows
+                 (frontier, frontier),                      # one plane
+                 (frontier, frontier.view(torch.int16)
+                  .view(torch.int32)),                      # one storage
+                 ):
+        with pytest.raises(ValueError):
+            K.edge_map_bor_level(bp, f, v)
+    both = torch.zeros((2, bp.n_rows, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):                     # one storage
+        K.edge_map_bor_level(bp, both[0], both[1])
+    got, rows = K.edge_map_bor_level(bp, frontier, visited)
+    assert got.shape == frontier.shape and int(rows) == 0

@@ -171,7 +171,8 @@ def test_wrappers_check_arguments_and_count_only_launches():
                                  "plain_cumsum": 0, "segmented_scan": 0,
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0,
-                                 "edge_map_bor": 0, "bit_popstats": 0}
+                                 "edge_map_bor": 0,
+                                 "edge_map_bor_level": 0, "bit_popstats": 0}
 
 
 INT32_MAX = torch.iinfo(torch.int32).max

@@ -175,6 +175,80 @@ def test_spans_a_call(graph, pb):
     assert names["gm:superstep"] == res.levels_run + 1
 
 
+@pytest.mark.parametrize("pb", [8, 32])
+def test_a_level_is_one_level_call(graph, pb, monkeypatch):
+    """A level is one ``binned.edge_map_level`` call (on the CPU its plain
+    version: no launch) and no ``edge_map`` call, and the loop reads its
+    predicate, the level's row count, once a level; the planes and counts
+    are the paged form's."""
+    from green_marl_tpu_torch.ops import kernels as K
+    g, _, _ = graph
+    roots = _sources(g, 40)
+    bp, deg_rows, chunk = batched.bits_schedule(g, 40, pb)
+    want = batched.multi_source_bfs_bits_paged(bp, roots, deg_rows,
+                                               plane_bits=pb,
+                                               slot_chunk=chunk)
+    calls = collections.Counter()
+    level = binned.edge_map_level
+
+    def counted(*args, **kwargs):
+        calls["edge_map_level"] += 1
+        return level(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("edge_map called by a bit-BFS level")
+
+    monkeypatch.setattr(binned, "edge_map_level", counted)
+    monkeypatch.setattr(binned, "edge_map", refused)
+    K.reset_launch_counts()
+    with torch.profiler.profile(activities=CPU) as prof:
+        res = batched.multi_source_bfs_bits(bp, roots, deg_rows,
+                                            plane_bits=pb, slot_chunk=chunk)
+    reads = sum(e.name == "gm:sync:predicate" for e in prof.events())
+    assert res.levels_run == want.levels_run > 1
+    assert calls["edge_map_level"] == reads == res.levels_run
+    assert K.launch_counts()["edge_map_bor_level"] == 0
+    assert torch.equal(res.visited, want.visited)
+    assert torch.equal(res.reached, want.reached)
+    assert torch.equal(res.traversed, want.traversed)
+
+
+@pytest.mark.parametrize("B,pb,lanes", [
+    (1, 8, 16), (40, 8, 16), (129, 8, 32), (4096, 8, 512), (200, 16, 16),
+    (2048, 16, 128), (100, 32, 4), (130, 32, 8), (4096, 32, 128)])
+def test_planes_are_padded_to_16_bytes(graph, B, pb, lanes):
+    """A call's planes have rows of a multiple of 16 bytes, at least 16
+    (the rows the edge-map kernels take), with every pad lane 0; the
+    result's planes have ``ceil(B / pb)`` lanes, the padded planes' first,
+    and the counts are the reference's."""
+    g, src, dst = graph
+    roots = (np.arange(B) * 7 % N).astype(np.int32)
+    bp, deg_rows, chunk = batched.bits_schedule(g, B, pb)
+    seed = batched._bits_seed(bp, roots, pb)
+    assert batched._plane_lanes(B, pb) == lanes == seed.shape[1]
+    assert seed.dtype == batched.PLANE_DTYPES[pb]
+    row_bytes = lanes * seed.element_size()
+    assert row_bytes % 16 == 0 and 16 <= row_bytes <= 512
+    kept = -(-B // pb)
+    assert not bool(seed[:, kept:].any())
+    assert int(seed.view(torch.uint8).numpy().sum(dtype=np.int64)) > 0
+    if B > 256:
+        return
+    res = batched.multi_source_bfs_bits(bp, roots, deg_rows, plane_bits=pb,
+                                        slot_chunk=chunk)
+    paged = batched.multi_source_bfs_bits_paged(bp, roots, deg_rows,
+                                                plane_bits=pb,
+                                                slot_chunk=chunk)
+    for got in (res, paged):
+        assert got.visited.shape == (bp.n_rows, kept)
+        assert got.visited.is_contiguous()
+        assert torch.equal(got.visited, res.visited)
+        assert got.reached.shape == got.traversed.shape == (B,)
+    want_r, want_t = ref.counts(src, dst, N, roots.tolist())
+    assert torch.equal(res.reached, want_r)
+    assert torch.equal(res.traversed, want_t)
+
+
 def test_no_profiler_no_record_function(graph, monkeypatch):
     g, _, _ = graph
     roots = _sources(g, 40)
@@ -197,8 +271,10 @@ def test_counter_follows_the_schedule(graph, pb):
     binned.reset_edge_map_counts()
     res = batched.multi_source_bfs_bits(bp, roots, deg_rows, plane_bits=pb,
                                         slot_chunk=chunk)
-    k, lanes = res.levels_run, res.visited.shape[1]
-    row_bytes = lanes * res.visited.element_size()
+    k = res.levels_run
+    # a level's planes: rows padded to 16 bytes (the result's are not)
+    row_bytes = batched._plane_lanes(40, pb) * res.visited.element_size()
+    assert row_bytes == 16
     counts = binned.edge_map_counts()
     assert counts == {"calls": k, "slots": k * bp.slot_src.numel(),
                       "rows": k * bp.n_rows,

@@ -406,6 +406,37 @@ def test_edge_map_bound_is_the_benchmarks():
     assert gathered - table_once == (slots - bp.n_rows) * row_bytes
 
 
+def test_edge_map_level_bound():
+    """A bit-BFS level (``binned.edge_map_level``) counts as one edge-map
+    call of the same shape in the benchmark's counter; its bounds add the
+    bytes of ``visited`` that the level reads and writes to the edge
+    map's."""
+    from gmbench.metrics import _edge_map_bytes
+    from green_marl_tpu_torch.graph.csr import from_edges
+    from green_marl_tpu_torch.graph.generate import rmat_edges
+    from green_marl_tpu_torch.models import batched
+    from green_marl_tpu_torch.ops import binned
+    from green_marl_tpu_torch.probes import bounds
+    src, dst = rmat_edges(2000, 14000, seed=11)
+    g, _ = from_edges(src, dst, 2000)
+    bp, _, chunk = batched.bits_schedule(g, 128, 32)
+    frontier = torch.zeros((bp.n_rows, 4), dtype=torch.int32)
+    binned.reset_edge_map_counts()
+    binned.edge_map_level(bp, frontier, torch.zeros_like(frontier),
+                          slot_chunk=chunk)
+    counts = binned.edge_map_counts()
+    binned.reset_edge_map_counts()
+    slots, row_bytes = bp.slot_src.numel(), 16
+    em_table, em_gathered = bounds.edge_map_bor(slots, bp.n_rows, row_bytes)
+    table_once, gathered = bounds.edge_map_bor_level(slots, bp.n_rows,
+                                                     row_bytes, 48, 32)
+    assert counts["calls"] == 1
+    assert em_table == _edge_map_bytes.edge_map_bytes(counts)
+    assert table_once - em_table == gathered - em_gathered == 48 + 32
+    assert bounds.edge_map_bor_level(slots, bp.n_rows, row_bytes, 0, 0) \
+        == (em_table, em_gathered)
+
+
 @pytest.mark.parametrize("weighted,want", [(False, 451_012),
                                            (True, 771_012)])
 def test_relax_bound_on_parity10k(weighted, want):
