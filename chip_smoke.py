@@ -76,9 +76,10 @@ times only what no probe does.  Phases, each of which raises on failure:
    made undirected with every slot kept (138M
    slots; the CSR is merged on the card, and that merge is held against
    ``to_undirected(dedup=False)`` + ``native.build_csr`` at the 1/16 size):
-   the host DAG build in seconds, and ``count_dag`` (the sort-merge join,
-   by the threshold) equal to the search path on the same ``DagContext``,
-   each with its device time, Mwedges/s and memory peak.  At the 1/16 size,
+   the host DAG build in seconds, the DAG built on the card
+   (``build_dag_torch``) equal to it bit for bit, and ``count_dag`` (the
+   search, by the router) equal to the sort-merge join on the same
+   ``DagContext``, each with its device time, Mwedges/s and memory peak.  At the 1/16 size,
    symmetrised with ``dedup=True``: ``triangle_count``, the search, the
    join and ``triangle_count_literal`` agree, and all four agree with
    ``triangle_count_np`` on a 2,000-node RMAT; ``triangle_counting``
@@ -1008,7 +1009,8 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
     from green_marl_tpu_torch.models import triangle
     from green_marl_tpu_torch.probes.triangle import count_paths
 
-    # the full size: host DAG build, then the join against the search
+    # the full size: host DAG build against the card's, then the join
+    # against the search
     secs = {"build_dag": [], "desc_layout": []}
     real = {k: timed_calls(native, k, v) for k, v in secs.items()}
     t0 = time.time()
@@ -1018,15 +1020,26 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
         f"{time.time() - t0:.1f} s (gm_build_dag, serial, "
         f"{sum(secs['build_dag']):.1f} s; the rest numpy and the upload); "
         f"D={ctx.num_dag_edges} wedges={ctx.num_wedges}")
-    check(ctx.num_wedges >= triangle._HASH_MIN_W,
-          f"{ctx.num_wedges} wedges >= 2^26: count_dag routes to the "
-          "sort-merge join")
-    res = count_paths(ctx, ["routed", "search"],
+    t0 = time.time()
+    on_card = triangle.build_dag_torch(torch.from_numpy(u_begin).to(dev),
+                                       torch.from_numpy(u_dst).to(dev), LJ_N)
+    torch.cuda.synchronize(dev)
+    secs_card = time.time() - t0
+    check(all(torch.equal(getattr(on_card, f), getattr(ctx, f))
+              for f in ("dag_begin", "dag_dst", "pair_cum"))
+          and on_card[3:] == ctx[3:],
+          f"full size: the DAG built on the card ({secs_card:.2f} s, "
+          "parallel slots dropped there) == the host build, bit for bit")
+    del on_card
+    check(triangle.route(ctx) == "search",
+          f"{ctx.num_wedges} wedges: count_dag routes to the search (the "
+          "join is faster at no size measured)")
+    res = count_paths(ctx, ["routed", "sortmerge"],
                       log=lambda m: log("  " + m))
-    check(res["routed"][0] == res["search"][0] > 0,
-          f"full size: count_dag (sort-merge join) == search path == "
+    check(res["routed"][0] == res["sortmerge"][0] > 0,
+          f"full size: count_dag (the search) == the sort-merge join == "
           f"{res['routed'][0]} triangles (gm_desc_layout, serial, "
-          f"{sum(secs['desc_layout']):.1f} s of the join's time)")
+          f"{sum(secs['desc_layout']):.1f} s of the join's layout)")
     del ctx, res
     triangle._PREP_CACHE.clear()
     torch.cuda.empty_cache()

@@ -13,19 +13,37 @@ space.  Wedges (b, c) of N+(a) x N+(a) with slot(c) > slot(b) live in one
 flat ``torch.int64`` index space; each is tested for c in N+(b); the count
 is one ``torch.int64`` sum, read from the device once.
 
-Three ways to test membership, routed by size as in the JAX package:
+Three ways to test membership (``route``):
 
 * N <= 65,536 and at most 2^25 wedges: the wedges are expanded on the host
   and tested with one word read each against a packed adjacency bitmap;
-* from 2^26 wedges (``_HASH_MIN_W``): a sort-merge join.  Rows are laid out
-  by descending pair count, so that wedge (s, s + d) is a pair of contiguous
-  slices of the slot axis for every shift d; each dispatch packs its wedge
-  keys and all DAG edge keys into int64 (``rank << 32 | dst * 2 + tag``),
-  sorts them once, and a wedge hits where the edge key right below it is
-  present;
-* otherwise: flat wedge index -> (anchor slot, offset) by
+* otherwise the search: flat wedge index -> (anchor slot, offset) by
   ``torch.searchsorted`` on the int64 pair prefix, then a binary search for
-  c in row b.
+  c in row b;
+* the sort-merge join, from ``_HASH_MIN_W`` wedges, which no DAG reaches.
+  Rows are laid out by descending pair count, so that wedge (s, s + d) is a
+  pair of contiguous slices of the slot axis for every shift d; each
+  dispatch packs its wedge keys and all DAG edge keys into int64
+  (``rank << 32 | dst * 2 + tag``), sorts them once, and a wedge hits
+  where the edge key right below it is present.  The JAX package takes it
+  from 2^26 wedges, a boundary set for the TPU.  On an H100 (700 W,
+  ``probes/triangle.py --paths sortmerge,search`` and the same count at
+  the benchmark's ``lj_undirected`` graph) the search was faster at every
+  size measured: 0.110 s against 0.705 at 2^26.0 wedges (N = 2^20, 8M
+  edges made undirected), 0.166 against 1.437 at 2^27.1 (N = 2^21, 16M),
+  1.042 against 15.333 (and 4.1 s of the join's layout) at 2^30.4
+  (1,413,336,439 wedges, lj's 69M edges made undirected).  So the join is
+  kept for callers that ask for it (``count_sortmerge``) and for tests,
+  which lower ``_HASH_MIN_W`` to force it.
+
+The DAG of a ``Graph`` is built with torch on the graph's device
+(``build_dag``: 0.09 s on the card at lj's size, where the host build and
+the upload take 11.1 s); ``build_dag_host`` stays for callers that hold a
+CSR on the host.  Under a profiler (``utils/timing.py`` ``span``):
+``gm:setup`` around the build in ``_dag_of``, ``gm:triangle:count`` around
+each ``count_dag`` call, ``gm:triangle:chunk`` around each chunk of the
+search; :func:`search_counts` counts the search's calls, chunks, wedges
+and bisection passes.
 
 ``triangle_count_literal`` keeps the reference's slot semantics on directed
 graphs and multigraphs (parallel edges multiply wedges) and is what the CLI
@@ -45,6 +63,7 @@ plain XLA, and this one is plain PyTorch on both devices.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -53,6 +72,7 @@ import torch
 from ..graph import native
 from ..graph.csr import Graph, round_up
 from ..ops.segment import has_edge_to, row_contains
+from ..utils.timing import span
 
 
 class DagContext(NamedTuple):
@@ -114,12 +134,49 @@ def dag_to_device(host_dag, device) -> DagContext:
         num_dag_edges=D)
 
 
+def build_dag_torch(begin: torch.Tensor, node_idx: torch.Tensor,
+                    n: int) -> DagContext:
+    """``build_dag_host``'s DAG built with torch on the device of ``begin``
+    and ``node_idx`` (the [E] real slots), equal to
+    ``dag_to_device(build_dag_host(...))`` bit for bit: ranks by a stable
+    sort of degree (ties by id, ``np.lexsort``'s order), each slot oriented
+    from the lower rank to the higher, duplicates dropped by sorted int64
+    keys ``rank(src) * n + rank(dst)``, ``dag_begin`` and ``pair_cum`` by
+    cumulative sums.  Two values are read to the host: D and the wedge
+    count."""
+    dev = begin.device
+    deg = begin[1:].long() - begin[:-1].long()
+    order = torch.sort(deg, stable=True).indices           # rank -> node
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=dev)
+    del order
+    rs = torch.repeat_interleave(rank, deg, output_size=node_idx.numel())
+    rd = rank[node_idx.long()]
+    del rank
+    keep = rs < rd
+    codes = torch.unique(rs[keep] * n + rd[keep])          # sorted rows
+    del rs, rd, keep
+    D = codes.numel()
+    ds = codes // n
+    dag_begin = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    dag_begin[1:] = torch.bincount(ds, minlength=n).cumsum(0)
+    d_pad = round_up(max(D, 1))
+    dag_dst = torch.full((d_pad,), n, dtype=torch.int32, device=dev)
+    dag_dst[:D] = codes % n
+    del codes
+    pairs = dag_begin[ds + 1] - torch.arange(1, D + 1, device=dev)
+    pair_cum = torch.zeros(d_pad + 1, dtype=torch.int64, device=dev)
+    pair_cum[1:D + 1] = pairs.cumsum(0)
+    pair_cum[D + 1:] = pair_cum[D]
+    return DagContext(dag_begin=dag_begin.to(torch.int32), dag_dst=dag_dst,
+                      pair_cum=pair_cum, num_wedges=int(pair_cum[D]),
+                      num_dag_edges=D)
+
+
 def build_dag(g: Graph) -> DagContext:
-    """The DAG of ``g`` (symmetric), built on the host and moved to
-    ``g``'s device."""
-    return dag_to_device(build_dag_host(
-        g.begin.cpu().numpy(), g.node_idx[: g.num_edges].cpu().numpy(),
-        g.num_nodes), g.device)
+    """The DAG of ``g`` (symmetric), built with torch on ``g``'s device
+    (``build_dag_torch``): a graph on the card never leaves it."""
+    return build_dag_torch(g.begin, g.node_idx[: g.num_edges], g.num_nodes)
 
 
 # prep cache: id(owner) -> (owner, dict of prepared blobs); the owner is a
@@ -143,7 +200,8 @@ def _prep_of(g) -> dict:
 def _dag_of(g: Graph) -> DagContext:
     prep = _prep_of(g)
     if "dag" not in prep:
-        prep["dag"] = build_dag(g)
+        with span("gm:setup"):
+            prep["dag"] = build_dag(g)
     return prep["dag"]
 
 
@@ -200,19 +258,48 @@ def _max_row(begin: torch.Tensor) -> int:
     return int(begin.diff().max()) if begin.numel() > 1 else 0
 
 
+_SEARCH_KEYS = ("calls", "chunks", "wedges", "steps")
+_SEARCH_COUNTS = dict.fromkeys(_SEARCH_KEYS, 0)
+_SEARCH_LOCK = threading.Lock()
+
+
+def reset_search_counts() -> None:
+    """Set every count of :func:`search_counts` to 0."""
+    with _SEARCH_LOCK:
+        _SEARCH_COUNTS.update(dict.fromkeys(_SEARCH_KEYS, 0))
+
+
+def search_counts() -> dict:
+    """Summed over the ``count_search`` calls since the last reset:
+    ``calls``, ``chunks`` (device steps of at most ``chunk`` wedges),
+    ``wedges`` tested and ``steps``, the bisection passes (each over one
+    chunk's wedges).  Taken from sizes the host already holds: counting
+    reads nothing from the device."""
+    with _SEARCH_LOCK:
+        return dict(_SEARCH_COUNTS)
+
+
 def count_search(ctx: DagContext, chunk: int = 1 << 24) -> int:
     """Sum over all wedge ids k of [c in N+(b)]: anchor slot i is the last
     with ``pair_cum[i] <= k``, the wedge is ``(dag_dst[i], dag_dst[i + 1 +
-    k - pair_cum[i]])``, membership a binary search in row b."""
+    k - pair_cum[i]])``, membership a binary search in row b.  Each chunk
+    is a ``gm:triangle:chunk`` span."""
     dev = ctx.dag_dst.device
     steps = max(1, _max_row(ctx.dag_begin).bit_length()) + 1
+    chunks = -(-ctx.num_wedges // chunk)
+    with _SEARCH_LOCK:
+        _SEARCH_COUNTS["calls"] += 1
+        _SEARCH_COUNTS["chunks"] += chunks
+        _SEARCH_COUNTS["wedges"] += ctx.num_wedges
+        _SEARCH_COUNTS["steps"] += chunks * steps
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for k0 in range(0, ctx.num_wedges, chunk):
-        k = torch.arange(k0, min(k0 + chunk, ctx.num_wedges), device=dev)
-        i = torch.searchsorted(ctx.pair_cum, k, right=True) - 1
-        j = i + 1 + k - ctx.pair_cum[i]
-        total += row_contains(ctx.dag_begin, ctx.dag_dst, ctx.dag_dst[i],
-                              ctx.dag_dst[j], steps).sum()
+        with span("gm:triangle:chunk"):
+            k = torch.arange(k0, min(k0 + chunk, ctx.num_wedges), device=dev)
+            i = torch.searchsorted(ctx.pair_cum, k, right=True) - 1
+            j = i + 1 + k - ctx.pair_cum[i]
+            total += row_contains(ctx.dag_begin, ctx.dag_dst, ctx.dag_dst[i],
+                                  ctx.dag_dst[j], steps).sum()
     return int(total)
 
 
@@ -220,7 +307,7 @@ def count_search(ctx: DagContext, chunk: int = 1 << 24) -> int:
 # The sort-merge join
 # ---------------------------------------------------------------------------
 
-_HASH_MIN_W = 1 << 26        # wedges from which the join is taken
+_HASH_MIN_W = 1 << 63        # wedges from which the join is taken (none)
 _SM_DISPATCH_W = 1 << 27     # lanes per sort
 _SM_WS = 1 << 29             # b and c of lanes that hold no wedge
 
@@ -406,29 +493,50 @@ def count_sortmerge(ctx: DagContext, chunk: int = 1 << 17) -> int:
     return int(_count_sortmerge_region(perm, ekeys, perm_begin_np, 0, chunk))
 
 
-def count_dag(ctx: DagContext, chunk: int = 1 << 24) -> int:
-    """The triangle count of the DAG ``ctx``, routed by size: bitmap,
-    sort-merge join, or search (module docstring)."""
+def route(ctx: DagContext) -> str:
+    """The path ``count_dag`` takes for ``ctx``: ``none`` (no wedge),
+    ``bitmap``, ``sortmerge`` or ``search`` (module docstring)."""
     if ctx.num_wedges == 0:
-        return 0
+        return "none"
     n = ctx.dag_begin.numel() - 1
     if n <= _BITMAP_MAX_N and ctx.num_wedges <= _EXPAND_MAX_W:
-        prep = _prep_of(ctx)
-        if "dag_fast" not in prep:
-            D = ctx.num_dag_edges
-            dag_begin = ctx.dag_begin.cpu().numpy().astype(np.int64)
-            dag_dst = ctx.dag_dst.cpu().numpy().astype(np.int64)
-            src = np.repeat(np.arange(n, dtype=np.int64), np.diff(dag_begin))
-            slots = np.arange(D, dtype=np.int64)
-            b, c = _expand_pairs(dag_dst, slots + 1,
-                                 dag_begin[src + 1] - slots - 1, dag_dst[:D])
-            prep["dag_fast"] = _bitmap_blob(src, dag_dst[:D], n, b, c,
-                                            ctx.dag_dst.device)
-        table, W, b, c = prep["dag_fast"]
-        return int(_count_expanded(table, b, c, W))
+        return "bitmap"
     if ctx.num_wedges >= _HASH_MIN_W:
-        return count_sortmerge(ctx, min(chunk, 1 << 17))
-    return count_search(ctx, chunk)
+        return "sortmerge"
+    return "search"
+
+
+def _count_bitmap(ctx: DagContext) -> int:
+    """The count of a small DAG by its wedges, expanded on the host once,
+    against the packed adjacency bitmap."""
+    prep = _prep_of(ctx)
+    if "dag_fast" not in prep:
+        n = ctx.dag_begin.numel() - 1
+        D = ctx.num_dag_edges
+        dag_begin = ctx.dag_begin.cpu().numpy().astype(np.int64)
+        dag_dst = ctx.dag_dst.cpu().numpy().astype(np.int64)
+        src = np.repeat(np.arange(n, dtype=np.int64), np.diff(dag_begin))
+        slots = np.arange(D, dtype=np.int64)
+        b, c = _expand_pairs(dag_dst, slots + 1,
+                             dag_begin[src + 1] - slots - 1, dag_dst[:D])
+        prep["dag_fast"] = _bitmap_blob(src, dag_dst[:D], n, b, c,
+                                        ctx.dag_dst.device)
+    table, W, b, c = prep["dag_fast"]
+    return int(_count_expanded(table, b, c, W))
+
+
+def count_dag(ctx: DagContext, chunk: int = 1 << 24) -> int:
+    """The triangle count of the DAG ``ctx`` by the path ``route`` gives;
+    each call a ``gm:triangle:count`` span."""
+    with span("gm:triangle:count"):
+        path = route(ctx)
+        if path == "bitmap":
+            return _count_bitmap(ctx)
+        if path == "sortmerge":
+            return count_sortmerge(ctx, min(chunk, 1 << 17))
+        if path == "search":
+            return count_search(ctx, chunk)
+        return 0
 
 
 def triangle_count(g: Graph, chunk: int = 1 << 24,

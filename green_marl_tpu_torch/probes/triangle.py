@@ -43,7 +43,8 @@ def count_paths(ctx, paths, log=print):
         fn = {"sortmerge": triangle.count_sortmerge,
               "search": triangle.count_search,
               "routed": triangle.count_dag}[path]
-        if path != "search" and ctx.num_wedges >= triangle._HASH_MIN_W:
+        if path == "sortmerge" or (path == "routed"
+                                   and triangle.route(ctx) == "sortmerge"):
             # the join's layout is made once per DAG, as the DAG itself is
             t0 = time.time()
             triangle._sortmerge_prep(ctx)

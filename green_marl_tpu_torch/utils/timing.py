@@ -21,9 +21,11 @@ package is one of these; the bytes a hand kernel must move are counted in
 pass of a superstep loop), ``gm:sync:<site>`` (each host wait for the
 device: ``predicate``, ``upload``, ``bfs_direction``, ``bfs_push_mark``,
 ``bfs_reached``), ``gm:edge_map`` (one call of the binned engine's edge
-map, ``ops/binned.py``) and ``gm:popstats`` (the bit BFS's final
-per-instance counts, ``models/batched.py``).  They exist only while a
-profiler records.
+map, ``ops/binned.py``), ``gm:popstats`` (the bit BFS's final
+per-instance counts, ``models/batched.py``), ``gm:triangle:count`` (one
+``count_dag`` call) and ``gm:triangle:chunk`` (one chunk of the wedge
+search, ``models/triangle.py``).  They exist only while a profiler
+records.
 """
 
 from __future__ import annotations

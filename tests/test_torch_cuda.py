@@ -773,6 +773,29 @@ def test_triangle_paths_on_the_card(dev, monkeypatch):
     monkeypatch.setattr(T, "_BITMAP_MAX_N", 1)
     T._PREP_CACHE.clear()
     assert T.triangle_count_literal(gd, chunk=70_000) == want
+
+
+def test_triangle_dag_built_on_the_card(dev):
+    """``build_dag`` of a card graph builds on the card, equal bit for bit
+    to the host build; the router takes the search there, with its
+    counter and no device read of its own."""
+    from green_marl_tpu_torch.models import triangle as T
+    g = _rmat_graph(1 << 17, 1_500_000, 52, undirected=True)
+    E = g.num_edges
+    want = T.dag_to_device(T.build_dag_host(
+        g.begin.numpy(), g.node_idx[:E].numpy(), g.num_nodes), dev)
+    gd = g.to(dev)
+    got = T.build_dag(gd)
+    for name in ("dag_begin", "dag_dst", "pair_cum"):
+        w, t = getattr(want, name), getattr(got, name)
+        assert t.is_cuda and t.dtype == w.dtype and torch.equal(t, w), name
+    assert (got.num_wedges, got.num_dag_edges) == \
+        (want.num_wedges, want.num_dag_edges)
+    assert T.route(got) == "search"
+    T.reset_search_counts()
+    assert T.triangle_count(gd) == T.count_sortmerge(got) > 0
+    counts = T.search_counts()
+    assert (counts["calls"], counts["wedges"]) == (1, got.num_wedges)
     T._PREP_CACHE.clear()
 
 
