@@ -78,10 +78,14 @@ times only what no probe does.  Phases, each of which raises on failure:
    ``to_undirected(dedup=False)`` + ``native.build_csr`` at the 1/16 size):
    the host DAG build in seconds, the DAG built on the card
    (``build_dag_torch``) equal to it bit for bit, and ``count_dag`` (the
-   search, by the router) equal to the sort-merge join on the same
-   ``DagContext``, each with its device time, Mwedges/s and memory peak.  At the 1/16 size,
+   search by the router: one ``triangle_search`` launch) equal to the
+   plain search and the sort-merge join on the same ``DagContext``, each
+   with its device time, Mwedges/s and memory peak, the kernel no slower
+   than the plain search.  At the 1/16 size, the DAG of the graph with its
+   parallel edges: the search, the plain search and the join agree; then
    symmetrised with ``dedup=True``: ``triangle_count``, the search, the
-   join and ``triangle_count_literal`` agree, and all four agree with
+   plain search, the join and ``triangle_count_literal`` agree with the
+   multigraph's count, and all agree with
    ``triangle_count_np`` on a 2,000-node RMAT; ``triangle_counting``
    through the CLI on parity10k against its golden; communities, v_cover,
    potential_friends and adamic_adar_edges against their oracles or the
@@ -302,6 +306,8 @@ TIMED_BY = {
     "edge_map_bor": "python3 scripts/probe_edge_map.py",
     "edge_map_bor_level": "python3 scripts/probe_edge_map.py",
     "bit_popstats": "python3 scripts/probe_edge_map.py",
+    "triangle_search": "python3 -m green_marl_tpu_torch.probes.triangle "
+                       "--generator lj_undirected",
 }
 
 
@@ -1007,7 +1013,8 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
     from green_marl_tpu_torch.graph import generate
     from green_marl_tpu_torch.graph.csr import to_undirected
     from green_marl_tpu_torch.models import triangle
-    from green_marl_tpu_torch.probes.triangle import count_paths
+    from green_marl_tpu_torch.ops import kernels as K
+    from green_marl_tpu_torch.probes.triangle import count_paths, plain_search
 
     # the full size: host DAG build against the card's, then the join
     # against the search
@@ -1034,12 +1041,23 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
     check(triangle.route(ctx) == "search",
           f"{ctx.num_wedges} wedges: count_dag routes to the search (the "
           "join is faster at no size measured)")
-    res = count_paths(ctx, ["routed", "sortmerge"],
-                      log=lambda m: log("  " + m))
-    check(res["routed"][0] == res["sortmerge"][0] > 0,
-          f"full size: count_dag (the search) == the sort-merge join == "
+    before = K.launch_counts()["triangle_search"]
+    res = count_paths(ctx, ["routed"], log=lambda m: log("  " + m))
+    launches = K.launch_counts()["triangle_search"] - before
+    res.update(count_paths(ctx, ["plain", "sortmerge"],
+                           log=lambda m: log("  " + m)))
+    record = {"launches": launches,
+              "max_abs_err": float(abs(res["routed"][0] - res["plain"][0]))}
+    check(res["routed"][0] == res["plain"][0] == res["sortmerge"][0] > 0
+          and launches == 1,
+          f"full size: count_dag (the search, {launches} triangle_search "
+          f"launch) == the plain search == the sort-merge join == "
           f"{res['routed'][0]} triangles (gm_desc_layout, serial, "
           f"{sum(secs['desc_layout']):.1f} s of the join's layout)")
+    check(res["routed"][1] <= res["plain"][1],
+          f"full size: the search kernel no slower than its plain version "
+          f"({1000 * res['routed'][1]:.1f} ms against "
+          f"{1000 * res['plain'][1]:.1f} ms, CUDA events, one call each)")
     del ctx, res
     triangle._PREP_CACHE.clear()
     torch.cuda.empty_cache()
@@ -1058,8 +1076,15 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
     del g16, m_begin, m_dst
     gu = from_edges(*to_undirected(src16, dst16, dedup=True),
                     SMALL_N)[0].to(dev)
-    multi = triangle.count_search(triangle.dag_to_device(
-        triangle.build_dag_host(h_begin, h_dst, SMALL_N), dev))
+    multi_ctx = triangle.dag_to_device(
+        triangle.build_dag_host(h_begin, h_dst, SMALL_N), dev)
+    multi = {"search": triangle.count_search(multi_ctx),
+             "plain search": plain_search(multi_ctx),
+             "sort-merge": triangle.count_sortmerge(multi_ctx)}
+    check(len(set(multi.values())) == 1,
+          f"1/16 size, parallel edges kept: {multi} agree")
+    multi = multi["search"]
+    del multi_ctx
     log(f"  1/16 size: simple undirected graph of {gu.num_edges} slots "
         f"({h_dst.shape[0]} with parallel edges) built in "
         f"{time.time() - t0:.1f} s")
@@ -1067,6 +1092,7 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
     t0 = time.time()
     counts = {"triangle_count": triangle.triangle_count(gu),
               "search": triangle.count_search(ctx),
+              "plain search": plain_search(ctx),
               "sort-merge": triangle.count_sortmerge(ctx),
               "literal": triangle.triangle_count_literal(gu),
               "search, parallel edges kept": multi}
@@ -1098,6 +1124,7 @@ def triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
           == str(GOLD_TRIANGLES),
           f"triangle_counting on parity10k through the CLI: "
           f"{GOLD_TRIANGLES} triangles")
+    return record
 
 
 def field(out, pattern):
@@ -3061,13 +3088,15 @@ def main():
     del g, g16, w, bfs_res      # phase 9 moves g_host to the card again
     torch.cuda.empty_cache()
     K.reset_launch_counts()
-    triangle_phase(torch, dev, apps, native, from_edges, u_begin, u_dst,
-                   src16, dst16)
+    tri = triangle_phase(torch, dev, apps, native, from_edges, u_begin,
+                         u_dst, src16, dst16)
     del u_begin, u_dst, src16, dst16
     counts_models = {name: counts_models[name] + counts_paths[name]
                      + counts_sampling[name] + n
                      for name, n in K.launch_counts().items()}
     log(f"  phase 7 launches {counts_models}")
+    check(counts_models["triangle_search"] > 0, f"triangle_search launched "
+          f"by this phase ({counts_models['triangle_search']} times)")
     for name in ("segment_reduce_sorted", "plain_cumsum"):
         check(counts_models[name] > 0, f"{name} launched by this phase "
               f"({counts_models[name]} times)")
@@ -3205,7 +3234,13 @@ def main():
          "replaces": "none: green_marl_tpu/models/batched.py:340 "
                      "_bit_popstats leaves the bit expansion and the sums "
                      "to XLA",
-         "launches": pop_launches, "max_abs_err": float(pop["max_err"])}]
+         "launches": pop_launches, "max_abs_err": float(pop["max_err"])},
+        {"name": "triangle_search",
+         "source": "green_marl_tpu_torch/csrc/triangle.cu",
+         "replaces": "none: green_marl_tpu/models/triangle.py:764 "
+                     "_count_wedges (and :505 _count_wedges_shift) leave "
+                     "the wedge search to XLA",
+         **tri}]
     print(json.dumps({"kernels": [
         {**r, "route": "cuda", "timed_by": TIMED_BY[r["name"]]}
         for r in records]}))

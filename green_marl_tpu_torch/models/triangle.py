@@ -17,9 +17,12 @@ Three ways to test membership (``route``):
 
 * N <= 65,536 and at most 2^25 wedges: the wedges are expanded on the host
   and tested with one word read each against a packed adjacency bitmap;
-* otherwise the search: flat wedge index -> (anchor slot, offset) by
-  ``torch.searchsorted`` on the int64 pair prefix, then a binary search for
-  c in row b;
+* otherwise the search: flat wedge index -> (anchor slot, offset) on the
+  int64 pair prefix, then a binary search for c in row b; on the card one
+  launch of ``ops/kernels.py`` ``triangle_search`` (``csrc/triangle.cu``:
+  each wedge's decode and bisection in registers), on the CPU its plain
+  version (``torch.searchsorted``, then ``row_contains``'s vectorised
+  bisection steps over chunks of wedges);
 * the sort-merge join, from ``_HASH_MIN_W`` wedges, which no DAG reaches.
   Rows are laid out by descending pair count, so that wedge (s, s + d) is a
   pair of contiguous slices of the slot axis for every shift d; each
@@ -41,9 +44,10 @@ The DAG of a ``Graph`` is built with torch on the graph's device
 the upload take 11.1 s); ``build_dag_host`` stays for callers that hold a
 CSR on the host.  Under a profiler (``utils/timing.py`` ``span``):
 ``gm:setup`` around the build in ``_dag_of``, ``gm:triangle:count`` around
-each ``count_dag`` call, ``gm:triangle:chunk`` around each chunk of the
-search; :func:`search_counts` counts the search's calls, chunks, wedges
-and bisection passes.
+each ``count_dag`` call, ``gm:triangle:chunk`` around the search's
+one launch on the card (all passes of its plain version on the CPU);
+:func:`search_counts` counts the search's calls, chunks, wedges and the
+plain version's bisection passes.
 
 ``triangle_count_literal`` keeps the reference's slot semantics on directed
 graphs and multigraphs (parallel edges multiply wedges) and is what the CLI
@@ -57,8 +61,9 @@ limb counters of ``utils/limbs.py``, ``_anchor_samples``,
 ``_SUBRANGE_LIMIT``, the edge hash (``_mix_hash`` to ``build_edge_hash``),
 the d-shift probe kernel (``_count_wedges_shift``, ``_count_shift_region``),
 the ``GM_TRI_MODE`` switch and the edge-pad sentinel ``_SM_ES`` (edge keys
-are made for real slots only).  No hand kernel: the JAX module's join is
-plain XLA, and this one is plain PyTorch on both devices.
+are made for real slots only).  The JAX module's search and join are
+plain XLA; here the join is plain PyTorch on both devices and the search
+a hand kernel on the card.
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ import torch
 
 from ..graph import native
 from ..graph.csr import Graph, round_up
-from ..ops.segment import has_edge_to, row_contains
+from ..ops import kernels as _kernels
+from ..ops.segment import has_edge_to
 from ..utils.timing import span
 
 
@@ -254,10 +260,6 @@ def _bitmap_blob(src, dst, n, u, w_arr, dev):
 # The general path: searchsorted decode, binary-search membership
 # ---------------------------------------------------------------------------
 
-def _max_row(begin: torch.Tensor) -> int:
-    return int(begin.diff().max()) if begin.numel() > 1 else 0
-
-
 _SEARCH_KEYS = ("calls", "chunks", "wedges", "steps")
 _SEARCH_COUNTS = dict.fromkeys(_SEARCH_KEYS, 0)
 _SEARCH_LOCK = threading.Lock()
@@ -271,35 +273,40 @@ def reset_search_counts() -> None:
 
 def search_counts() -> dict:
     """Summed over the ``count_search`` calls since the last reset:
-    ``calls``, ``chunks`` (device steps of at most ``chunk`` wedges),
-    ``wedges`` tested and ``steps``, the bisection passes (each over one
-    chunk's wedges).  Taken from sizes the host already holds: counting
-    reads nothing from the device."""
+    ``calls``, ``chunks`` (device steps: on the card one kernel launch a
+    call with a wedge, on the CPU passes of at most ``chunk`` wedges),
+    ``wedges`` tested and ``steps``, the plain path's bisection passes
+    (each over one chunk's wedges; 0 on the card, whose kernel bisects
+    each wedge's row in registers).  Taken from sizes the host already
+    holds: counting reads nothing from the device beyond what the search
+    reads itself."""
     with _SEARCH_LOCK:
         return dict(_SEARCH_COUNTS)
 
 
-def count_search(ctx: DagContext, chunk: int = 1 << 24) -> int:
+def count_search(ctx: DagContext, chunk: int = _kernels.SEARCH_CHUNK) -> int:
     """Sum over all wedge ids k of [c in N+(b)]: anchor slot i is the last
     with ``pair_cum[i] <= k``, the wedge is ``(dag_dst[i], dag_dst[i + 1 +
-    k - pair_cum[i]])``, membership a binary search in row b.  Each chunk
-    is a ``gm:triangle:chunk`` span."""
-    dev = ctx.dag_dst.device
-    steps = max(1, _max_row(ctx.dag_begin).bit_length()) + 1
-    chunks = -(-ctx.num_wedges // chunk)
+    k - pair_cum[i]])``, membership a binary search in row b.  One call of
+    ``kernels.triangle_search`` inside one ``gm:triangle:chunk`` span: on
+    the card one launch (``chunk`` unused), on the CPU its plain version,
+    ``chunk`` wedges a pass; the count read once."""
+    on_card = ctx.dag_dst.device.type == "cuda"
+    if on_card:
+        chunks, steps = int(ctx.num_wedges > 0), 0
+    else:
+        chunks = -(-ctx.num_wedges // chunk)
+        steps = _kernels.search_steps(ctx.dag_begin)
     with _SEARCH_LOCK:
         _SEARCH_COUNTS["calls"] += 1
         _SEARCH_COUNTS["chunks"] += chunks
         _SEARCH_COUNTS["wedges"] += ctx.num_wedges
         _SEARCH_COUNTS["steps"] += chunks * steps
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    for k0 in range(0, ctx.num_wedges, chunk):
-        with span("gm:triangle:chunk"):
-            k = torch.arange(k0, min(k0 + chunk, ctx.num_wedges), device=dev)
-            i = torch.searchsorted(ctx.pair_cum, k, right=True) - 1
-            j = i + 1 + k - ctx.pair_cum[i]
-            total += row_contains(ctx.dag_begin, ctx.dag_dst, ctx.dag_dst[i],
-                                  ctx.dag_dst[j], steps).sum()
+    if not ctx.num_wedges:
+        return 0
+    with span("gm:triangle:chunk"):
+        total = _kernels.triangle_search(ctx.dag_begin, ctx.dag_dst,
+                                         ctx.pair_cum, ctx.num_wedges, chunk)
     return int(total)
 
 

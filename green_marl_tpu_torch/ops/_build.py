@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "green_marl_tpu_torch")
 SOURCES = ("segment_reduce.cu", "cumsum.cu", "segmented_scan.cu",
-           "gather_probe.cu", "edge_map.cu", "popstats.cu")
+           "gather_probe.cu", "edge_map.cu", "popstats.cu", "triangle.cu")
 HEADERS = ("lookback.cuh",)     # included by the sources: rebuild on change
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -136,4 +136,6 @@ def _load() -> ctypes.CDLL:
                                            vp, vp]
     cdll.gm_bit_popstats.restype = cint
     cdll.gm_bit_popstats.argtypes = [vp, i64, cint, vp, vp, vp]
+    cdll.gm_triangle_search.restype = cint
+    cdll.gm_triangle_search.argtypes = [vp, vp, i64, vp, i64, vp, vp]
     return cdll

@@ -24,7 +24,10 @@ kernels of the gather probes (``scripts/probe_gather{,2,3,4}.py``):
   ``edge_map_level``; ``csrc/edge_map.cu``);
 * ``bit_popstats`` -- the bit BFS's per-instance reached and traversed
   counts from its final plane (``models/batched.py`` ``_bit_popstats``;
-  ``csrc/popstats.cu``).
+  ``csrc/popstats.cu``);
+* ``triangle_search`` -- triangle counting's wedge search over the
+  degree-ordered DAG, the exact int64 count of the wedges that close a
+  triangle (``models/triangle.py`` ``count_search``; ``csrc/triangle.cu``).
 
 The first two also take lanes, as the TPU kernels take them under
 ``jax.vmap`` (a batched compiled program, ``lang.lower.CompiledProc.batch``):
@@ -950,9 +953,117 @@ def bit_popstats(visited: torch.Tensor, deg_rows: torch.Tensor
 
 bit_popstats.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# Triangle counting's wedge search
+# ---------------------------------------------------------------------------
+
+SEARCH_CHUNK = 1 << 24    # wedges a pass of the plain version tests
+
+
+def search_steps(dag_begin: torch.Tensor) -> int:
+    """The plain search's bisection passes: the bit length of the longest
+    DAG row, plus one (one read from the tensor's device)."""
+    longest = int(dag_begin.diff().max()) if dag_begin.numel() > 1 else 0
+    return max(1, longest.bit_length()) + 1
+
+
+def triangle_search_refusal(begin_dtype: torch.dtype,
+                            dst_dtype: torch.dtype, cum_dtype: torch.dtype,
+                            contiguous: bool) -> Optional[str]:
+    """Why :func:`triangle_search` cannot take a DAG of these dtypes and
+    layout, or None where it can: the one rule of the wrapper's checks."""
+    for name, dtype, want in (("dag_begin", begin_dtype, torch.int32),
+                              ("dag_dst", dst_dtype, torch.int32),
+                              ("pair_cum", cum_dtype, torch.int64)):
+        if dtype != want:
+            return f"{name} dtype {dtype} is not {want}"
+    if not contiguous:
+        return "a tensor is not contiguous"
+    return None
+
+
+def triangle_search_ref(dag_begin: torch.Tensor, dag_dst: torch.Tensor,
+                        pair_cum: torch.Tensor, num_wedges: int,
+                        chunk: int = SEARCH_CHUNK) -> torch.Tensor:
+    """Plain version of :func:`triangle_search`, ``chunk`` wedge ids a
+    pass: anchor slot i is the last with ``pair_cum[i] <= k``
+    (``torch.searchsorted``), the wedge is ``(dag_dst[i], dag_dst[i + 1 +
+    k - pair_cum[i]])``, membership :func:`search_steps` vectorised
+    bisection steps in row b (``ops/segment.py`` ``row_contains``).  Ids
+    from ``pair_cum[-1]`` on are no wedges, as in the kernel."""
+    from .segment import row_contains    # segment imports this module
+    steps = search_steps(dag_begin)
+    num_wedges = min(num_wedges, int(pair_cum[-1]))
+    dev = dag_dst.device
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for k0 in range(0, num_wedges, chunk):
+        k = torch.arange(k0, min(k0 + chunk, num_wedges), device=dev)
+        i = torch.searchsorted(pair_cum, k, right=True) - 1
+        j = i + 1 + k - pair_cum[i]
+        total += row_contains(dag_begin, dag_dst, dag_dst[i],
+                              dag_dst[j], steps).sum()
+    return total
+
+
+def triangle_search(dag_begin: torch.Tensor, dag_dst: torch.Tensor,
+                    pair_cum: torch.Tensor, num_wedges: int,
+                    chunk: int = SEARCH_CHUNK) -> torch.Tensor:
+    """0-d int64: the wedge ids ``k < num_wedges`` of the degree-ordered
+    DAG whose wedge closes a triangle, exactly (:func:`triangle_search_ref`
+    gives the wedge of an id; ids from ``pair_cum[-1]``, the DAG's wedge
+    total, on count nothing).  ``dag_begin`` [N+1] int32 row offsets,
+    ``dag_dst`` [D_pad] int32 rows sorted ascending, ``pair_cum``
+    [D_pad+1] int64 wedges anchored before each slot, as
+    ``models/triangle.py`` ``DagContext`` holds them; it raises on what
+    :func:`triangle_search_refusal` refuses.
+
+    On the card one memset and one launch (``csrc/triangle.cu``): each
+    wedge's decode and row bisection in registers, no per-wedge temporary,
+    any row length; integer sums are order-free, so the count is the plain
+    version's.  No wedge: nothing is launched.  On the CPU the plain
+    version, ``chunk`` wedge ids a pass."""
+    tensors = (dag_begin, dag_dst, pair_cum)
+    why = triangle_search_refusal(dag_begin.dtype, dag_dst.dtype,
+                                  pair_cum.dtype,
+                                  all(t.is_contiguous() for t in tensors))
+    if why:
+        raise ValueError(f"triangle_search: {why}")
+    if any(t.dim() != 1 for t in tensors) or dag_begin.numel() < 1:
+        raise ValueError("triangle_search: expected 1-D tensors and at "
+                         "least one row offset")
+    if pair_cum.numel() != dag_dst.numel() + 1:
+        raise ValueError(f"pair_cum has {pair_cum.numel()} entries, dag_dst "
+                         f"{dag_dst.numel()} slots (one more wanted)")
+    if {t.device for t in tensors} != {dag_dst.device}:
+        raise ValueError("dag_begin, dag_dst and pair_cum on different "
+                         "devices")
+    if num_wedges < 0:
+        raise ValueError(f"num_wedges={num_wedges} < 0")
+    if dag_dst.device.type == "cpu":
+        return triangle_search_ref(dag_begin, dag_dst, pair_cum, num_wedges,
+                                   chunk)
+    stream = _cuda_stream(dag_dst)
+    if num_wedges == 0 or dag_dst.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=dag_dst.device)
+    out = torch.empty(2, dtype=torch.int64,
+                      device=dag_dst.device)     # the C entry clears it
+    with torch.cuda.device(dag_dst.device):
+        err = _build.lib().gm_triangle_search(
+            dag_begin.data_ptr(), dag_dst.data_ptr(), dag_dst.numel(),
+            pair_cum.data_ptr(), num_wedges, out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"gm_triangle_search: CUDA error {err}")
+    _count("triangle_search")
+    return out[0]
+
+
+triangle_search.launches = 0
+
+
 _WRAPPERS = (segment_reduce_sorted, plain_cumsum, segmented_scan,
              take_along_blocks, row_gather_checksum, edge_map_bor,
-             edge_map_bor_level, bit_popstats)
+             edge_map_bor_level, bit_popstats, triangle_search)
 _LANE_WRAPPERS = (segment_reduce_sorted, plain_cumsum)
 
 

@@ -101,3 +101,15 @@ def bit_popstats(n_rows: int, lanes: int, plane_bytes: int) -> int:
     ``lanes * 8 * plane_bytes`` instances each."""
     row_bytes = lanes * plane_bytes
     return n_rows * row_bytes + 4 * n_rows + 2 * 8 * 8 * row_bytes
+
+
+def triangle_search(n_nodes: int, dag_edges: int, anchor_slots: int,
+                    anchor_row_slots: int) -> Tuple[int, int]:
+    """``triangle_search``, one call: ``(the DAG once, each anchor's row
+    once)``.  The first reads the ``n_nodes + 1`` row offsets and the
+    ``dag_edges`` row entries once; the second, for each of the
+    ``anchor_slots`` slots that anchor a wedge, its row b's two bounds and
+    its ``anchor_row_slots`` entries (summed over those slots), as a search
+    that reads each anchor's row b once and no row again must."""
+    return (4 * (n_nodes + 1) + 4 * dag_edges,
+            8 * anchor_slots + 4 * anchor_row_slots)

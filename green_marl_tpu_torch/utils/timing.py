@@ -23,8 +23,9 @@ device: ``predicate``, ``upload``, ``bfs_direction``, ``bfs_push_mark``,
 ``bfs_reached``), ``gm:edge_map`` (one call of the binned engine's edge
 map, ``ops/binned.py``), ``gm:popstats`` (the bit BFS's final
 per-instance counts, ``models/batched.py``), ``gm:triangle:count`` (one
-``count_dag`` call) and ``gm:triangle:chunk`` (one chunk of the wedge
-search, ``models/triangle.py``).  They exist only while a profiler
+``count_dag`` call) and ``gm:triangle:chunk`` (one call of the wedge
+search: one kernel launch on the card, every pass of its plain version
+on the CPU; ``models/triangle.py``).  They exist only while a profiler
 records.
 """
 

@@ -185,7 +185,8 @@ def test_launch_counts_and_checks(dev):
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0,
                                  "edge_map_bor": 0,
-                                 "edge_map_bor_level": 0, "bit_popstats": 0}
+                                 "edge_map_bor_level": 0, "bit_popstats": 0,
+                                 "triangle_search": 0}
     with pytest.raises(TypeError):
         K.plain_cumsum(x.long())
     with pytest.raises(ValueError):
@@ -811,6 +812,157 @@ def test_triangle_literal_directed_on_the_card(dev, monkeypatch):
     assert T.triangle_count_literal(gd) == want
     assert A.triangle_directed_count(gd) == A.triangle_directed_count(g) > 0
     T._PREP_CACHE.clear()
+
+
+# -- triangle counting's wedge search (csrc/triangle.cu) ---------------------
+
+SEARCH_CASES = ["rmat61", "rmat62", "rmat63", "empty_ends", "hub"]
+SEARCH_TILE = 1 << 12     # wedge ids a warp claims: kTile of csrc/triangle.cu
+
+
+def search_edges(case):
+    """``(src, dst, n)``: an edge list whose undirected simple graph is the
+    case.  ``rmat<seed>``: an RMAT of 3,000 nodes; ``empty_ends``: an RMAT
+    on ids 100-2,899 of 3,000, so that the rows of ids below 100 and from
+    2,900 are empty; ``hub``: an RMAT on ids 1-6,000 and node 0 next to
+    every other node, a row of 6,000 slots whose first slot anchors 5,999
+    wedges (more than a tile of the kernel)."""
+    from green_marl_tpu_torch.graph import generate
+    if case.startswith("rmat"):
+        src, dst = generate.rmat_edges(3000, 40_000, seed=int(case[4:]))
+        return src, dst, 3000
+    if case == "empty_ends":
+        src, dst = generate.rmat_edges(2800, 30_000, seed=65)
+        return src + 100, dst + 100, 3000
+    assert case == "hub", case
+    src, dst = generate.rmat_edges(6000, 40_000, seed=66)
+    others = np.arange(1, 6001, dtype=src.dtype)
+    return (np.concatenate([src + 1, np.zeros_like(others)]),
+            np.concatenate([dst + 1, others]), 6001)
+
+
+def search_dag(src, dst, n, device):
+    """The DAG of the simple undirected graph of ``src -- dst`` oriented
+    from the lower id to the higher (rank = id, where ``build_dag`` orders
+    by degree: any order counts each triangle once), as a ``DagContext`` on
+    ``device``."""
+    from green_marl_tpu_torch.graph.csr import round_up
+    from green_marl_tpu_torch.models import triangle as T
+    lo = np.minimum(src, dst).astype(np.int64)
+    hi = np.maximum(src, dst).astype(np.int64)
+    codes = np.unique(lo[lo != hi] * n + hi[lo != hi])
+    rows, dd = codes // n, codes % n
+    D = codes.shape[0]
+    begin = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=begin[1:])
+    d_pad = round_up(max(D, 1))
+    dag_dst = np.full(d_pad, n, np.int64)
+    dag_dst[:D] = dd
+    pair_cum = np.zeros(d_pad + 1, np.int64)
+    np.cumsum(begin[rows + 1] - np.arange(1, D + 1), out=pair_cum[1:D + 1])
+    pair_cum[D + 1:] = pair_cum[D]
+    return T.dag_to_device((begin, dag_dst, pair_cum, D), device)
+
+
+def _search(ctx, fn=K.triangle_search):
+    return int(fn(ctx.dag_begin, ctx.dag_dst, ctx.pair_cum, ctx.num_wedges))
+
+
+@pytest.mark.parametrize("case", SEARCH_CASES)
+def test_triangle_search_kernel_matches_ref(dev, case):
+    """The kernel's count equals the plain version's on the CPU and on the
+    card and the join's, one launch a call, over the DAG oriented by id and
+    (RMAT cases) the degree-ordered one; wedge ids past the DAG's total
+    count nothing (the kernel ends); the cases' shapes hold."""
+    from green_marl_tpu_torch.models import triangle as T
+    src, dst, n = search_edges(case)
+    host = search_dag(src, dst, n, "cpu")
+    ctx = search_dag(src, dst, n, dev)
+    want = _search(host, K.triangle_search_ref)
+    assert want == _search(ctx, K.triangle_search_ref) == \
+        T.count_sortmerge(ctx) > 0
+    K.reset_launch_counts()
+    got = K.triangle_search(ctx.dag_begin, ctx.dag_dst, ctx.pair_cum,
+                            ctx.num_wedges)
+    assert got.is_cuda and got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == want
+    assert K.launch_counts()["triangle_search"] == 1
+    total = int(ctx.pair_cum[-1])
+    assert total == ctx.num_wedges
+    for past in (total + 1, total + 3 * SEARCH_TILE + 5):
+        assert int(K.triangle_search(ctx.dag_begin, ctx.dag_dst,
+                                     ctx.pair_cum, past)) == want
+        assert int(K.triangle_search_ref(ctx.dag_begin, ctx.dag_dst,
+                                         ctx.pair_cum, past)) == want
+    assert K.launch_counts()["triangle_search"] == 3
+    rows = host.dag_begin.diff()
+    assert host.num_wedges % SEARCH_TILE != 0
+    if case == "hub":
+        assert int(rows[0]) == 6000 > SEARCH_TILE
+        assert int(host.pair_cum[1]) == 5999 > SEARCH_TILE
+    if case == "empty_ends":
+        assert int(rows[:100].abs().sum()) == int(rows[-100:].abs().sum()) \
+            == 0
+    if case.startswith("rmat"):
+        csr_src, csr_dst = np.concatenate([src, dst]), \
+            np.concatenate([dst, src])
+        keep = csr_src != csr_dst
+        from green_marl_tpu_torch.graph import csr
+        g = csr.from_edges(csr_src[keep], csr_dst[keep], n)[0]
+        by_degree = T.build_dag(g.to(dev))
+        assert _search(by_degree) == \
+            _search(by_degree, K.triangle_search_ref) == want
+        assert K.launch_counts()["triangle_search"] == 4
+    T._PREP_CACHE.clear()
+
+
+def test_triangle_search_complete_graph(dev):
+    """K_2400 through ``build_dag`` on the card: rows of up to 2,399 slots
+    and C(2400, 3) = 2,301,120,800 wedges, all triangles: wedge ids and
+    the count past 2^31."""
+    from green_marl_tpu_torch.models import triangle as T
+    n = 2400
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    node_idx = ids.repeat(n).view(n, n)[~torch.eye(n, dtype=torch.bool,
+                                                   device=dev)]
+    begin = torch.arange(n + 1, dtype=torch.int32, device=dev) * (n - 1)
+    ctx = T.build_dag_torch(begin, node_idx, n)
+    want = n * (n - 1) * (n - 2) // 6
+    assert want == 2_301_120_800 > 2**31
+    assert ctx.num_wedges == want
+    assert int(ctx.dag_begin.diff().max()) == n - 1
+    K.reset_launch_counts()
+    assert _search(ctx) == want
+    assert K.launch_counts()["triangle_search"] == 1
+
+
+def test_triangle_search_route_counts_and_refusals(dev):
+    """``count_search`` on the card: one launch, the counter's fields
+    (``steps`` 0); what the rule refuses raises and launches nothing."""
+    from green_marl_tpu_torch.models import triangle as T
+    ctx = search_dag(*search_edges("rmat61"), dev)
+    want = _search(ctx, K.triangle_search_ref)
+    K.reset_launch_counts()
+    T.reset_search_counts()
+    assert T.count_search(ctx) == T.count_search(ctx, chunk=5000) == want
+    assert T.search_counts() == {"calls": 2, "chunks": 2,
+                                 "wedges": 2 * ctx.num_wedges, "steps": 0}
+    assert K.launch_counts()["triangle_search"] == 2
+    strided = torch.stack([ctx.dag_dst, ctx.dag_dst], 1)[:, 0]
+    assert not strided.is_contiguous()
+    bad = [(ctx.dag_begin, ctx.dag_dst.long(), ctx.pair_cum),
+           (ctx.dag_begin, strided, ctx.pair_cum),
+           (ctx.dag_begin.long(), ctx.dag_dst, ctx.pair_cum),
+           (ctx.dag_begin, ctx.dag_dst, ctx.pair_cum.int()),
+           (ctx.dag_begin, ctx.dag_dst, ctx.pair_cum[1:]),
+           (ctx.dag_begin, ctx.dag_dst, ctx.pair_cum.cpu())]
+    for args in bad:
+        with pytest.raises(ValueError):
+            K.triangle_search(*args, ctx.num_wedges)
+    assert K.launch_counts()["triangle_search"] == 2
+    assert int(K.triangle_search(ctx.dag_begin, ctx.dag_dst, ctx.pair_cum,
+                                 0)) == 0
+    assert K.launch_counts()["triangle_search"] == 2
 
 
 def test_weak_cc_and_communities_on_the_card(dev):

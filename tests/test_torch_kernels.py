@@ -172,7 +172,8 @@ def test_wrappers_check_arguments_and_count_only_launches():
                                  "take_along_blocks": 0,
                                  "row_gather_checksum": 0,
                                  "edge_map_bor": 0,
-                                 "edge_map_bor_level": 0, "bit_popstats": 0}
+                                 "edge_map_bor_level": 0, "bit_popstats": 0,
+                                 "triangle_search": 0}
 
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -194,6 +195,65 @@ def test_bit_popstats_rule(dtype, contiguous, takes):
     why = K.bit_popstats_refusal(dtype, contiguous)
     assert (why is None) is takes
     assert takes or isinstance(why, str) and why
+
+
+I64, F32 = torch.int64, torch.float32
+
+
+@pytest.mark.parametrize("begin,dst,cum,contiguous,takes", [
+    (I32, I32, I64, True, True), (I32, I32, I64, False, False),
+    (I64, I32, I64, True, False), (I32, I64, I64, True, False),
+    (I32, I32, I32, True, False), (I32, U8, I64, True, False),
+    (F32, I32, I64, True, False), (I32, I32, F32, True, False),
+])
+def test_triangle_search_rule(begin, dst, cum, contiguous, takes):
+    why = K.triangle_search_refusal(begin, dst, cum, contiguous)
+    assert (why is None) is takes
+    assert takes or isinstance(why, str) and why
+
+
+def _tiny_dag():
+    """The DAG of the triangle 0-1-2 and the edge 2-3 oriented by id:
+    rows [1, 2], [2], [3], []; one wedge, (1, 2) of row 0, which closes
+    the triangle."""
+    return (torch.tensor([0, 2, 3, 4, 4], dtype=torch.int32),
+            torch.tensor([1, 2, 2, 3], dtype=torch.int32),
+            torch.tensor([0, 1, 1, 1, 1], dtype=torch.int64))
+
+
+@pytest.mark.parametrize("bad", ["dst_int64", "strided", "begin_int64",
+                                 "cum_int32", "cum_short", "two_d",
+                                 "negative"])
+def test_triangle_search_wrapper_checks(bad):
+    """What the wrapper refuses raises on the CPU too; what it takes runs
+    the plain version there and counts no launch; ids past the DAG's one
+    wedge count nothing."""
+    begin, dst, cum = _tiny_dag()
+    n = 1
+    if bad == "dst_int64":
+        dst = dst.long()
+    elif bad == "strided":
+        dst = torch.stack([dst, dst], 1)[:, 0]
+    elif bad == "begin_int64":
+        begin = begin.long()
+    elif bad == "cum_int32":
+        cum = cum.int()
+    elif bad == "cum_short":
+        cum = cum[1:]
+    elif bad == "two_d":
+        begin = begin[None]
+    else:
+        n = -1
+    K.reset_launch_counts()
+    with pytest.raises(ValueError):
+        K.triangle_search(begin, dst, cum, n)
+    begin, dst, cum = _tiny_dag()
+    got = K.triangle_search(begin, dst, cum, 1)
+    assert got.dtype == torch.int64 and got.dim() == 0 and int(got) == 1
+    assert int(K.triangle_search_ref(begin, dst, cum, 1)) == 1
+    assert int(K.triangle_search(begin, dst, cum, 7, chunk=2)) == \
+        int(K.triangle_search_ref(begin, dst, cum, 2)) == 1
+    assert K.launch_counts()["triangle_search"] == 0
 
 
 def _numpy_popstats(plane, deg, bits):

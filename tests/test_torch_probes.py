@@ -339,7 +339,8 @@ def _script(name):
 
 
 @pytest.mark.parametrize("name", ["probes.segment", "probes.profile_apps",
-                                  "probe_relax", "probe_edge_map"])
+                                  "probe_relax", "probe_edge_map",
+                                  "probes.triangle"])
 def test_segment_and_profile_probes_need_a_card(name):
     """Each measures the card: without one it exits with a message, and
     never times the plain versions on the CPU instead."""
@@ -435,6 +436,31 @@ def test_edge_map_level_bound():
     assert table_once - em_table == gathered - em_gathered == 48 + 32
     assert bounds.edge_map_bor_level(slots, bp.n_rows, row_bytes, 0, 0) \
         == (em_table, em_gathered)
+
+
+@pytest.mark.parametrize("seed", [12, 13])
+def test_triangle_search_bound(seed):
+    """The wedge search's two bounds from a degree-ordered DAG's shapes:
+    the row offsets and rows once, and for each slot that anchors a wedge
+    its row b's two bounds and entries, counted here slot by slot."""
+    from green_marl_tpu_torch.graph.csr import from_edges, to_undirected
+    from green_marl_tpu_torch.graph.generate import rmat_edges
+    from green_marl_tpu_torch.models import triangle
+    from green_marl_tpu_torch.probes import bounds
+    from green_marl_tpu_torch.probes import triangle as probe_tri
+    src, dst = rmat_edges(1500, 12000, seed=seed)
+    g = from_edges(*to_undirected(src, dst, dedup=True), 1500)[0]
+    ctx = triangle.build_dag(g)
+    D, n = ctx.num_dag_edges, ctx.dag_begin.numel() - 1
+    begin, dag_dst = ctx.dag_begin.numpy(), ctx.dag_dst.numpy()
+    cum = ctx.pair_cum.numpy()
+    anchors = [s for s in range(D) if cum[s + 1] > cum[s]]
+    entries = sum(int(begin[dag_dst[s] + 1] - begin[dag_dst[s]])
+                  for s in anchors)
+    assert 0 < len(anchors) < D and entries > 0
+    assert probe_tri.search_shape(ctx) == (len(anchors), entries)
+    assert bounds.triangle_search(n, D, len(anchors), entries) == \
+        (4 * (n + 1) + 4 * D, 8 * len(anchors) + 4 * entries)
 
 
 @pytest.mark.parametrize("weighted,want", [(False, 451_012),

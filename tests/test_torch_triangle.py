@@ -19,6 +19,7 @@ from green_marl_tpu_torch.graph import csr as tcsr
 from green_marl_tpu_torch.graph import generate as tgen
 from green_marl_tpu_torch.graph import native as tnative
 from green_marl_tpu_torch.models import triangle as ttri
+from green_marl_tpu_torch.ops import kernels as K
 
 
 def both(src, dst, n):
@@ -83,6 +84,25 @@ def test_every_path_matches_jax_and_oracle(kind, n, m, seed, monkeypatch):
     force_sortmerge(monkeypatch)
     ttri._PREP_CACHE.clear()
     assert ttri.triangle_count(tg, chunk=256) == want
+
+
+@pytest.mark.parametrize("kind,n,m,seed", [("uniform", 60, 400, 0),
+                                           ("uniform", 60, 400, 1),
+                                           ("rmat", 128, 2000, 2),
+                                           ("rmat", 600, 6000, 3),
+                                           ("rmat", 600, 6000, 4)])
+def test_search_ref_is_count_search(kind, n, m, seed):
+    """The plain search (``kernels.triangle_search_ref``, the card kernel's
+    plain version) gives ``count_search``'s counts, whatever its chunk."""
+    src, dst = undirected(kind, n, m, seed)
+    _, tg, begin, node_idx = both(src, dst, n)
+    ctx = ttri.build_dag(tg)
+    want = ttri.triangle_count_np(begin, node_idx)
+    args = (ctx.dag_begin, ctx.dag_dst, ctx.pair_cum, ctx.num_wedges)
+    for chunk in (256, 1 << 24):
+        assert int(K.triangle_search_ref(*args, chunk=chunk)) == \
+            ttri.count_search(ctx, chunk) == want
+    assert int(K.triangle_search(*args)) == want
 
 
 @pytest.mark.parametrize("width", [1 << 9, 1 << 13, 1 << 27])

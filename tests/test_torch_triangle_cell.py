@@ -22,6 +22,9 @@ from gmbench.tests.test_gmbench_run import Ev
 from green_marl_tpu_torch.graph import native
 from green_marl_tpu_torch.graph.csr import from_edges
 from green_marl_tpu_torch.models import triangle as ttri
+from green_marl_tpu_torch.ops import kernels as K
+from green_marl_tpu_torch.ops import segment
+from tests.test_torch_cuda import SEARCH_CASES, search_dag, search_edges
 
 CELL = "lj.triangles"
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -177,6 +180,27 @@ def test_generator_is_rmat_made_simple_and_undirected():
     assert e.lens.shape == e.src.shape and e.num_nodes == n
 
 
+# --- the search's synthetic DAGs of the card tests, on the CPU ----------------
+
+@pytest.mark.parametrize("case", SEARCH_CASES)
+def test_search_cases_on_the_cpu(case):
+    """The card tests' DAGs (oriented by id: a hub row longer than a tile,
+    empty rows at both ends): the plain search, in one chunk and in several,
+    and the wrapper on the CPU agree with the degree-ordered route's
+    count."""
+    src, dst, n = search_edges(case)
+    ctx = search_dag(src, dst, n, "cpu")
+    args = (ctx.dag_begin, ctx.dag_dst, ctx.pair_cum, ctx.num_wedges)
+    got = int(K.triangle_search_ref(*args))
+    keep = src != dst
+    g = from_edges(np.concatenate([src[keep], dst[keep]]),
+                   np.concatenate([dst[keep], src[keep]]), n)[0]
+    assert got == int(K.triangle_search(*args)) == \
+        ttri.triangle_count(g) > 0
+    assert int(K.triangle_search_ref(*args, chunk=(1 << 18) + 3)) == got
+    ttri._PREP_CACHE.clear()
+
+
 # --- spans and the counter ----------------------------------------------------
 
 def test_search_counts_and_spans(monkeypatch):
@@ -195,7 +219,7 @@ def test_search_counts_and_spans(monkeypatch):
     names = collections.Counter(e.name for e in prof.events()
                                 if e.name.startswith("gm:"))
     assert names == {"gm:setup": 1, "gm:triangle:count": 1,
-                     "gm:triangle:chunk": chunks}
+                     "gm:triangle:chunk": 1}
     ttri.triangle_count(g, chunk=5000)
     assert ttri.search_counts()["calls"] == 2
     ttri.reset_search_counts()
@@ -251,8 +275,10 @@ def _off_by_one(monkeypatch):
 
 
 def _dropped_chunk(monkeypatch):
-    """The search's second chunk finds nothing."""
-    search, contains = ttri.count_search, ttri.row_contains
+    """The search's second chunk finds nothing (the plain search's
+    bisection, ``ops/segment.py`` ``row_contains``, which it looks up at
+    each call)."""
+    search, contains = ttri.count_search, segment.row_contains
 
     def dropping(ctx, chunk=1 << 24):
         seen = []
@@ -261,11 +287,11 @@ def _dropped_chunk(monkeypatch):
             seen.append(1)
             hit = contains(*args)
             return hit & False if len(seen) == 2 else hit
-        monkeypatch.setattr(ttri, "row_contains", second_empty)
+        monkeypatch.setattr(segment, "row_contains", second_empty)
         try:
             return search(ctx, chunk=ctx.num_wedges // 4 + 1)
         finally:
-            monkeypatch.setattr(ttri, "row_contains", contains)
+            monkeypatch.setattr(segment, "row_contains", contains)
     monkeypatch.setattr(ttri, "count_search", dropping)
 
 
